@@ -1,29 +1,37 @@
-"""Llama-style decoder in PyTorch: the serving slice of the JAX package's
-``models/transformer.py``.
+"""Llama-style decoder in PyTorch: the serving and training slices of the
+JAX package's ``models/transformer.py``.
 
 Ported: ``TransformerConfig``, ``rms_norm``, ``rope`` (split-half layout),
-the plain-array ``qeinsum``, ``init_params``, the prefill ``forward``
-(``return_kv=True`` gives the per-layer K/V) and the paged decode
-(``decode_window_paged`` / ``decode_step_paged``). Parameters are a plain
-dict: ``embed [V, D]``, ``layers`` (a list of per-layer dicts, where JAX
-stacks them on a leading axis for ``lax.scan``), ``ln_f``, ``lm_head
-[D, V]``; weights keep JAX's ``[d_in, d_out]`` layout.
+the plain-array ``qeinsum``, ``init_params``, ``forward`` (``return_kv=True``
+gives the per-layer K/V, ``return_aux=True`` the MoE aux loss), the paged
+decode (``decode_window_paged`` / ``decode_step_paged``), ``loss_fn`` and
+``Transformer`` (``init``, ``apply``, ``make_optimizer``,
+``make_train_step``). Parameters are a plain dict: ``embed [V, D]``,
+``layers`` (a list of per-layer dicts, where JAX stacks them on a leading
+axis for ``lax.scan``), ``ln_f``, ``lm_head [D, V]``; weights keep JAX's
+``[d_in, d_out]`` layout.
 
 The JAX code keeps f32 master weights and casts them to ``config.dtype`` at
-every einsum; the port casts once, when the weights are made or loaded
-(``init_params``, ``weights.params_from_jax``), so Llama-3-8B takes ~16 GB in
-bf16 instead of a 32 GB f32 master plus casts. The values are the same.
+every einsum. Training does the same (``Transformer.init`` makes f32 masters
+that require grad; ``qeinsum`` casts them). Serving casts once, when the
+weights are made or loaded (``init_params``, ``weights.params_from_jax``), so
+Llama-3-8B takes ~16 GB in bf16 instead of a 32 GB f32 master plus casts. The
+values are the same.
 
-Attention runs through the ops: prefill through the flash forward
-(``ops/flash_attention.py``), decode through the paged decode kernel when
-``paged_attention_kernel`` is set (``ops/paged_attention.py``), both kernels
-on CUDA tensors and their plain versions on CPU tensors. Not ported yet and
-refused with ``NotImplementedError``: int8 weights, MoE, LoRA, meshes.
+Attention runs through the ops: prefill and training through the flash
+attention ``autograd.Function`` (``ops/flash_attention.py``: forward kernel,
+and the dK/dV and dQ kernels in the backward), decode through the paged
+decode kernel when ``paged_attention_kernel`` is set
+(``ops/paged_attention.py``), all kernels on CUDA tensors and their plain
+versions on CPU tensors. Not ported yet and refused with
+``NotImplementedError``: int8 weights, MoE, LoRA, meshes; ``generate`` and
+``generate_cached`` wait for the contiguous decode family (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -145,13 +153,15 @@ def init_params(
     generator: torch.Generator,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
+    requires_grad: bool = False,
 ) -> Params:
     """Random weights with the JAX ``init_params`` distributions
     (normal / sqrt(fan_in), ones for the norms), made straight in ``dtype``
     (default ``config.dtype``) on ``device`` (default CUDA; raises without
-    it). ``generator`` must live on that device; the numbers differ from
-    ``jax.random``'s, so tests that compare the two frameworks load JAX's
-    weights through ``weights.params_from_jax`` instead."""
+    it); ``requires_grad`` makes every leaf a trainable master. ``generator``
+    must live on that device; the numbers differ from ``jax.random``'s, so
+    tests that compare the two frameworks load JAX's weights through
+    ``weights.params_from_jax`` instead."""
     c = config
     if c.n_experts:
         raise NotImplementedError("MoE is not ported yet (ROADMAP Queue 1)")
@@ -184,19 +194,28 @@ def init_params(
         }
         for _ in range(c.n_layers)
     ]
-    return {
+    params = {
         "embed": dense(d, c.vocab_size, d),
         "layers": layers,
         "ln_f": ones(d),
         "lm_head": dense(d, d, c.vocab_size),
     }
+    for leaf in param_leaves(params):
+        leaf.requires_grad_(requires_grad)
+    return params
+
+
+def param_leaves(params: Params) -> list[torch.Tensor]:
+    """Every weight tensor in one fixed order (embed, each layer's leaves,
+    ln_f, lm_head): what the optimizer steps and its state is indexed by."""
+    return ([params["embed"]]
+            + [w for layer in params["layers"] for w in layer.values()]
+            + [params["ln_f"], params["lm_head"]])
 
 
 def n_params(params: Params) -> int:
     """Parameter count (the weight bytes a decode step streams / itemsize)."""
-    total = sum(params[k].numel() for k in ("embed", "ln_f", "lm_head"))
-    return total + sum(w.numel() for layer in params["layers"]
-                       for w in layer.values())
+    return sum(w.numel() for w in param_leaves(params))
 
 
 # ------------------------------------------------------------------- forward
@@ -236,9 +255,11 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
 
 
 def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
-            return_kv: bool = False):
+            return_kv: bool = False, return_aux: bool = False):
     """Logits ``[B, L, vocab]`` in f32; with ``return_kv`` also the
-    per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``."""
+    per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``; with
+    ``return_aux`` also the summed MoE load-balancing loss, an f32 0.0 for
+    dense configs (MoE itself raises in ``_mlp_block``)."""
     c = config
     B, L = tokens.shape
     positions = torch.arange(L, device=tokens.device).expand(B, L)
@@ -251,8 +272,13 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
             vs.append(kv[1])
     h = rms_norm(h, params["ln_f"])
     logits = qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype).float()
+    extras = []
     if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
+        extras.append((torch.stack(ks), torch.stack(vs)))
+    if return_aux:
+        extras.append(torch.zeros((), dtype=torch.float32, device=logits.device))
+    if extras:
+        return (logits, *extras)
     return logits
 
 
@@ -343,3 +369,78 @@ def decode_window_paged(
     h = rms_norm(h, params["ln_f"])
     logits = qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype)
     return logits.float(), cache
+
+
+# ---------------------------------------------------------------- loss/train
+
+
+def loss_fn(params: Params, batch: dict[str, torch.Tensor],
+            config: TransformerConfig) -> torch.Tensor:
+    """Mean next-token NLL over f32 logits plus the z-loss
+    ``z_loss * logsumexp(logits)**2`` and the MoE aux term, as the JAX
+    ``loss_fn`` (tokens and targets ``[B, L]``)."""
+    logits, aux = forward(params, batch["tokens"], config, return_aux=True)
+    logz = torch.logsumexp(logits, dim=-1)
+    target_logit = torch.gather(
+        logits, -1, batch["targets"].long()[..., None]
+    )[..., 0]
+    nll = logz - target_logit
+    # z-loss keeps logits from drifting (stability at bf16)
+    loss = nll + config.z_loss * logz**2
+    return loss.mean() + config.moe_aux_weight * aux
+
+
+def _adamw(params: Params, *, lr: float) -> torch.optim.AdamW:
+    # optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.1) and this are the
+    # same algebra: optax adds wd * p to the Adam update before scaling by
+    # -lr, PyTorch multiplies p by (1 - lr * wd) first and then takes the
+    # Adam step; both give p - lr * (adam + wd * p). eps is optax's default.
+    return torch.optim.AdamW(param_leaves(params), lr=lr, betas=(0.9, 0.95),
+                             weight_decay=0.1, eps=1e-8)
+
+
+class Transformer:
+    """Config bundle with the training entry points of the JAX
+    ``Transformer`` (mesh-free; meshes are the parallel layer's slice)."""
+
+    def __init__(self, config: TransformerConfig, mesh=None) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes are not ported yet (ROADMAP Queue 1 item 13)"
+            )
+        self.config = config
+
+    def init(self, generator: torch.Generator,
+             device: torch.device | str | None = None) -> Params:
+        """f32 master weights that require grad, on ``device`` (default
+        CUDA; raises without it); compute runs in ``config.dtype``."""
+        return init_params(self.config, generator, device,
+                           dtype=torch.float32, requires_grad=True)
+
+    def apply(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(params, tokens, self.config)
+
+    def make_optimizer(self, learning_rate: float = 3e-4):
+        """The JAX ``optax.adamw`` as a factory: called on the params it
+        gives the optimizer state, a ``torch.optim.AdamW`` over every
+        leaf (``param_leaves``)."""
+        return functools.partial(_adamw, lr=learning_rate)
+
+    def make_train_step(self, optimizer=None):
+        """``train_step(params, opt_state, batch) -> (params, opt_state,
+        loss)`` with the JAX signature. ``opt_state`` is ``optimizer(params)``
+        (None makes it on the first step). The update is in place, where
+        JAX donates params and state; the gradients stay on the leaves
+        (``.grad``) until the next step."""
+        optimizer = optimizer or self.make_optimizer()
+
+        def train_step(params, opt_state, batch):
+            if opt_state is None:
+                opt_state = optimizer(params)
+            opt_state.zero_grad(set_to_none=True)
+            loss = loss_fn(params, batch, self.config)
+            loss.backward()
+            opt_state.step()
+            return params, opt_state, loss.detach()
+
+        return train_step

@@ -4,9 +4,11 @@ the port's parameter dict.
 The JAX pytree (``models/transformer.py::init_params`` there) is ``embed``,
 ``ln_f``, ``lm_head`` and ``layers``, whose leaves are stacked on a leading
 ``n_layers`` axis for ``lax.scan``. The port keeps one dict per layer, so the
-stack is split here. Weights are cast once, to ``dtype`` (default
+stack is split here. Serving casts the weights once, to ``dtype`` (default
 ``config.dtype``), on the way in; the JAX code casts its f32 masters at
-every einsum instead, to the same values.
+every einsum instead, to the same values. Training takes them as f32 masters
+that require grad (``dtype=torch.float32, requires_grad=True``) and casts at
+every einsum as JAX does.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down")
 
 
 def params_from_jax(params_np: dict, config, device=None,
-                    dtype: torch.dtype | None = None) -> dict:
+                    dtype: torch.dtype | None = None,
+                    requires_grad: bool = False) -> dict:
     """``params_np`` is the JAX pytree with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``). ``device`` defaults to CUDA and
-    raises without it."""
+    raises without it; ``requires_grad`` makes every leaf a trainable
+    master."""
     device = resolve_device(device)
     dtype = dtype or config.dtype
 
@@ -33,7 +37,8 @@ def params_from_jax(params_np: dict, config, device=None,
                 "weight-only int8 leaves are not ported yet (ROADMAP Queue 1)"
             )
         arr = np.array(x, dtype=np.float32)  # a writable copy
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+        out = torch.from_numpy(arr).to(device=device, dtype=dtype)
+        return out.requires_grad_(requires_grad)
 
     stacked = params_np["layers"]
     if "moe" in stacked:

@@ -7,20 +7,32 @@ Phases, each printed as one JSON line, any failure exits non-zero:
 
 1. card: name and power limit (nvidia-smi), CUDA version; TF32 off for the
    f32 references.
-2. build: both hand-written kernels from ``ops/csrc`` with nvcc for sm_90a,
-   in parallel, into ``ops/_build`` (ptxas register/spill lines printed).
-3. kernels: each kernel against its plain PyTorch version on the same bf16
-   inputs (the plain version in f32) at the main path's shapes, with its
-   time, the plain version's, one library call's (K1: SDPA with GQA) and
-   the card's bound for the work.
-4. reference: the decoder cut to 2 layers at Llama-3-8B widths, prefill +
-   paged decode teacher-forced, bf16 kernels on the card against the f32
-   plain path on the CPU on the same weights.
-5. main path: Llama-3-8B (full width and depth, random weights from a seed)
-   served by Engine -> ContinuousBatcher: 12 requests with prompts of
+2. build: the four hand-written kernels from ``ops/csrc`` with nvcc for
+   sm_90a, one nvcc per source in parallel, into ``ops/_build`` (ptxas
+   register/spill lines printed).
+3. serving kernels (K1 forward, K2 paged decode): each against its plain
+   PyTorch version on the same bf16 inputs (the plain version in f32) at the
+   paths' shapes, with its time, the plain version's, one library call's
+   (SDPA with GQA for K1) and the card's bound for the work.
+4. serving reference: the decoder cut to 2 layers at Llama-3-8B widths,
+   prefill + paged decode teacher-forced, bf16 kernels on the card against
+   the f32 plain path on the CPU on the same weights.
+5. serving path: Llama-3-8B (full width and depth, random weights from a
+   seed) served by Engine -> ContinuousBatcher: 12 requests with prompts of
    64-1024 tokens on 8 rows, 32 new tokens each, greedy and seeded sampled;
-   the launch counts of both kernels must match the admissions and decode
+   the launch counts of K1 and K2 must match the admissions and decode
    steps; a second identical run must give identical tokens.
+6. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
+   SDPA's backward as the library call.
+7. training reference: one training step of the decoder cut to 2 layers at
+   Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
+   on the card against the f32 plain path on the CPU: loss and every leaf's
+   gradient.
+8. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut to
+   8 layers (f32 masters and AdamW state do not fit one card at 32), one
+   fixed batch of 2 x 1024 tokens, 4 steps: falling loss, a finite non-zero
+   gradient on every leaf after step 1, K1/K3/K4 each launched once per
+   layer and step.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -68,10 +80,37 @@ BF16_FLOPS_PER_S = 989e12
 # bf16 kernel vs f32 plain version on the same bf16 inputs: the output is
 # rounded to bf16 (~4e-3 at |x| ~ 1) and K1 rounds P to bf16 for P V
 KERNEL_TOL = 2e-2
+# K3/K4 vs their f32 plain versions on the same bf16 inputs: max |error| over
+# max |gradient|. P and dS are rounded to bf16 for the tensor cores and the
+# outputs are bf16; this script's flash_bwd phase on an H100 showed at most
+# 3.7e-3 over its 7 shapes, so 1e-2 (tighter than the 2e-2 of the forward
+# checks) keeps 2.7x headroom.
+BWD_TOL = 1e-2
 # bf16 decoder on the card vs the f32 plain path on the CPU, 2 layers at
 # 8B widths: max |logit error| over max |logit|
 REFERENCE_TOL = 5e-2
-K1_MAIN_CASE = (1, 1024)  # (B, L): the largest prefill the main path runs
+# one training step of that decoder, bf16 on the card vs f32 on the CPU:
+# relative loss error, and per leaf ||g_card - g_cpu|| / ||g_cpu||. The
+# first H100 run gave 1.7e-5 and at most 2.5e-2 (bf16 activations and
+# weight casts); the limits keep 60x and 1.6x headroom.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 4e-2
+K1_MAIN_CASE = (1, 1024)  # (B, L): the largest prefill the serving path runs
+# the training path: Llama-3-8B widths cut to 8 layers (2.80 B parameters,
+# 44.7 GB of f32 masters, gradients and AdamW moments), batch 2 x 1024
+TRAIN_LAYERS, TRAIN_B, TRAIN_L, TRAIN_STEPS = 8, 2, 1024, 4
+# backward cases (B, Lq, Lk, causal, window, with g_lse) at H=32, KVH=8,
+# D=128; the training path runs (2, 1024, 1024, True, None, False)
+BWD_CASES = [
+    (2, 128, 128, True, None, False),
+    (2, 1000, 1000, True, None, False),
+    (2, 1024, 1024, True, None, False),
+    (2, 2048, 2048, True, None, False),
+    (2, 300, 700, False, None, False),
+    (2, 2048, 2048, True, 512, False),
+    (2, 1000, 1000, True, None, True),
+]
+BWD_MAIN_CASE = (TRAIN_B, TRAIN_L, TRAIN_L, True, None, False)
 
 
 def emit(obj) -> None:
@@ -166,6 +205,96 @@ def check_flash(timer, dev) -> list[dict]:
             "bound_by": b_by, "tflops": flops / ms / 1e9,
         })
         del q, k, v, out, lse, ref_out, ref_lse
+    return rows
+
+
+def visible_pairs(Lq: int, Lk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs that attend: the work the kernels cannot skip."""
+    if not causal:
+        return Lq * Lk
+    rows = torch.arange(Lq)
+    hi = torch.clamp(rows + 1, max=Lk)
+    lo = torch.zeros_like(rows) if window is None else torch.clamp(
+        rows - window + 1, min=0)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |error|, max |error| / max |want|)."""
+    err = (got.float() - want).abs().max().item()
+    return err, err / want.abs().max().item()
+
+
+def check_flash_bwd(timer, dev) -> list[dict]:
+    """K3 and K4 on K1's own out/lse and a random dO, against their plain
+    versions in f32 and against SDPA's backward."""
+    H, KVH, D = 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for B, Lq, Lk, causal, window, with_g_lse in BWD_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        q, k, v = randn(B, H, Lq, D), randn(B, KVH, Lk, D), randn(B, KVH, Lk, D)
+        do = randn(B, H, Lq, D)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal, window=window)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        if with_g_lse:
+            delta = delta - torch.randn(B, H, Lq, generator=gen, device=dev)
+        args = (q, k, v, do, lse, delta, causal, None, window)
+        dk, dv = fa.flash_bwd_dkdv_cuda(*args)
+        dq = fa.flash_bwd_dq_cuda(*args)
+        torch.cuda.synchronize()
+        f32 = (q.float(), k.float(), v.float(), do.float(), *args[4:])
+        want_dk, want_dv = fa.flash_bwd_dkdv_plain(*f32)
+        want_dq = fa.flash_bwd_dq_plain(*f32)
+        errs = {name: rel_err(got, want) for name, got, want in
+                (("dk", dk, want_dk), ("dv", dv, want_dv), ("dq", dq, want_dq))}
+        del want_dk, want_dv, want_dq, f32
+        case = f"B={B} Lq={Lq} Lk={Lk} causal={causal} window={window}"
+        for name, (_, rel) in errs.items():
+            check(rel <= BWD_TOL, f"flash_bwd {name} {case}: rel err {rel}")
+
+        dkdv_ms = timer(lambda: fa.flash_bwd_dkdv_cuda(*args), 10)
+        dq_ms = timer(lambda: fa.flash_bwd_dq_cuda(*args), 10)
+        dkdv_plain_ms = timer(lambda: fa.flash_bwd_dkdv_plain(*args), 2, warmup=1)
+        dq_plain_ms = timer(lambda: fa.flash_bwd_dq_plain(*args), 2, warmup=1)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        if window is None:
+            ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                                 enable_gqa=True)
+        else:
+            i = torch.arange(Lq, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+            ref = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                                 enable_gqa=True)
+        library_ms = timer(lambda: torch.autograd.grad(
+            ref, (qr, kr, vr), do, retain_graph=True), 10)
+        del ref, qr, kr, vr
+
+        pairs = visible_pairs(Lq, Lk, causal, window)
+        io = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * 2 * lse.numel()
+        dkdv_bound = bound(8.0 * B * H * pairs * D, io + 2.0 * 2 * k.numel())
+        dq_bound = bound(6.0 * B * H * pairs * D, io + 2.0 * q.numel())
+        rows.append({
+            "B": B, "Lq": Lq, "Lk": Lk, "causal": causal, "window": window,
+            "g_lse": with_g_lse, "pairs": pairs,
+            "dkdv": {"max_abs_err": max(errs["dk"][0], errs["dv"][0]),
+                     "rel_err": max(errs["dk"][1], errs["dv"][1]),
+                     "ms": dkdv_ms, "plain_ms": dkdv_plain_ms,
+                     "bound_ms": dkdv_bound[0], "bound_by": dkdv_bound[1],
+                     "tflops": 8.0 * B * H * pairs * D / dkdv_ms / 1e9},
+            "dq": {"max_abs_err": errs["dq"][0], "rel_err": errs["dq"][1],
+                   "ms": dq_ms, "plain_ms": dq_plain_ms,
+                   "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+                   "tflops": 6.0 * B * H * pairs * D / dq_ms / 1e9},
+            # SDPA's backward computes dQ, dK and dV together: the yardstick
+            # for K3 + K4
+            "library_ms": library_ms,
+            "tflops_library": 14.0 * B * H * pairs * D / library_ms / 1e9,
+        })
+        del q, k, v, do, out, lse, delta, dk, dv, dq, args
     return rows
 
 
@@ -361,6 +490,111 @@ def main_path(params, cfg) -> tuple[dict, dict]:
     return report, first
 
 
+# ----------------------------------------------------------------- training
+
+
+def token_batch(rng, cfg, B: int, L: int, device) -> dict:
+    """Random tokens; the targets are the tokens shifted by one."""
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, L + 1)),
+                          device=device)
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
+def check_train_reference(dev) -> dict:
+    """One training step's loss and every leaf's gradient: bf16 compute
+    through K1/K3/K4 on the card against the f32 plain path on the CPU, on
+    the same f32 master weights."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                         dev, dtype=torch.float32, requires_grad=True)
+    batch = token_batch(np.random.default_rng(9), cfg, 1, 128, dev)
+    loss = transformer.loss_fn(params, batch, cfg)
+    loss.backward()
+    cpu = {
+        name: w.detach().cpu().requires_grad_() for name, w in params.items()
+        if name != "layers"
+    }
+    cpu["layers"] = [{name: w.detach().cpu().requires_grad_()
+                      for name, w in layer.items()}
+                     for layer in params["layers"]]
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    want = transformer.loss_fn(
+        cpu, {name: x.cpu() for name, x in batch.items()}, f32)
+    want.backward()
+    loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+    grad_rel = []
+    for got, ref in zip(transformer.param_leaves(params),
+                        transformer.param_leaves(cpu)):
+        diff = torch.linalg.vector_norm(got.grad.cpu() - ref.grad)
+        grad_rel.append((diff / torch.linalg.vector_norm(ref.grad)).item())
+    check(all(np.isfinite(grad_rel)), f"train reference: grad errors {grad_rel}")
+    check(loss_rel <= TRAIN_LOSS_TOL, f"train reference: loss rel err {loss_rel}")
+    check(max(grad_rel) <= TRAIN_GRAD_TOL,
+          f"train reference: max grad rel err {max(grad_rel)}")
+    return {"phase": "train_reference", "layers": 2, "B": 1, "L": 128,
+            "loss_card": loss.item(), "loss_cpu": want.item(),
+            "loss_rel_err": loss_rel, "max_grad_rel_err": max(grad_rel),
+            "grad_rel_err_by_leaf": grad_rel,
+            "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL}}
+
+
+def train_path(dev) -> dict:
+    """The training main path: ``Transformer.make_train_step`` at
+    Llama-3-8B widths, ``TRAIN_LAYERS`` deep, on one fixed batch; counts
+    kernel launches from zero."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              n_layers=TRAIN_LAYERS)
+    model = transformer.Transformer(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(10), dev)
+    step = model.make_train_step()
+    batch = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L, dev)
+    leaves = transformer.param_leaves(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
+        kernel.launches = 0
+    opt_state, losses, step_ms, grad_norms = None, [], [], []
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss.item())  # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if i == 0:  # the gradients of step 1 stay on the leaves until step 2
+            grad_norms = [None if w.grad is None
+                          else torch.linalg.vector_norm(w.grad).item()
+                          for w in leaves]
+    launches = {"flash_fwd": fa.FLASH_FWD.launches,
+                "flash_bwd_dkdv": fa.FLASH_BWD_DKDV.launches,
+                "flash_bwd_dq": fa.FLASH_BWD_DQ.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    bad = [i for i, n in enumerate(grad_norms)
+           if n is None or not np.isfinite(n) or n <= 0]
+    check(not bad, f"train: leaves {bad} (of param_leaves) without a finite "
+          "non-zero gradient after step 1")
+    want = TRAIN_LAYERS * TRAIN_STEPS
+    check(all(n == want for n in launches.values()),
+          f"train: launches {launches}, expected {want} each")
+    n_params = transformer.n_params(params)
+    n_matmul = n_params - params["embed"].numel()  # the embedding is a gather
+    tokens = TRAIN_B * TRAIN_L
+    pairs = visible_pairs(TRAIN_L, TRAIN_L, True, None)
+    flops = (6.0 * n_matmul * tokens
+             + 12.0 * TRAIN_LAYERS * TRAIN_B * cfg.n_heads * pairs * cfg.head_dim)
+    p50 = float(np.median(step_ms[1:]))
+    return {
+        "phase": "train", "config": "llama3_8b", "layers": TRAIN_LAYERS,
+        "dtype": "bfloat16 compute, float32 masters", "B": TRAIN_B,
+        "L": TRAIN_L, "steps": TRAIN_STEPS, "n_params": n_params,
+        "losses": losses, "step_ms": step_ms, "step_ms_p50_2_to_4": p50,
+        "tokens_per_s": tokens / p50 * 1e3,
+        "model_tflops": flops / p50 / 1e9,
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "leaves_with_finite_nonzero_grad": len(grad_norms),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -374,7 +608,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "matmul_allow_tf32": False, "cudnn_allow_tf32": False})
 
-    kernels = [fa.FLASH_FWD, pa.PAGED_DECODE]
+    kernels = [fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ, pa.PAGED_DECODE]
     t = time.perf_counter()
     build_all(kernels)
     emit({"phase": "build", "seconds": time.perf_counter() - t,
@@ -382,6 +616,8 @@ def main() -> int:
                     for line in k.build_log().splitlines()
                     if "registers" in line or "spill" in line]})
 
+    # serving first (its kernels, reference and path), then training: the
+    # serving path meets the card as it did before the training phases
     timer = Timer(dev)
     flash_rows = check_flash(timer, dev)
     emit({"phase": "flash_fwd", "tolerance": KERNEL_TOL, "cases": flash_rows})
@@ -395,15 +631,52 @@ def main() -> int:
     emit(check_reference(params, cfg, dev))
     report, first = main_path(params, cfg)
     emit(report)
+    del params  # the training phases need the card's memory
+    torch.cuda.empty_cache()
+
+    timer = Timer(dev)
+    bwd_rows = check_flash_bwd(timer, dev)
+    emit({"phase": "flash_bwd", "tolerance": BWD_TOL, "H": 32, "KVH": 8,
+          "D": 128, "cases": bwd_rows})
+    del timer
+    torch.cuda.empty_cache()
+    emit(check_train_reference(dev))
+    torch.cuda.empty_cache()
+    train = train_path(dev)
+    emit(train)
 
     main_k1 = next(r for r in flash_rows
                    if (r["B"], r["L"], r["window"]) == (*K1_MAIN_CASE, None))
+    main_bwd = next(r for r in bwd_rows
+                    if (r["B"], r["Lq"], r["Lk"], r["causal"], r["window"],
+                        r["g_lse"]) == BWD_MAIN_CASE)
+    bwd_shape = (f"B={TRAIN_B} H=32 KVH=8 L={TRAIN_L} D=128 causal bf16, "
+                 "lse/delta f32")
+
+    def bwd_entry(name, key, replaces):
+        row = main_bwd[key]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"bee_code_interpreter_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": train["launches"][name],
+            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows),
+            "max_rel_err": max(r[key]["rel_err"] for r in bwd_rows),
+            "ms": row["ms"], "kernel_ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # SDPA's whole backward (dQ, dK, dV): the yardstick for K3 + K4
+            "library_ms": main_bwd["library_ms"],
+            "shape": bwd_shape,
+        }
+
     emit({"kernels": [
         {
             "name": "flash_fwd", "route": "cuda",
             "source": "bee_code_interpreter_tpu_torch/ops/csrc/flash_fwd.cu",
             "replaces": "bee_code_interpreter_tpu/ops/flash_attention.py:48",
             "launches": first["k1_launches"],
+            "train_launches": train["launches"]["flash_fwd"],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],
             "plain_ms": main_k1["plain_ms"], "bound_ms": main_k1["bound_ms"],
@@ -411,6 +684,10 @@ def main() -> int:
             "library_ms": main_k1["library_ms"],
             "shape": "B=1 H=32 KVH=8 L=1024 D=128 causal bf16",
         },
+        bwd_entry("flash_bwd_dkdv", "dkdv",
+                  "bee_code_interpreter_tpu/ops/flash_attention.py:291"),
+        bwd_entry("flash_bwd_dq", "dq",
+                  "bee_code_interpreter_tpu/ops/flash_attention.py:357"),
         {
             "name": "paged_decode", "route": "cuda",
             "source": "bee_code_interpreter_tpu_torch/ops/csrc/paged_decode.cu",

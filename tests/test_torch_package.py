@@ -58,7 +58,7 @@ def test_hygiene_check_catches_the_jax_package(tmp_path):
 
 
 def test_kernel_sources_exist_with_their_notes():
-    for name in ("flash_fwd", "paged_decode"):
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "paged_decode"):
         src = (PORT / "ops" / "csrc" / f"{name}.cu").read_text()
         assert "Replaces the TPU kernel" in src and "Bound on this card" in src
         assert "cudaGetLastError" in src

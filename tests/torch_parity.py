@@ -40,11 +40,13 @@ def tiny_configs(**overrides):
     return jcfg, tcfg
 
 
-def tiny_params(jcfg, tcfg, seed: int = 0):
-    """(JAX params, port params on the CPU) holding the same weights."""
+def tiny_params(jcfg, tcfg, seed: int = 0, requires_grad: bool = False):
+    """(JAX params, port params on the CPU) holding the same weights;
+    ``requires_grad`` makes the port's leaves trainable masters."""
     jparams = jax_t.init_params(jcfg, jax.random.PRNGKey(seed))
     tparams = params_from_jax(
-        jax.tree.map(np.asarray, jparams), tcfg, device="cpu"
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu",
+        requires_grad=requires_grad,
     )
     return jparams, tparams
 
