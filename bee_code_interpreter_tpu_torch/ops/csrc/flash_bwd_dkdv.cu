@@ -13,127 +13,124 @@
 // with delta = rowsum(dO * O) - g_lse computed by the caller. What it does not
 // carry over is the TPU's tiling: the sequential (rep, q-block) grid
 // dimensions become the loops inside the block, there is no padding of L to a
-// block multiple and no 512-block cap; the kernel masks its own ragged edge
-// (rows >= Lq, keys >= Lk) and skips query tiles entirely above the causal
-// diagonal or above the window (the same conditions as :317-320).
+// block multiple and no 512-block cap; the 3-D TMA maps read rows past L as
+// zeros within their head, the kernel forces P to 0 on rows >= Lq and keys
+// >= Lk, the output store drops keys >= Lk, and query tiles entirely above the
+// causal diagonal or above the window are skipped (the conditions of
+// :317-320).
 //
 // Bound on this card: operations. Four products of D = 128 per visible pair
-// (S, dP, dV, dK), 8 * pairs * D flops per query head. So the products run on
-// the tensor cores: mma.sync m16n8k16, bf16 operands, f32 accumulation. One
-// block is 4 warps over 64 keys of one (batch, KV head); each warp owns 16
-// keys and holds their dK and dV rows (16 x 128 each) in f32 registers across
-// the whole loop, then writes them once: no atomics, deterministic. The block
-// computes the transposed score tile S^T = K Q^T (K as the A operand), so
-// P^T and dS^T come out of the accumulators already laid out as the A
-// operands of dV += P^T dO and dK += dS^T Q (rounded to bf16, as the forward
-// rounds P for P V; the JAX kernel keeps them in f32). dO and Q are then the
-// B operands read transposed from shared memory by ldmatrix.trans. Register
-// pressure is what shapes the tiles: the two accumulators take 128 registers
-// a thread, so the query tile is 32 rows (S^T and dP^T take 32 more) and the
-// K and V tiles stay in shared memory instead of registers; the 64-key K/V
-// tiles plus 32-row Q/dO tiles need 52.5 KB of dynamic shared memory.
-// This is the simple version: no cp.async/TMA pipelining and no wgmma.
+// (S, dP, dV, dK), 8 * pairs * D flops per query head, all on the tensor
+// cores through wgmma:
+// - one block owns 128 keys of one (batch, KV head): a producer warpgroup
+//   (one warp: TMA and the per-row statistics; 24 registers by setmaxnreg)
+//   and two consumer warpgroups of 64 keys each (240 registers);
+// - K and V (128 x 128 each) are loaded once by TMA; per (query head, 64-row
+//   query tile) the Q and dO tiles (64 x 128 each) and the tile's lse (times
+//   log2 e) and delta go through a three-stage ring under full/empty
+//   mbarriers (1 % faster than two on an H100);
+// - S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands in
+//   shared memory, K-major;
+// - P^T and dS^T are computed in registers (forced to 0 on invalid pairs; a
+//   mask is computed only on tiles that touch the diagonal, the window edge or
+//   a ragged end), rounded to bf16 as the A operands, in registers, of
+//   dV += P^T dO and dK += dS^T Q: wgmma m64n128k16 with dO / Q read MN-major
+//   through the descriptor's transpose bit;
+// - dK and dV accumulate in f32 registers (2 x 64 a thread) across the loop
+//   and are written once by TMA store: no atomics, deterministic;
+// - balance: a block walks all the group's query heads, and under causal
+//   masking the block of the first keys walks every query tile of each, so
+//   when the grid fits in one wave its heaviest block sets the time. Then
+//   the group's heads are split over a thread-block cluster of two (heads
+//   r % 2 in block r % 2); at the end each block sends the half it does not
+//   write (block 0 its dV, block 1 its dK) into the other's shared memory
+//   (distributed shared memory), and block 0 writes dK, block 1 dV: a fixed
+//   two-term sum, so the result stays deterministic, and no device-memory
+//   traffic is added. The grid puts the heaviest key tiles (the first, under
+//   causal masking) first.
+// What is left: no overlap inside a warpgroup of one tile's elementwise work
+// with the next tile's products, no turns between the two consumers; the
+// dS^T tile is not shared with the dQ kernel (K4 recomputes P and dS).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BLOCK_K = 64;              // keys per block: 4 warps x 16
-constexpr int BLOCK_Q = 32;              // query rows per shared-memory tile
-constexpr int HEAD_DIM = 128;
-constexpr int THREADS = 128;
-constexpr int STRIDE = HEAD_DIM + 8;     // bf16 per staged row (272 B)
-constexpr int SMEM_BYTES =
-    (2 * BLOCK_K + 2 * BLOCK_Q) * STRIDE * 2 + 2 * BLOCK_Q * 4;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int BLOCK_K = 128;  // keys per block: 2 consumer warpgroups x 64
+constexpr int BLOCK_Q = 64;   // query rows per ring stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;            // producer warpgroup + 2 consumers
+constexpr int KV_BOX = BLOCK_K * 128;   // one [128 keys][64] bf16 box
+constexpr int KV_TILE = 2 * KV_BOX;     // [128][128] bf16
+constexpr int Q_BOX = BLOCK_Q * 128;    // one [64 rows][64] bf16 box
+constexpr int Q_TILE = 2 * Q_BOX;       // [64][128] bf16
+constexpr int STAGE_BYTES = 2 * Q_TILE; // Q and dO
+constexpr int RING = 2 * KV_TILE;       // the ring follows K and V
+constexpr int STATS = RING + STAGES * STAGE_BYTES;  // lse, delta floats
+constexpr int BARS = STATS + STAGES * 2 * BLOCK_Q * 4;
+constexpr int SMEM_BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+// the partner block's 64 f32 a thread x 256 consumer threads land on K/V
+static_assert(64 * 4 * 256 <= RING, "exchange buffer");
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b for one m16n8k16 tile (bf16 operands, f32 accumulator)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of two neighbouring n8 tiles for one k16 step, from a
-// row-major [k][n] tile in shared memory: four 8x8 matrices loaded
-// transposed. `tile` points at element (k0, n0); lane l addresses row
-// k0 + (l & 7) + 8 * ((l >> 3) & 1) at column n0 + 8 * (l >> 4). r[0], r[1]
-// are b0b1 / b2b3 of n-tile n0, r[2], r[3] those of n-tile n0 + 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* tile,
-                                                  int lane) {
-  const __nv_bfloat16* p =
-      tile + ((lane & 7) + 8 * ((lane >> 3) & 1)) * STRIDE + 8 * (lane >> 4);
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [r0, r0 + n) of a [L, D] head into a shared tile, zero past L
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r0,
-                                           int n, int L, int tid) {
-  for (int i = tid; i < n * (HEAD_DIM / 8); i += THREADS) {
-    const int r = i / (HEAD_DIM / 8), c = (i % (HEAD_DIM / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HEAD_DIM + c);
-    }
-    *reinterpret_cast<uint4*>(&dst[r * STRIDE + c]) = val;
+// consumer thread tc's accumulator into the partner block's exchange buffer
+// (float4 i of thread tc at i * 256 + tc: neighbouring threads, neighbouring
+// 16 bytes)
+__device__ __forceinline__ void send_partial(const float (&acc)[64], uint32_t remote,
+                                             int tc) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    st_cluster_v4(remote + (i * 256 + tc) * 16, acc[4 * i], acc[4 * i + 1],
+                  acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
-    const __nv_bfloat16* __restrict__ q,     // [B, H, Lq, D]
-    const __nv_bfloat16* __restrict__ k,     // [B, KVH, Lk, D]
-    const __nv_bfloat16* __restrict__ v,     // [B, KVH, Lk, D]
-    const __nv_bfloat16* __restrict__ dout,  // [B, H, Lq, D]
-    const float* __restrict__ lse,           // [B, H, Lq]
-    const float* __restrict__ delta,         // [B, H, Lq]
-    __nv_bfloat16* __restrict__ dk,          // [B, KVH, Lk, D]
-    __nv_bfloat16* __restrict__ dv,          // [B, KVH, Lk, D]
-    int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BLOCK_K * STRIDE;
-  __nv_bfloat16* Qs = Vs + BLOCK_K * STRIDE;
-  __nv_bfloat16* Ds = Qs + BLOCK_Q * STRIDE;  // dO
-  float* lse_s = reinterpret_cast<float*>(Ds + BLOCK_Q * STRIDE);
-  float* del_s = lse_s + BLOCK_Q;
+__device__ __forceinline__ void add_partial(float (&acc)[64], const float4* xbuf,
+                                            int tc) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float4 x = xbuf[i * 256 + tc];
+    acc[4 * i] += x.x;
+    acc[4 * i + 1] += x.y;
+    acc[4 * i + 2] += x.z;
+    acc[4 * i + 3] += x.w;
+  }
+}
 
-  const int bkv = blockIdx.y;  // b * KVH + kv head
-  const int b = bkv / KVH;
-  const int kv_head = bkv % KVH;
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
+    const __grid_constant__ CUtensorMap tm_q,   // [B*H, Lq, D], box 64 rows
+    const __grid_constant__ CUtensorMap tm_k,   // [B*KVH, Lk, D], box 128 rows
+    const __grid_constant__ CUtensorMap tm_v,   // [B*KVH, Lk, D], box 128 rows
+    const __grid_constant__ CUtensorMap tm_do,  // [B*H, Lq, D], box 64 rows
+    const __grid_constant__ CUtensorMap tm_dk,  // [B*KVH, Lk, D], box 64 rows
+    const __grid_constant__ CUtensorMap tm_dv,  // [B*KVH, Lk, D], box 64 rows
+    const float* __restrict__ lse,              // [B, H, Lq]
+    const float* __restrict__ delta,            // [B, H, Lq]
+    int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale,
+    int nsplit) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_tile = smem;
+  unsigned char* v_tile = smem + KV_TILE;
+  float* lse_s = reinterpret_cast<float*>(smem + STATS);  // [STAGES][64]
+  float* del_s = lse_s + STAGES * BLOCK_Q;                 // [STAGES][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BARS);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  auto q_stage = [&](int s) { return smem + RING + s * STAGE_BYTES; };
+  auto do_stage = [&](int s) { return smem + RING + s * STAGE_BYTES + Q_TILE; };
+
+  const int split = blockIdx.x;  // the block's rank in its cluster
+  const int bkv = blockIdx.y;    // b * KVH + KV head
   const int rep = H / KVH;
-  const int k0 = blockIdx.x * BLOCK_K;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row group / column pair
-
-  // this thread's two keys
-  const int key0 = k0 + warp * 16 + g;
-  const int key1 = key0 + 8;
-
-  const __nv_bfloat16* kb = k + (size_t)bkv * Lk * HEAD_DIM;
-  const __nv_bfloat16* vb = v + (size_t)bkv * Lk * HEAD_DIM;
-  stage_rows(Ks, kb, k0, BLOCK_K, Lk, tid);
-  stage_rows(Vs, vb, k0, BLOCK_K, Lk, tid);
+  const int head0 = (bkv / KVH) * H + (bkv % KVH) * rep;  // b * H + first head of the group
+  const int k0 = blockIdx.z * BLOCK_K;
 
   // query rows that see any key of this block: at or after the first key
   // when causal, before the last key + window with a sliding window
@@ -143,152 +140,257 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   const int t_lo = row_lo / BLOCK_Q;
   const int t_hi = row_hi > row_lo ? (row_hi + BLOCK_Q - 1) / BLOCK_Q : t_lo;
 
-  float dka[16][4], dva[16][4];
-#pragma unroll
-  for (int dn = 0; dn < 16; ++dn) {
-    dka[dn][0] = dka[dn][1] = dka[dn][2] = dka[dn][3] = 0.f;
-    dva[dn][0] = dva[dn][1] = dva[dn][2] = dva[dn][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes (statistics)
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
   }
-  // this warp's 16 K and V rows in shared memory (A operands)
-  const __nv_bfloat16* kw = Ks + (warp * 16 + g) * STRIDE + t4 * 2;
-  const __nv_bfloat16* vw = Vs + (warp * 16 + g) * STRIDE + t4 * 2;
+  __syncthreads();
 
-  for (int r = 0; r < rep; ++r) {
-    const size_t bh = (size_t)b * H + kv_head * rep + r;
-    const __nv_bfloat16* qb = q + bh * Lq * HEAD_DIM;
-    const __nv_bfloat16* db = dout + bh * Lq * HEAD_DIM;
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int qbase = t * BLOCK_Q;
-      __syncthreads();  // the previous tile is consumed by every warp
-      stage_rows(Qs, qb, qbase, BLOCK_Q, Lq, tid);
-      stage_rows(Ds, db, qbase, BLOCK_Q, Lq, tid);
-      if (tid < BLOCK_Q) {
-        const bool in = qbase + tid < Lq;
-        lse_s[tid] = in ? lse[bh * Lq + qbase + tid] : 0.f;
-        del_s[tid] = in ? delta[bh * Lq + qbase + tid] : 0.f;
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    regs_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        prefetch_tensormap(&tm_q);
+        prefetch_tensormap(&tm_do);
+        mbar_arrive_expect_tx(kv_full, 2 * KV_TILE);
+        tma_load_3d(k_tile, &tm_k, kv_full, 0, k0, bkv);
+        tma_load_3d(k_tile + KV_BOX, &tm_k, kv_full, BOX_COLS, k0, bkv);
+        tma_load_3d(v_tile, &tm_v, kv_full, 0, k0, bkv);
+        tma_load_3d(v_tile + KV_BOX, &tm_v, kv_full, BOX_COLS, k0, bkv);
       }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 rows per warp
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        uint32_t ka[4], va[4];
-        ka[0] = load_u32(kw + ks * 16);
-        ka[1] = load_u32(kw + 8 * STRIDE + ks * 16);
-        ka[2] = load_u32(kw + ks * 16 + 8);
-        ka[3] = load_u32(kw + 8 * STRIDE + ks * 16 + 8);
-        va[0] = load_u32(vw + ks * 16);
-        va[1] = load_u32(vw + 8 * STRIDE + ks * 16);
-        va[2] = load_u32(vw + ks * 16 + 8);
-        va[3] = load_u32(vw + 8 * STRIDE + ks * 16 + 8);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int off = (nt * 8 + g) * STRIDE + ks * 16 + t4 * 2;
-          mma_bf16(s[nt], ka, load_u32(&Qs[off]), load_u32(&Qs[off + 8]));
-          mma_bf16(dp[nt], va, load_u32(&Ds[off]), load_u32(&Ds[off + 8]));
-        }
-      }
-
-      // P^T, forced to 0 on invalid pairs, in s; dS^T in dp
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int qi = nt * 8 + t4 * 2 + i;
-          const int row = qbase + qi;
-          bool ok0 = row < Lq && key0 < Lk, ok1 = row < Lq && key1 < Lk;
-          if (causal) {
-            ok0 = ok0 && row >= key0;
-            ok1 = ok1 && row >= key1;
+      int it = 0;
+      for (int r = split; r < rep; r += nsplit) {
+        const int bh = head0 + r;
+        for (int t = t_lo; t < t_hi; ++t, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          for (int i = lane; i < BLOCK_Q; i += 32) {
+            const int row = t * BLOCK_Q + i;
+            const bool in = row < Lq;
+            lse_s[s * BLOCK_Q + i] = in ? lse[(size_t)bh * Lq + row] * LOG2E : 0.f;
+            del_s[s * BLOCK_Q + i] = in ? delta[(size_t)bh * Lq + row] : 0.f;
           }
-          if (window > 0) {
-            ok0 = ok0 && row - key0 < window;
-            ok1 = ok1 && row - key1 < window;
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[s], 2 * Q_TILE);
+            tma_load_3d(q_stage(s), &tm_q, &full[s], 0, t * BLOCK_Q, bh);
+            tma_load_3d(q_stage(s) + Q_BOX, &tm_q, &full[s], BOX_COLS, t * BLOCK_Q, bh);
+            tma_load_3d(do_stage(s), &tm_do, &full[s], 0, t * BLOCK_Q, bh);
+            tma_load_3d(do_stage(s) + Q_BOX, &tm_do, &full[s], BOX_COLS, t * BLOCK_Q, bh);
+          } else {
+            mbar_arrive(&full[s]);
           }
-          const float l = lse_s[qi], d = del_s[qi];
-          const float p0 = ok0 ? __expf(s[nt][i] * sm_scale - l) : 0.f;
-          const float p1 = ok1 ? __expf(s[nt][2 + i] * sm_scale - l) : 0.f;
-          s[nt][i] = p0;
-          s[nt][2 + i] = p1;
-          dp[nt][i] = p0 * (dp[nt][i] - d) * sm_scale;
-          dp[nt][2 + i] = p1 * (dp[nt][2 + i] - d) * sm_scale;
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q over 2 steps of 16 rows; dO and Q
-      // read transposed
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t pa[4], da[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-        for (int dn = 0; dn < 8; ++dn) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, &Ds[(kk * 16) * STRIDE + dn * 16], lane);
-          mma_bf16(dva[2 * dn], pa, bf[0], bf[1]);
-          mma_bf16(dva[2 * dn + 1], pa, bf[2], bf[3]);
-          ldmatrix_x4_trans(bf, &Qs[(kk * 16) * STRIDE + dn * 16], lane);
-          mma_bf16(dka[2 * dn], da, bf[0], bf[1]);
-          mma_bf16(dka[2 * dn + 1], da, bf[2], bf[3]);
         }
       }
     }
-  }
-
-  __nv_bfloat16* dkb = dk + (size_t)bkv * Lk * HEAD_DIM;
-  __nv_bfloat16* dvb = dv + (size_t)bkv * Lk * HEAD_DIM;
-#pragma unroll
-  for (int dn = 0; dn < 16; ++dn) {
-    const int c = dn * 8 + t4 * 2;
-    if (key0 < Lk) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)key0 * HEAD_DIM + c) =
-          pack_bf16(dka[dn][0], dka[dn][1]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)key0 * HEAD_DIM + c) =
-          pack_bf16(dva[dn][0], dva[dn][1]);
+    if (nsplit > 1) {  // the consumers' two exchange barriers
+      __syncwarp();
+      cluster_sync();
+      cluster_sync();
     }
-    if (key1 < Lk) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)key1 * HEAD_DIM + c) =
-          pack_bf16(dka[dn][2], dka[dn][3]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)key1 * HEAD_DIM + c) =
-          pack_bf16(dva[dn][2], dva[dn][3]);
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: keys 64cw..
+    const int tc = threadIdx.x - 128;      // 0..255
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kw0 = k0 + cw * 64;
+    const int key_a = kw0 + warp * 16 + g, key_b = key_a + 8;
+    const float c = sm_scale * LOG2E;
+    const unsigned char* k_rows = k_tile + cw * 64 * 128;  // this warpgroup's keys
+    const unsigned char* v_rows = v_tile + cw * 64 * 128;
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int r = split; r < rep; r += nsplit) {
+      for (int t = t_lo; t < t_hi; ++t, ++it) {
+        const int s = it % STAGES;
+        const int q0 = t * BLOCK_Q;
+        // no key of this warpgroup is seen by a row of this tile
+        const bool skip = kw0 >= Lk || (causal && q0 + BLOCK_Q - 1 < kw0) ||
+                          (window > 0 && q0 - (kw0 + 63) >= window);
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        if (!skip) {
+          float st[32], dpt[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            wgmma_m64n64k16_ss(st, desc_k_major(k_rows, KV_BOX, kk),
+                               desc_k_major(q_stage(s), Q_BOX, kk), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            wgmma_m64n64k16_ss(dpt, desc_k_major(v_rows, KV_BOX, kk),
+                               desc_k_major(do_stage(s), Q_BOX, kk), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+
+          // P^T into st, dS^T into dpt; column j of the tile is query row q0 + j
+          const bool unmasked = kw0 + 63 < Lk && q0 + BLOCK_Q <= Lq &&
+                                (!causal || q0 >= kw0 + 63) &&
+                                (window <= 0 || q0 + BLOCK_Q - 1 - kw0 < window);
+          const float* ls = lse_s + s * BLOCK_Q;
+          const float* ds = del_s + s * BLOCK_Q;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(ls + j * 8 + t4 * 2);
+            const float2 d2 = *reinterpret_cast<const float2*>(ds + j * 8 + t4 * 2);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float lv = i ? l2.y : l2.x, dlt = i ? d2.y : d2.x;
+              float p_a = fast_exp2(fmaf(st[4 * j + i], c, -lv));
+              float p_b = fast_exp2(fmaf(st[4 * j + 2 + i], c, -lv));
+              if (!unmasked) {
+                const int row = q0 + j * 8 + t4 * 2 + i;
+                bool ok_a = row < Lq && key_a < Lk, ok_b = row < Lq && key_b < Lk;
+                if (causal) {
+                  ok_a = ok_a && row >= key_a;
+                  ok_b = ok_b && row >= key_b;
+                }
+                if (window > 0) {
+                  ok_a = ok_a && row - key_a < window;
+                  ok_b = ok_b && row - key_b < window;
+                }
+                p_a = ok_a ? p_a : 0.f;
+                p_b = ok_b ? p_b : 0.f;
+              }
+              st[4 * j + i] = p_a;
+              st[4 * j + 2 + i] = p_b;
+              dpt[4 * j + i] = p_a * (dpt[4 * j + i] - dlt) * sm_scale;
+              dpt[4 * j + 2 + i] = p_b * (dpt[4 * j + 2 + i] - dlt) * sm_scale;
+            }
+          }
+          uint32_t pa[4][4], da[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            pack_a(pa[kk], st, kk);
+            pack_a(da[kk], dpt, kk);
+            fence_regs(pa[kk]);
+            fence_regs(da[kk]);
+          }
+          fence_regs(dv);
+          fence_regs(dk);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_m64n128k16_rs(dv, pa[kk], desc_mn_major(do_stage(s), Q_BOX, kk), 1);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_m64n128k16_rs(dk, da[kk], desc_mn_major(q_stage(s), Q_BOX, kk), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(da[kk]);
+          }
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+
+    // out: two swizzled [64][64] boxes per warpgroup, in the ring (free now)
+    unsigned char* out_dk = smem + RING + cw * Q_TILE;
+    unsigned char* out_dv = smem + RING + 2 * Q_TILE + cw * Q_TILE;
+    if (nsplit == 1) {
+      named_barrier(1, 256);  // both consumer warpgroups are out of the ring
+      store_acc_64x128(dk, 1.f, 1.f, out_dk, Q_BOX, &tm_dk, kw0, bkv, 2 + cw);
+      store_acc_64x128(dv, 1.f, 1.f, out_dv, Q_BOX, &tm_dv, kw0, bkv, 2 + cw);
+    } else {
+      // block 0 writes dK, block 1 dV; each sends the other half across
+      float4* xbuf = reinterpret_cast<float4*>(smem);  // over K/V, free after A
+      __syncwarp();
+      cluster_sync();  // A: both blocks are done with K, V and the ring
+      const uint32_t remote = map_to_rank(xbuf, split ^ 1);
+      // each branch names its array: a runtime choice between two register
+      // arrays would put both in local memory
+      if (split == 0) {
+        send_partial(dv, remote, tc);
+      } else {
+        send_partial(dk, remote, tc);
+      }
+      cluster_sync();  // B: the partner's half has landed
+      if (split == 0) {
+        add_partial(dk, xbuf, tc);
+        store_acc_64x128(dk, 1.f, 1.f, out_dk, Q_BOX, &tm_dk, kw0, bkv, 2 + cw);
+      } else {
+        add_partial(dv, xbuf, tc);
+        store_acc_64x128(dv, 1.f, 1.f, out_dv, Q_BOX, &tm_dv, kw0, bkv, 2 + cw);
+      }
     }
   }
 }
 
 }  // namespace
 
-// window <= 0 means no sliding window. Returns the launch's cudaError_t.
+// window <= 0 means no sliding window. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue when a TMA map cannot be encoded: base not 16-byte
+// aligned).
 extern "C" int bci_flash_bwd_dkdv_bf16(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int B, int H, int KVH,
                                        int Lq, int Lk, int causal, int window,
                                        float sm_scale, void* stream) {
-  // above the 48 KB default: opt in once per process (cheap to repeat)
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K) ||
+      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q) ||
+      !make_map_3d(&tm_dk, dk, B * KVH, Lk, 64) ||
+      !make_map_3d(&tm_dv, dv, B * KVH, Lk, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above the 48 KB default: opt in (cheap to repeat)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      flash_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Lk + BLOCK_K - 1) / BLOCK_K, B * KVH);
-  flash_bwd_dkdv_kernel<<<grid, THREADS, SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, KVH, Lq, Lk, causal, window, sm_scale);
+  // Two blocks (a cluster) share a key tile when the group has two heads or
+  // more and the grid of one block per key tile would fill at most one wave
+  // of the card's SMs: then the heaviest block's chain sets the time, and
+  // halving it pays for the exchange (H100, B=2 KVH=8: 1.40x at L=1024, 128
+  // blocks; at L=2048, 256 blocks, the unsplit grid was 3.5% faster).
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int key_tiles = (Lk + BLOCK_K - 1) / BLOCK_K;
+  const int nsplit = H / KVH >= 2 && key_tiles * B * KVH <= sms ? 2 : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, B * KVH, key_tiles);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel, tm_q, tm_k, tm_v, tm_do, tm_dk,
+                           tm_dv, static_cast<const float*>(lse),
+                           static_cast<const float*>(delta), H, KVH, Lq, Lk, causal,
+                           window, sm_scale, nsplit);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on its
 own with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so``, where the
-hash covers the source and the flags, so an edited source rebuilds. The
-library is loaded with ``ctypes``; every C entry point returns the
-``cudaError_t`` of its launch and ``CudaKernel.launch`` raises when it is
-not 0.
+hash covers the source, every header of ``csrc`` (``*.cuh``, ``*.h``: the
+Hopper building blocks in ``hopper.cuh``) and the flags, so an edited source
+or header rebuilds. The library is loaded with ``ctypes``; every C entry
+point returns the ``cudaError_t`` of its launch and ``CudaKernel.launch``
+raises when it is not 0.
 
 Nothing here runs at import: the CPU test suite imports every module and
 has no ``nvcc``. A build happens at the first launch of a
@@ -28,6 +29,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+
+def _headers() -> list[Path]:
+    """The headers a kernel source may include, in a fixed order."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cuh", ".h"))
 
 
 def _nvcc() -> str:
@@ -58,10 +64,17 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{digest}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in _headers():
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def nvcc_command(self, nvcc: str, out: Path) -> list[str]:
+        """The command line with which compiler ``nvcc`` builds this source
+        into ``out``."""
+        return [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(out),
+                str(self.source)]
 
     def start_build(self) -> subprocess.Popen | None:
         """Start ``nvcc`` for this source unless its library exists;
@@ -74,8 +87,7 @@ class CudaKernel:
         log = open(out.with_suffix(".log"), "w")
         try:
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                stdout=log, stderr=subprocess.STDOUT,
+                self.nvcc_command(_nvcc(), tmp), stdout=log, stderr=subprocess.STDOUT,
             )
         finally:
             log.close()

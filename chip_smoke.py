@@ -7,13 +7,17 @@ Phases, each printed as one JSON line, any failure exits non-zero:
 
 1. card: name and power limit (nvidia-smi), CUDA version; TF32 off for the
    f32 references.
-2. build: the four hand-written kernels from ``ops/csrc`` with nvcc for
-   sm_90a, one nvcc per source in parallel, into ``ops/_build`` (ptxas
+2. build: the four hand-written kernels from ``ops/csrc`` (K1 and K3 on the
+   TMA/wgmma building blocks of ``csrc/hopper.cuh``) with nvcc for sm_90a,
+   one nvcc per source in parallel, into ``ops/_build`` (seconds and ptxas
    register/spill lines printed).
 3. serving kernels (K1 forward, K2 paged decode): each against its plain
    PyTorch version on the same bf16 inputs (the plain version in f32) at the
    paths' shapes, with its time, the plain version's, one library call's
-   (SDPA with GQA for K1) and the card's bound for the work.
+   (SDPA with GQA for K1), the card's bound for the work and the rate. K1
+   runs the serving prefill lengths (48 and 80: shorter than one tile and
+   ragged; 1000: ragged key tiles), long batches, full attention with
+   Lq != Lk and a sliding window.
 4. serving reference: the decoder cut to 2 layers at Llama-3-8B widths,
    prefill + paged decode teacher-forced, bf16 kernels on the card against
    the f32 plain path on the CPU on the same weights.
@@ -23,7 +27,8 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    the launch counts of K1 and K2 must match the admissions and decode
    steps; a second identical run must give identical tokens.
 6. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
-   SDPA's backward as the library call.
+   SDPA's backward as the library call; two K3 calls on the same inputs must
+   give the same bits.
 7. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
@@ -77,6 +82,9 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# ~0.2 ms of device time ahead of each timed call: more than the host takes to
+# enqueue a kernel wrapper (tens of microseconds)
+SLEEP_CYCLES = 400_000
 # bf16 kernel vs f32 plain version on the same bf16 inputs: the output is
 # rounded to bf16 (~4e-3 at |x| ~ 1) and K1 rounds P to bf16 for P V
 KERNEL_TOL = 2e-2
@@ -95,7 +103,8 @@ REFERENCE_TOL = 5e-2
 # weight casts); the limits keep 60x and 1.6x headroom.
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 4e-2
-K1_MAIN_CASE = (1, 1024)  # (B, L): the largest prefill the serving path runs
+# (B, Lq, Lk, causal, window): the largest prefill the serving path runs
+K1_MAIN_CASE = (1, 1024, 1024, True, None)
 # the training path: Llama-3-8B widths cut to 8 layers (2.80 B parameters,
 # 44.7 GB of f32 masters, gradients and AdamW moments), batch 2 x 1024
 TRAIN_LAYERS, TRAIN_B, TRAIN_L, TRAIN_STEPS = 8, 2, 1024, 4
@@ -133,10 +142,16 @@ def nvidia_smi() -> str:
 class Timer:
     """Mean milliseconds of ``fn`` by CUDA events around each call, with
     the L2 cache flushed (a 256 MB write) between calls, outside the
-    events: the main path finds K/V and Q cold."""
+    events: the main path finds K/V and Q cold. A device-side sleep after
+    the flush keeps the card busy while the host enqueues the call, so the
+    events time the kernels and not the host's launch path."""
 
     def __init__(self, device) -> None:
         self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        warm = torch.randn(8192, 8192, device=device, dtype=torch.bfloat16)
+        for _ in range(100):  # ~0.2 s of tensor-core work: the clocks ramp up first
+            warm @ warm
+        torch.cuda.synchronize()
 
     def __call__(self, fn, reps: int, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -144,6 +159,7 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -163,46 +179,57 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ kernels
 
 
+# forward cases (B, Lq, Lk, causal, window) at H=32, KVH=8, D=128: the
+# serving path's prefills (L = the prompt padded to 16: shorter than one
+# 128-row tile, ragged q-tiles and key tiles), long batches, full attention
+# with Lq != Lk, and a sliding window
+K1_CASES = [
+    (1, 48, 48, True, None),
+    (1, 80, 80, True, None),
+    (1, 1000, 1000, True, None),
+    *[(B, L, L, True, None) for B in (1, 4) for L in (128, 1024, 2048)],
+    (1, 300, 700, False, None),
+    (1, 2048, 2048, True, 512),
+]
+
+
 def check_flash(timer, dev) -> list[dict]:
     H, KVH, D = 32, 8, 128
-    cases = [(B, L, None) for B in (1, 4) for L in (128, 1024, 2048)]
-    cases.append((1, 2048, 512))  # sliding window
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for B, L, window in cases:
+    for B, L, Lk, causal, window in K1_CASES:
         q = torch.randn(B, H, L, D, generator=gen, device=dev, dtype=torch.bfloat16)
-        k = torch.randn(B, KVH, L, D, generator=gen, device=dev, dtype=torch.bfloat16)
-        v = torch.randn(B, KVH, L, D, generator=gen, device=dev, dtype=torch.bfloat16)
-        out, lse = fa.flash_attention_with_lse(q, k, v, True, window=window)
+        k = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        v = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal, window=window)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_fwd_plain(
-            q.float(), k.float(), v.float(), True, window=window
+            q.float(), k.float(), v.float(), causal, window=window
         )
         err = max((out.float() - ref_out).abs().max().item(),
                   (lse - ref_lse).abs().max().item())
-        check(err <= KERNEL_TOL,
-              f"flash_fwd B={B} L={L} window={window}: max abs err {err}")
-        ms = timer(lambda: fa.flash_attention_with_lse(q, k, v, True, window=window), 20)
+        case = f"B={B} Lq={L} Lk={Lk} causal={causal} window={window}"
+        check(err <= KERNEL_TOL, f"flash_fwd {case}: max abs err {err}")
+        ms = timer(lambda: fa.flash_attention_with_lse(q, k, v, causal, window=window), 20)
         plain_ms = timer(lambda: fa.flash_attention_fwd_plain(
-            q.float(), k.float(), v.float(), True, window=window), 3, warmup=1)
+            q.float(), k.float(), v.float(), causal, window=window), 3, warmup=1)
         if window is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
         else:
             i = torch.arange(L, device=dev)
             mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
         library_ms = timer(lib, 20)
-        rows_i = torch.arange(L)
-        pairs = int(torch.minimum(rows_i + 1, torch.tensor(window or L)).sum())
-        flops = 4.0 * B * H * pairs * D
+        flops = 4.0 * B * H * visible_pairs(L, Lk, causal, window) * D
         nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * lse.numel()
         b_ms, b_by = bound(flops, nbytes)
         rows.append({
-            "B": B, "L": L, "window": window, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "tflops": flops / ms / 1e9,
+            "B": B, "L": L, "Lk": Lk, "causal": causal, "window": window,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "tflops": flops / ms / 1e9,
         })
         del q, k, v, out, lse, ref_out, ref_lse
     return rows
@@ -245,14 +272,19 @@ def check_flash_bwd(timer, dev) -> list[dict]:
         args = (q, k, v, do, lse, delta, causal, None, window)
         dk, dv = fa.flash_bwd_dkdv_cuda(*args)
         dq = fa.flash_bwd_dq_cuda(*args)
+        dk2, dv2 = fa.flash_bwd_dkdv_cuda(*args)
         torch.cuda.synchronize()
+        case = f"B={B} Lq={Lq} Lk={Lk} causal={causal} window={window}"
+        # a fixed order of summation: two calls give the same bits
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"flash_bwd dk/dv {case}: two calls differ")
+        del dk2, dv2
         f32 = (q.float(), k.float(), v.float(), do.float(), *args[4:])
         want_dk, want_dv = fa.flash_bwd_dkdv_plain(*f32)
         want_dq = fa.flash_bwd_dq_plain(*f32)
         errs = {name: rel_err(got, want) for name, got, want in
                 (("dk", dk, want_dk), ("dv", dv, want_dv), ("dq", dq, want_dq))}
         del want_dk, want_dv, want_dq, f32
-        case = f"B={B} Lq={Lq} Lk={Lk} causal={causal} window={window}"
         for name, (_, rel) in errs.items():
             check(rel <= BWD_TOL, f"flash_bwd {name} {case}: rel err {rel}")
 
@@ -279,7 +311,7 @@ def check_flash_bwd(timer, dev) -> list[dict]:
         dq_bound = bound(6.0 * B * H * pairs * D, io + 2.0 * q.numel())
         rows.append({
             "B": B, "Lq": Lq, "Lk": Lk, "causal": causal, "window": window,
-            "g_lse": with_g_lse, "pairs": pairs,
+            "g_lse": with_g_lse, "pairs": pairs, "dkdv_deterministic": True,
             "dkdv": {"max_abs_err": max(errs["dk"][0], errs["dv"][0]),
                      "rel_err": max(errs["dk"][1], errs["dv"][1]),
                      "ms": dkdv_ms, "plain_ms": dkdv_plain_ms,
@@ -646,7 +678,8 @@ def main() -> int:
     emit(train)
 
     main_k1 = next(r for r in flash_rows
-                   if (r["B"], r["L"], r["window"]) == (*K1_MAIN_CASE, None))
+                   if (r["B"], r["L"], r["Lk"], r["causal"], r["window"])
+                   == K1_MAIN_CASE)
     main_bwd = next(r for r in bwd_rows
                     if (r["B"], r["Lq"], r["Lk"], r["causal"], r["window"],
                         r["g_lse"]) == BWD_MAIN_CASE)

@@ -72,6 +72,34 @@ def test_validation():
                                     v[:, :1].repeat(1, 3, 1, 1))
 
 
+@pytest.mark.parametrize("kernel", ["flash", "flash_bwd_dkdv"])
+def test_tma_operand_check(kernel):
+    """What the TMA maps of K1 and K3 demand, checked by the wrapper: a
+    dense tensor on a 16-byte boundary; anything else raises."""
+    base = torch.zeros(1, 4, 16, 128, dtype=torch.bfloat16)
+    fa.check_tma_operand(kernel, "q", base)
+    # one bf16 past an aligned start: contiguous, 2 bytes off the boundary
+    shifted = base.flatten()[1:1 + 4 * 15 * 128].view(1, 4, 15, 128)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.check_tma_operand(kernel, "q", shifted)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.check_tma_operand(kernel, "k", base.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.check_tma_operand(kernel, "v", base[..., ::2])
+
+
+def test_cpu_dispatch_does_not_apply_the_tma_check():
+    """CPU tensors still go to the plain versions, whatever their layout:
+    the TMA demands belong to the kernels alone."""
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(5, 1, 4, 2, 24))
+    qt = q.transpose(2, 3).contiguous().transpose(2, 3)  # same values, strided
+    assert not qt.is_contiguous()
+    out, lse = fa.flash_attention_with_lse(qt, k, v, True)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    assert torch.allclose(out, ref_out) and torch.allclose(lse, ref_lse)
+
+
 def test_no_third_path():
     """Tensors that are neither all-CUDA nor all-CPU raise: the plain
     version runs only because its inputs lie on the CPU."""
