@@ -11,238 +11,257 @@
 // with delta = rowsum(dO * O) - g_lse computed by the caller. What it does not
 // carry over is the TPU's tiling: the sequential k grid dimension becomes the
 // loop inside the block, there is no padding of L to a block multiple and no
-// 512-block cap; the kernel masks its own ragged edge (rows >= Lq, keys >= Lk)
-// and skips key tiles entirely above the causal diagonal or below the window
-// (the same conditions as :378-381).
+// 512-block cap; the 3-D TMA maps read rows past L as zeros within their
+// head, the kernel forces P to 0 on rows >= Lq and keys >= Lk, the output
+// store drops rows >= Lq, and key tiles entirely above the causal diagonal
+// or below the window are skipped (the conditions of :378-381).
 //
 // Bound on this card: operations. Three products of D = 128 per visible
-// (query, key) pair (S, dP, dQ), 6 * pairs * D flops per head, against a
-// read of q, k, v, dO once. So the products run on the tensor cores:
-// mma.sync m16n8k16, bf16 operands, f32 accumulation. One block is 4 warps
-// over 64 query rows of one (batch, head); each warp owns 16 rows and keeps
-// its Q and dO rows as A fragments in registers for the whole block. K and V
-// tiles of 32 keys are staged in shared memory (rows padded so the fragment
-// reads are free of bank conflicts). The S and dP accumulator fragments are
-// exactly the A-operand layout of the next product, so dS stays in registers
-// (rounded to bf16, as the forward rounds P for P V; the JAX kernel keeps it
-// in f32); K is the B operand of dQ += dS K read transposed from the same
-// shared tile by ldmatrix.trans. No atomics: each block writes its rows once.
-// This is the simple version: no cp.async/TMA pipelining and no wgmma.
+// (query, key) pair (S, dP, dQ), 6 * pairs * D flops per head, all on the
+// tensor cores through wgmma. The design is K3's (flash_bwd_dkdv.cu) with the
+// two sides swapped:
+// - one block owns 128 query rows of one (batch, head): a producer
+//   warpgroup (one thread starting the TMA loads; 24 registers by
+//   setmaxnreg) and two consumer warpgroups of 64 rows each (240
+//   registers);
+// - Q and dO (128 x 128 each) are loaded once by TMA, each row's lse (times
+//   log2 e) and delta once into registers; K and V tiles of 64 keys stream
+//   through a three-stage ring under full/empty mbarriers;
+// - S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both operands in
+//   shared memory, K-major;
+// - P and dS are computed in registers (a mask only on tiles that touch the
+//   diagonal, the window edge or a ragged end), dS rounded to bf16 as the A
+//   operand, in registers, of dQ += dS K: wgmma m64n128k16 with K read
+//   MN-major through the descriptor's transpose bit (K1's P V pattern over a
+//   64-key box, K3's dO operand);
+// - dQ accumulates in f32 registers (64 a thread) and is written once,
+//   through the warpgroup's own (then idle) Q rows, by TMA store: no
+//   atomics, two calls give the same bits;
+// - the grid puts the heaviest q-tiles (the last, under causal masking)
+//   first, and the query heads of one KV group next to each other, so the
+//   blocks that read the same K/V tiles run together and find them in L2
+//   (on an H100, 7 % faster than the natural order; a persistent version,
+//   one block an SM walking the items as K1 does, measured no faster).
+// What is left: no overlap inside a warpgroup of one tile's elementwise work
+// with the next tile's products; P and dS are recomputed here and in K3.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BLOCK_Q = 64;              // query rows per block: 4 warps x 16
-constexpr int BLOCK_K = 32;              // keys per shared-memory tile
-constexpr int HEAD_DIM = 128;
-constexpr int THREADS = 128;
-constexpr int STRIDE = HEAD_DIM + 8;     // bf16 per staged row (272 B)
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int BLOCK_Q = 128;  // query rows per block: 2 consumer warpgroups x 64
+constexpr int BLOCK_K = 64;   // keys per ring stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;             // producer warpgroup + 2 consumers
+constexpr int Q_BOX = BLOCK_Q * 128;     // one [128 rows][64] bf16 box
+constexpr int Q_TILE = 2 * Q_BOX;        // [128][128] bf16
+constexpr int KV_BOX = BLOCK_K * 128;    // one [64 keys][64] bf16 box
+constexpr int KV_TILE = 2 * KV_BOX;      // [64][128] bf16
+constexpr int STAGE_BYTES = 2 * KV_TILE; // K and V
+constexpr int RING = 2 * Q_TILE;         // the ring follows Q and dO
+constexpr int BARS = RING + STAGES * STAGE_BYTES;
+constexpr int SMEM_BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q,   // [B*H, Lq, D], box 128 rows
+    const __grid_constant__ CUtensorMap tm_k,   // [B*KVH, Lk, D], box 64 rows
+    const __grid_constant__ CUtensorMap tm_v,   // [B*KVH, Lk, D], box 64 rows
+    const __grid_constant__ CUtensorMap tm_do,  // [B*H, Lq, D], box 128 rows
+    const __grid_constant__ CUtensorMap tm_dq,  // [B*H, Lq, D], box 64 rows
+    const float* __restrict__ lse,              // [B, H, Lq]
+    const float* __restrict__ delta,            // [B, H, Lq]
+    int BH, int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_tile = smem;
+  unsigned char* do_tile = smem + Q_TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BARS);
+  uint64_t* qd_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  auto k_stage = [&](int s) { return smem + RING + s * STAGE_BYTES; };
+  auto v_stage = [&](int s) { return smem + RING + s * STAGE_BYTES + KV_TILE; };
 
-// d += a * b for one m16n8k16 tile (bf16 operands, f32 accumulator)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of two neighbouring n8 tiles for one k16 step, from a
-// row-major [k][n] tile in shared memory: four 8x8 matrices loaded
-// transposed. `tile` points at element (k0, n0); lane l addresses row
-// k0 + (l & 7) + 8 * ((l >> 3) & 1) at column n0 + 8 * (l >> 4). r[0], r[1]
-// are b0b1 / b2b3 of n-tile n0, r[2], r[3] those of n-tile n0 + 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* tile,
-                                                  int lane) {
-  const __nv_bfloat16* p =
-      tile + ((lane & 7) + 8 * ((lane >> 3) & 1)) * STRIDE + 8 * (lane >> 4);
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q,     // [B, H, Lq, D]
-    const __nv_bfloat16* __restrict__ k,     // [B, KVH, Lk, D]
-    const __nv_bfloat16* __restrict__ v,     // [B, KVH, Lk, D]
-    const __nv_bfloat16* __restrict__ dout,  // [B, H, Lq, D]
-    const float* __restrict__ lse,           // [B, H, Lq]
-    const float* __restrict__ delta,         // [B, H, Lq]
-    __nv_bfloat16* __restrict__ dq,          // [B, H, Lq, D]
-    int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_K * STRIDE];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_K * STRIDE];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int kv_head = (bh % H) / (H / KVH);
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row group / column pair
-
-  const __nv_bfloat16* qb = q + (size_t)bh * Lq * HEAD_DIM;
-  const __nv_bfloat16* db = dout + (size_t)bh * Lq * HEAD_DIM;
-  const __nv_bfloat16* kb = k + (size_t)(b * KVH + kv_head) * Lk * HEAD_DIM;
-  const __nv_bfloat16* vb = v + (size_t)(b * KVH + kv_head) * Lk * HEAD_DIM;
-
-  // this thread's two query rows
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < Lq, in1 = row1 < Lq;
-
-  // Q and dO rows as A fragments for the 8 steps of 16 over D
-  uint32_t qf[8][4], df[8][4];
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const int c = ks * 16 + t4 * 2;
-    qf[ks][0] = in0 ? load_u32(qb + (size_t)row0 * HEAD_DIM + c) : 0u;
-    qf[ks][1] = in1 ? load_u32(qb + (size_t)row1 * HEAD_DIM + c) : 0u;
-    qf[ks][2] = in0 ? load_u32(qb + (size_t)row0 * HEAD_DIM + c + 8) : 0u;
-    qf[ks][3] = in1 ? load_u32(qb + (size_t)row1 * HEAD_DIM + c + 8) : 0u;
-    df[ks][0] = in0 ? load_u32(db + (size_t)row0 * HEAD_DIM + c) : 0u;
-    df[ks][1] = in1 ? load_u32(db + (size_t)row1 * HEAD_DIM + c) : 0u;
-    df[ks][2] = in0 ? load_u32(db + (size_t)row0 * HEAD_DIM + c + 8) : 0u;
-    df[ks][3] = in1 ? load_u32(db + (size_t)row1 * HEAD_DIM + c + 8) : 0u;
-  }
-  const float lse0 = in0 ? lse[(size_t)bh * Lq + row0] : 0.f;
-  const float lse1 = in1 ? lse[(size_t)bh * Lq + row1] : 0.f;
-  const float del0 = in0 ? delta[(size_t)bh * Lq + row0] : 0.f;
-  const float del1 = in1 ? delta[(size_t)bh * Lq + row1] : 0.f;
-
-  // keys any row of this block can see: skip tiles above the causal
-  // diagonal and below the sliding window
+  // work item: the last q-tiles first (the most key tiles under causal
+  // masking), the heads of one KV group next to each other
+  const int n_qt = (Lq + BLOCK_Q - 1) / BLOCK_Q;
+  const int bh = blockIdx.x % BH;
+  const int bkv = (bh / H) * KVH + (bh % H) / (H / KVH);
+  const int q0 = (n_qt - 1 - blockIdx.x / BH) * BLOCK_Q;
+  // keys any row of this block can see: none above the causal diagonal,
+  // none below the sliding window
   const int q_last = min(q0 + BLOCK_Q, Lq) - 1;
   const int k_hi = causal ? min(Lk, q_last + 1) : Lk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / BLOCK_K;
-  const int t_hi = (k_hi + BLOCK_K - 1) / BLOCK_K;
+  const int t_hi = k_hi > k_lo ? (k_hi + BLOCK_K - 1) / BLOCK_K : t_lo;
 
-  float acc[16][4];
-#pragma unroll
-  for (int dn = 0; dn < 16; ++dn) {
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int kbase = t * BLOCK_K;
-    __syncthreads();  // the previous tile is consumed by every warp
-    // K and V tiles, row-major: 16 threads cover one 256-byte key row
-    for (int i = tid; i < BLOCK_K * (HEAD_DIM / 8); i += THREADS) {
-      const int r = i / (HEAD_DIM / 8), c = (i % (HEAD_DIM / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kbase + r < Lk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(kbase + r) * HEAD_DIM + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(kbase + r) * HEAD_DIM + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * STRIDE + c]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[r * STRIDE + c]) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp, 4 tiles of 8
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int off = (nt * 8 + g) * STRIDE + ks * 16 + t4 * 2;
-        mma_bf16(s[nt], qf[ks], load_u32(&Ks[off]), load_u32(&Ks[off + 8]));
-        mma_bf16(dp[nt], df[ks], load_u32(&Vs[off]), load_u32(&Vs[off + 8]));
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_arrive_expect_tx(qd_full, 2 * Q_TILE);
+      tma_load_3d(q_tile, &tm_q, qd_full, 0, q0, bh);
+      tma_load_3d(q_tile + Q_BOX, &tm_q, qd_full, BOX_COLS, q0, bh);
+      tma_load_3d(do_tile, &tm_do, qd_full, 0, q0, bh);
+      tma_load_3d(do_tile + Q_BOX, &tm_do, qd_full, BOX_COLS, q0, bh);
+      for (int t = t_lo, it = 0; t < t_hi; ++t, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_3d(k_stage(s), &tm_k, &full[s], 0, t * BLOCK_K, bkv);
+        tma_load_3d(k_stage(s) + KV_BOX, &tm_k, &full[s], BOX_COLS, t * BLOCK_K, bkv);
+        tma_load_3d(v_stage(s), &tm_v, &full[s], 0, t * BLOCK_K, bkv);
+        tma_load_3d(v_stage(s) + KV_BOX, &tm_v, &full[s], BOX_COLS, t * BLOCK_K, bkv);
       }
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: rows 64cw..
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + cw * 64;
+    const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;
+    const float c = sm_scale * LOG2E;
+    unsigned char* q_rows = q_tile + cw * 64 * 128;  // this warpgroup's rows in each box
+    const unsigned char* do_rows = do_tile + cw * 64 * 128;
+    const float lse_a = row_a < Lq ? lse[(size_t)bh * Lq + row_a] * LOG2E : 0.f;
+    const float lse_b = row_b < Lq ? lse[(size_t)bh * Lq + row_b] * LOG2E : 0.f;
+    const float del_a = row_a < Lq ? delta[(size_t)bh * Lq + row_a] : 0.f;
+    const float del_b = row_b < Lq ? delta[(size_t)bh * Lq + row_b] : 0.f;
 
-    // P, forced to 0 on invalid pairs, then dS = P (dP - delta) scale in s
+    float dq[64];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+    mbar_wait(qd_full, 0);
+    for (int t = t_lo, it = 0; t < t_hi; ++t, ++it) {
+      const int s = it % STAGES;
+      const int kt0 = t * BLOCK_K;
+      // no row of this warpgroup sees a key of this tile
+      const bool skip = r0 >= Lq || (causal && kt0 > r0 + 63) ||
+                        (window > 0 && r0 - (kt0 + BLOCK_K - 1) >= window);
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      if (!skip) {
+        float sc[32], dp[32];
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int col = kbase + nt * 8 + t4 * 2 + i;
-        bool ok0 = in0 && col < Lk, ok1 = in1 && col < Lk;
-        if (causal) {
-          ok0 = ok0 && row0 >= col;
-          ok1 = ok1 && row1 >= col;
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_m64n64k16_ss(sc, desc_k_major(q_rows, Q_BOX, kk),
+                             desc_k_major(k_stage(s), KV_BOX, kk), kk > 0);
         }
-        if (window > 0) {
-          ok0 = ok0 && row0 - col < window;
-          ok1 = ok1 && row1 - col < window;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_m64n64k16_ss(dp, desc_k_major(do_rows, Q_BOX, kk),
+                             desc_k_major(v_stage(s), KV_BOX, kk), kk > 0);
         }
-        const float p0 = ok0 ? __expf(s[nt][i] * sm_scale - lse0) : 0.f;
-        const float p1 = ok1 ? __expf(s[nt][2 + i] * sm_scale - lse1) : 0.f;
-        s[nt][i] = p0 * (dp[nt][i] - del0) * sm_scale;
-        s[nt][2 + i] = p1 * (dp[nt][2 + i] - del1) * sm_scale;
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // dS into dp; column j of the tile is key kt0 + j
+        const bool unmasked = kt0 + BLOCK_K <= Lk && r0 + 64 <= Lq &&
+                              (!causal || r0 >= kt0 + BLOCK_K - 1) &&
+                              (window <= 0 || r0 + 63 - kt0 < window);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float p_a = fast_exp2(fmaf(sc[4 * j + i], c, -lse_a));
+            float p_b = fast_exp2(fmaf(sc[4 * j + 2 + i], c, -lse_b));
+            if (!unmasked) {
+              const int key = kt0 + j * 8 + t4 * 2 + i;
+              bool ok_a = row_a < Lq && key < Lk, ok_b = row_b < Lq && key < Lk;
+              if (causal) {
+                ok_a = ok_a && row_a >= key;
+                ok_b = ok_b && row_b >= key;
+              }
+              if (window > 0) {
+                ok_a = ok_a && row_a - key < window;
+                ok_b = ok_b && row_b - key < window;
+              }
+              p_a = ok_a ? p_a : 0.f;
+              p_b = ok_b ? p_b : 0.f;
+            }
+            dp[4 * j + i] = p_a * (dp[4 * j + i] - del_a) * sm_scale;
+            dp[4 * j + 2 + i] = p_b * (dp[4 * j + 2 + i] - del_b) * sm_scale;
+          }
+        }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pack_a(da[kk], dp, kk);
+          fence_regs(da[kk]);
+        }
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_m64n128k16_rs(dq, da[kk], desc_mn_major(k_stage(s), KV_BOX, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(da[kk]);
       }
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    // dQ += dS K over 2 steps of 16 keys; K read transposed
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < 8; ++dn) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, &Ks[(kk * 16) * STRIDE + dn * 16], lane);
-        mma_bf16(acc[2 * dn], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * dn + 1], a, bf[2], bf[3]);
-      }
-    }
-  }
-
-  __nv_bfloat16* ob = dq + (size_t)bh * Lq * HEAD_DIM;
-#pragma unroll
-  for (int dn = 0; dn < 16; ++dn) {
-    const int c = dn * 8 + t4 * 2;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * HEAD_DIM + c) =
-          pack_bf16(acc[dn][0], acc[dn][1]);
-    }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * HEAD_DIM + c) =
-          pack_bf16(acc[dn][2], acc[dn][3]);
+    // out: through this warpgroup's Q rows (its products are done with them)
+    if (r0 < Lq) {
+      store_acc_64x128(dq, 1.f, 1.f, q_rows, Q_BOX, &tm_dq, r0, bh, 1 + cw);
     }
   }
 }
 
 }  // namespace
 
-// window <= 0 means no sliding window. Returns the launch's cudaError_t.
+// window <= 0 means no sliding window. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue when a TMA map cannot be encoded: base not 16-byte
+// aligned).
 extern "C" int bci_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse,
                                      const void* delta, void* dq, int B, int H,
                                      int KVH, int Lq, int Lk, int causal,
                                      int window, float sm_scale, void* stream) {
-  dim3 grid((Lq + BLOCK_Q - 1) / BLOCK_Q, B * H);
-  flash_bwd_dq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H, KVH,
-      Lq, Lk, causal, window, sm_scale);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K) ||
+      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q) ||
+      !make_map_3d(&tm_dq, dq, B * H, Lq, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above the 48 KB default: opt in (cheap to repeat)
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (Lq + BLOCK_Q - 1) / BLOCK_Q;
+  flash_bwd_dq_kernel<<<n_qt * B * H, THREADS, SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B * H, H, KVH, Lq, Lk, causal, window,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

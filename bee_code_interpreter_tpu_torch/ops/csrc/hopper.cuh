@@ -1,5 +1,5 @@
 // Building blocks of the Hopper (sm_90a) kernels in this directory: TMA
-// tensor maps and loads/stores, mbarriers, wgmma with its shared-memory
+// tensor maps and loads/stores, 1-D bulk copies, mbarriers, wgmma with its shared-memory
 // descriptors, setmaxnreg, and the cluster barrier with distributed shared
 // memory stores. Header-only; every kernel source that includes it is
 // rebuilt when it changes (ops/cuda_build.py hashes csrc/*.cuh).
@@ -94,6 +94,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes from global memory into shared memory (1-D bulk
+// copy, no tensor map): both addresses 16-byte aligned, `bytes` a multiple
+// of 16; completion is counted on `bar` in bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // shared memory box to global; rows past the map's extent are dropped
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
                                              int c0, int c1, int c2) {
@@ -138,6 +150,20 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // arrive at a named barrier without waiting for it
 __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------ programmatic dependent launch
+
+// the next kernel on the stream, if launched with programmatic stream
+// serialization, may be scheduled from now on
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the kernels this one depends on have completed and their
+// writes are visible
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- setmaxnreg
@@ -262,6 +288,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
 #undef HOPPER_D64
 #undef HOPPER_R32
 #undef HOPPER_R64
+
+// --------------------------------------------------------- mma.sync, ldmatrix
+
+// d += A B, one warp, m16n8k16, bf16 operands (A row-major fragments a0-a3,
+// B column fragments b0, b1), f32 accumulator
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives, of matrix j, r[j] = its row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// the same, transposed: r[j] = column l / 4 of matrix j, rows 2 (l % 4) and
+// 2 (l % 4) + 1
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

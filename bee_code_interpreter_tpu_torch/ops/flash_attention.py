@@ -11,8 +11,8 @@ in f32; dk/dv come back compact ``[B, KVH, Lk, D]``.
 Dispatch is on where the tensors live, in ``FlashAttention`` for both
 directions: CUDA tensors go to the kernels (``csrc/flash_fwd.cu`` forward,
 ``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu`` backward; bf16 and
-head dim 128 only, and for the two that read through TMA maps dense tensors
-on a 16-byte boundary: anything else raises), CPU tensors to the plain versions
+head dim 128 only, and dense tensors on a 16-byte boundary, which their TMA
+maps demand: anything else raises), CPU tensors to the plain versions
 (``flash_attention_fwd_plain``, ``flash_bwd_dkdv_plain``,
 ``flash_bwd_dq_plain``). There is no third path and no fallback from one to
 the other. ``delta = rowsum(dO * O) - g_lse`` is a PyTorch reduction, as the
@@ -180,9 +180,9 @@ def _check_kernel_args(kernel: str, **tensors) -> None:
 
 def check_tma_operand(kernel: str, name: str, t: torch.Tensor) -> None:
     """What a TMA tensor map over ``t`` demands: a dense row-major tensor
-    (the map's strides are its shape's) starting on a 16-byte boundary. K1
-    and K3 read and write their bf16 tiles through such maps; anything else
-    raises, there is no fallback."""
+    (the map's strides are its shape's) starting on a 16-byte boundary. K1,
+    K3 and K4 read and write their bf16 tiles through such maps; anything
+    else raises, there is no fallback."""
     if not t.is_contiguous():
         raise ValueError(f"the {kernel} kernel needs contiguous {name} (TMA)")
     if t.data_ptr() % TMA_ALIGN_BYTES:
@@ -254,6 +254,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
     """``dQ`` by the dQ kernel (K4), bf16, ``[B, H, L, D]``."""
     sm_scale = _check_bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, causal,
                                sm_scale, window)
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+        check_tma_operand("flash_bwd_dq", name, t)
     B, H, L, _ = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)

@@ -57,13 +57,16 @@ def test_nvcc_command_targets_sm90a_and_names_the_headers(csrc, tmp_path):
     assert "-shared" in cmd and "-Xptxas=-v" in cmd
 
 
-def test_the_repo_kernels_include_the_shared_header():
-    for name in ("flash_fwd", "flash_bwd_dkdv"):
-        src = (cuda_build.CSRC / f"{name}.cu").read_text()
-        assert '#include "hopper.cuh"' in src
-        assert "wgmma.mma_async" not in src  # products go through hopper.cuh
-        assert "mma.sync" not in src
+@pytest.mark.parametrize(
+    "name", ["flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "paged_decode"])
+def test_the_repo_kernels_include_the_shared_header(name):
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    # products and copies go through hopper.cuh
+    for instr in ("wgmma.mma_async", "mma.sync", "cp.async.bulk", "ldmatrix.sync"):
+        assert instr not in src
     header = (cuda_build.CSRC / "hopper.cuh").read_text()
-    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
-                  "setmaxnreg"):
+    for instr in ("wgmma.mma_async", "mma.sync", "ldmatrix.sync",
+                  "cp.async.bulk.tensor", "cp.async.bulk.shared::cluster.global",
+                  "mbarrier.try_wait", "setmaxnreg"):
         assert instr in header

@@ -72,9 +72,9 @@ def test_validation():
                                     v[:, :1].repeat(1, 3, 1, 1))
 
 
-@pytest.mark.parametrize("kernel", ["flash", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("kernel", ["flash", "flash_bwd_dkdv", "flash_bwd_dq"])
 def test_tma_operand_check(kernel):
-    """What the TMA maps of K1 and K3 demand, checked by the wrapper: a
+    """What the TMA maps of K1, K3 and K4 demand, checked by the wrapper: a
     dense tensor on a 16-byte boundary; anything else raises."""
     base = torch.zeros(1, 4, 16, 128, dtype=torch.bfloat16)
     fa.check_tma_operand(kernel, "q", base)
