@@ -4,12 +4,13 @@ The counterpart of ``bee_code_interpreter_tpu/models/engine.py``, host-side
 only. ``submit`` always accepts (up to an optional queue bound) and returns a
 ticket; admission into the batcher happens inside ``step`` the moment a row
 and enough pages are free, in (priority desc, arrival) order with deliberate
-head-of-line blocking. ``new_tokens`` is the streaming read; ``cancel`` works
-on queued and admitted tickets.
+head-of-line blocking; pages a prefix-cache hit would reuse count as
+available. ``new_tokens`` is the streaming read; ``cancel`` works on queued
+and admitted tickets; ``preempt`` sends an interleaved admission that has
+not produced a token back to the head of its priority class.
 
 Not ported yet (``NotImplementedError``): the ``metrics``/``monitor`` hooks,
-``prefill_chunk``/``adapter``/``interleave_admission`` on ``submit``,
-``preempt`` (it needs interleaved admission) and ``state_dict``.
+``adapter`` on ``submit`` (LoRA) and ``state_dict``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ class _Queued:
     prompt: object
     max_new_tokens: int
     sampling: SamplingParams | None
+    prefill_chunk: int | None
     pages_needed: int
+    interleave_admission: int | None = None
+    priority: int = 0  # kept so a preempted ticket requeues in its class
 
 
 class Engine:
@@ -63,6 +67,10 @@ class Engine:
         self._queued: set[int] = set()
         self._stream_cursor: dict[int, int] = {}
         self._holdback: dict[int, int] = {}
+        # admitted interleaved tickets -> their request, for preempt; a
+        # preempted ticket requeues ahead of its class (decreasing seq)
+        self._preemptable: dict[int, _Queued] = {}
+        self._front_seq = 0
 
     def state_dict(self) -> dict:
         raise not_ported("serving snapshots (state_dict)")
@@ -83,17 +91,17 @@ class Engine:
     ) -> int:
         """Accept a request and return a ticket. Everything
         capacity-independent fails here, through the batcher's own
-        ``validate_request``."""
-        if prefill_chunk is not None:
-            raise not_ported("chunked admission (prefill_chunk)")
+        ``validate_request`` (``prefill_chunk`` >= 1 included)."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         pages_needed = self.batcher.validate_request(
             prompt, max_new_tokens, sampling=sampling, adapter=adapter,
             interleave_admission=interleave_admission,
+            prefill_chunk=prefill_chunk,
         )
         if self.max_queue is not None and len(self._queued) >= self.max_queue:
             raise RuntimeError(f"queue full ({self.max_queue})")
-        req = _Queued(prompt, max_new_tokens, sampling, pages_needed)
+        req = _Queued(prompt, max_new_tokens, sampling, prefill_chunk,
+                      pages_needed, interleave_admission, priority)
         ticket = self._next_ticket
         self._next_ticket += 1
         seq = self._next_seq
@@ -119,14 +127,24 @@ class Engine:
             if not self.batcher.has_free_row():
                 return
             # page backpressure, strictly FCFS within a priority: the head
-            # waits for its pages; smaller requests behind it do not jump
-            if req.pages_needed > len(self.batcher.free_pages):
+            # waits for its pages; smaller requests behind it do not jump.
+            # Pages a prefix hit would reuse need no fresh allocation, and
+            # parked pages can be evicted for it.
+            available = (
+                len(self.batcher.free_pages) + len(self.batcher.evictable)
+            )
+            fresh_needed = req.pages_needed - self.batcher.prefix_credit(
+                req.prompt
+            )
+            if fresh_needed > available:
                 return
             heapq.heappop(self._heap)
             self._queued.discard(ticket)
             try:
                 rid = self.batcher.submit(
                     req.prompt, req.max_new_tokens, sampling=req.sampling,
+                    prefill_chunk=req.prefill_chunk,
+                    interleave_admission=req.interleave_admission,
                 )
             except CapacityError:
                 heapq.heappush(self._heap, (neg_prio, seq, ticket, req))
@@ -138,6 +156,8 @@ class Engine:
                 self._state[ticket] = ("error", repr(e))
                 continue
             self._state[ticket] = rid
+            if req.interleave_admission is not None:
+                self._preemptable[ticket] = req
 
     # --------------------------------------------------------------- step
     def step(self) -> None:
@@ -241,7 +261,25 @@ class Engine:
         return list(tokens[cursor:limit])
 
     def preempt(self, ticket: int) -> bool:
-        raise not_ported("preemption (it needs interleaved admission)")
+        """Evict an admitted ticket whose interleaved prefill has not
+        produced a token back to the head of its priority class (it earned
+        its pages once). The batcher frees its pages and forgets the old
+        request id; admitting it again recomputes the prefill, exactly.
+        False for queued, finished, decoding or blocking-admitted tickets;
+        an unknown ticket raises KeyError."""
+        rid = self._rid(ticket)
+        if not isinstance(rid, int):
+            return False
+        req = self._preemptable.pop(ticket, None)
+        if req is None or not self.batcher.preempt(rid):
+            return False
+        self._front_seq -= 1
+        heapq.heappush(self._heap,
+                       (-req.priority, self._front_seq, ticket, req))
+        self._queued.add(ticket)
+        self._state[ticket] = "queued"
+        self._stream_cursor[ticket] = 0
+        return True
 
     def cancel(self, ticket: int) -> None:
         """Cancel queued (never touches the device) or admitted (pages
@@ -264,3 +302,4 @@ class Engine:
             self.batcher.release(rid)
         self._stream_cursor.pop(ticket, None)
         self._holdback.pop(ticket, None)
+        self._preemptable.pop(ticket, None)

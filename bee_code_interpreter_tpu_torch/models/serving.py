@@ -1,29 +1,36 @@
 """Continuous batching over the paged KV cache, in PyTorch.
 
 The counterpart of ``bee_code_interpreter_tpu/models/serving.py``: requests
-of different lengths share one decode batch and one page pool. ``submit``
-prefills a prompt into freshly allocated pages (one ``forward`` over the
-prompt padded to whole pages, then ``seed_prefill``) and samples its first
-token; every ``step`` advances all active rows by one token through one
-``decode_step_paged`` over all ``max_batch`` rows (idle rows point at the
-scratch page and are ignored); a finished row frees its pages at once.
+of different lengths share one decode batch and one page pool (bf16, or
+int8 with per-row scales). ``submit`` prefills a prompt into its pages and
+samples its first token: one ``forward`` over the prompt padded to whole
+pages then ``seed_prefill`` (one-shot), ``prefill_chunked`` then
+``seed_from_contiguous`` (``prefill_chunk``), page-aligned
+``decode_window_paged`` windows after a prefix-cache hit, or one window per
+``step`` (``interleave_admission``). Every ``step`` advances all active
+rows by one token through one ``decode_step_paged`` over all ``max_batch``
+rows (idle rows point at the scratch page and are ignored); a finished row
+frees its pages at once, and full prompt pages may stay indexed for later
+requests (``prefix_cache``).
 
 The host keeps the integer bookkeeping (free-page stack, block tables,
-cursors) in numpy and samples per request from a seeded numpy Generator, as
-the JAX batcher does, so a request's output never depends on its batch-mates.
-Where JAX compiles "device programs", the port makes plain torch calls, and
-it updates the pool in place where JAX donates it.
+cursors, refcounts, the prefix index and its LRU) in numpy and samples per
+request from a seeded numpy Generator, as the JAX batcher does, so a
+request's output never depends on its batch-mates. Where JAX compiles
+"device programs", the port makes plain torch calls, and it updates the
+pool in place where JAX donates it.
 
-Ported: the blocking one-shot admission, the plain decode step, stops, eos,
-cancel, results and logprobs. Refused with ``NotImplementedError`` until a
-later slice ports them (ROADMAP Queue 1): speculative decoding
-(``draft_params``), ``prefix_cache``, LoRA ``adapters``, ``mesh``,
-``metrics``/``monitor`` hooks, ``prefill_chunk`` and ``interleave_admission``
-on ``submit``, int8 KV pools, ``preempt`` and ``state_dict``.
+Ported: every admission path above, the plain decode step, stops, eos,
+cancel, preempt, results and logprobs. Refused with ``NotImplementedError``
+until a later slice ports them (ROADMAP Queue 1): speculative decoding
+(``draft_params``), LoRA ``adapters``, ``mesh``, the ``metrics``/``monitor``
+hooks and serving snapshots (``state_dict``).
 """
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +42,7 @@ from bee_code_interpreter_tpu_torch.models.transformer import TransformerConfig
 from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
     alloc_paged_cache,
     pool_telemetry,
+    seed_from_contiguous,
     seed_prefill,
 )
 
@@ -184,10 +192,13 @@ class ContinuousBatcher:
     """Admit -> step -> collect loop over ``decode_step_paged``.
 
     ``max_batch`` bounds concurrent requests; ``n_pages``/``page_size``
-    size the shared pool; ``max_pages_per_seq`` is the block-table width,
-    so it bounds prompt + generation at ``max_pages_per_seq * page_size``.
-    ``device`` defaults to CUDA (raises without it); ``params`` must
-    already live there.
+    size the shared pool (bf16, or int8 with ``kv_cache_dtype="int8"``);
+    ``max_pages_per_seq`` is the block-table width, so it bounds prompt +
+    generation at ``max_pages_per_seq * page_size``. ``prefix_cache``
+    shares full prompt pages between requests by the chain hash of their
+    tokens (refcounts, and an LRU of parked pages evicted under pool
+    pressure). ``device`` defaults to CUDA (raises without it); ``params``
+    must already live there.
     """
 
     def __init__(
@@ -219,10 +230,6 @@ class ContinuousBatcher:
         ):
             if value is not None:
                 raise not_ported(name)
-        if prefix_cache:
-            raise not_ported("the prefix cache")
-        if config.kv_cache_dtype == "int8":
-            raise not_ported("the int8 KV pool")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -234,6 +241,7 @@ class ContinuousBatcher:
         self.page_size = page_size
         self.eos_id = eos_id
         self.max_len = max_pages_per_seq * page_size
+        self.prefix_cache_enabled = prefix_cache
         self.cache = alloc_paged_cache(config, n_pages, page_size, self.device)
         self.block_table = np.full(
             (max_batch, max_pages_per_seq), _SCRATCH_PAGE, dtype=np.int32
@@ -255,20 +263,51 @@ class ContinuousBatcher:
         self._next_request_id = 0
         self.n_tokens_generated = 0
         self.free_pages = list(range(n_pages - 1, _SCRATCH_PAGE, -1))
+        # Prefix cache (host bookkeeping only): a page holding a full page of
+        # prompt K/V is keyed by the chain hash of the tokens up to its end
+        # and shared through refcounts; a cached page at refcount 0 parks in
+        # the LRU instead of the free list and is evicted only under
+        # pressure. Only pages wholly inside [0, L) are shared: the decode
+        # cursor starts at L, so nothing writes them again.
         self.page_ref = np.zeros(n_pages, dtype=np.int32)
+        self.prefix_index: dict[bytes, int] = {}
+        self.page_hash: dict[int, bytes] = {}
+        self.evictable: OrderedDict[int, None] = OrderedDict()
+        self.prefix_stats = {
+            "lookups": 0, "hits": 0, "pages_reused": 0, "evictions": 0,
+        }
+        # row -> interleaved admission in progress: the row is occupied but
+        # not active until its last window ran
+        self.prefill_state: dict[int, dict] = {}
+        # lifetime page churn: held pages = allocated - released
+        self._pages_allocated = 0
+        self._pages_released = 0
 
     def kv_telemetry(self) -> dict:
-        """Page accounting and slot-level fragmentation of the pool."""
-        return pool_telemetry(
+        """Page accounting, slot-level fragmentation of the pool, the
+        prefix cache's counters and the lifetime page churn."""
+        out = pool_telemetry(
             block_table=self.block_table,
             pos=self.pos,
             active=self.active,
             page_ref=self.page_ref,
             page_size=self.page_size,
             free_pages=len(self.free_pages),
-            parked_pages=0,
+            parked_pages=len(self.evictable),
             scratch_page=_SCRATCH_PAGE,
         )
+        lookups = self.prefix_stats["lookups"]
+        hits = self.prefix_stats["hits"]
+        out["prefix"] = {
+            **self.prefix_stats,
+            "misses": lookups - hits,
+            "hit_ratio": hits / lookups if lookups else 0.0,
+            "indexed_pages": len(self.prefix_index),
+            "enabled": self.prefix_cache_enabled,
+        }
+        out["pages_allocated_total"] = self._pages_allocated
+        out["pages_released_total"] = self._pages_released
+        return out
 
     def state_dict(self) -> dict:
         raise not_ported("serving snapshots (state_dict)")
@@ -277,13 +316,20 @@ class ContinuousBatcher:
         raise not_ported("serving snapshots (load_state_dict)")
 
     # ------------------------------------------------------------- admission
+    def _occupied(self) -> np.ndarray:
+        """Rows decoding or still admitting (interleaved)."""
+        occupied = self.active.copy()
+        occupied[list(self.prefill_state)] = True
+        return occupied
+
     def has_free_row(self) -> bool:
-        return bool((~self.active).any())
+        return not self._occupied().all()
 
     @property
     def busy(self) -> bool:
-        """Rows decoding: the loop-until condition of ``run_to_completion``."""
-        return bool(self.active.any())
+        """Rows decoding or admissions still interleaving: the loop-until
+        condition of ``run_to_completion``."""
+        return bool(self.active.any()) or bool(self.prefill_state)
 
     def validate_request(
         self,
@@ -292,18 +338,35 @@ class ContinuousBatcher:
         sampling: SamplingParams | None = None,
         adapter: int | None = None,
         interleave_admission: int | None = None,
+        prefill_chunk: int | None = None,
     ) -> int:
         """Capacity-independent request validation; returns the page count
         the request needs. Anything that passes can fail admission only
-        transiently (``CapacityError``)."""
+        transiently (``CapacityError``). Unlike the JAX batcher, which
+        ignores ``prefill_chunk`` when ``interleave_admission`` is set,
+        the two together are refused."""
         if adapter is not None:
             raise not_ported("LoRA serving (adapter)")
-        if interleave_admission is not None:
-            raise not_ported("interleaved admission")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         L = int(prompt.shape[0])
         if L < 1:
             raise ValueError("prompt must be non-empty")
+        if interleave_admission is not None and (
+            interleave_admission < self.page_size
+            or interleave_admission % self.page_size
+        ):
+            raise ValueError(
+                f"interleave_admission must be a positive multiple of "
+                f"page_size ({self.page_size}), got {interleave_admission}"
+            )
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"chunk must be >= 1, got {prefill_chunk}")
+            if interleave_admission is not None:
+                raise ValueError(
+                    "prefill_chunk and interleave_admission exclude each "
+                    "other: the interleaved windows are the chunks"
+                )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         total = L + max_new_tokens
@@ -330,68 +393,145 @@ class ContinuousBatcher:
         adapter: int | None = None,
         interleave_admission: int | None = None,
     ) -> int:
-        """Prefill ``prompt`` into freshly allocated pages, sample its first
-        token and return a request id (stable across row recycling).
-        Raises ``CapacityError`` if no row or not enough pages are free."""
-        if prefill_chunk is not None:
-            raise not_ported("chunked admission (prefill_chunk)")
+        """Prefill ``prompt`` into its pages, sample its first token and
+        return a request id (stable across row recycling). Raises
+        ``CapacityError`` if no row or not enough pages are free.
+
+        A prefix-cache hit runs only the suffix through the model, in
+        page-aligned windows over the row's own table. ``prefill_chunk``
+        admits through ``prefill_chunked`` (activation memory bounded by
+        the chunk; on a hit it bounds the window width instead).
+        ``interleave_admission`` (a multiple of page_size) defers the
+        prefill: submit allocates the row and pages and runs no model, and
+        each ``step`` first runs one window of that width, so the other
+        rows keep decoding while a long prompt admits."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         n_need = self.validate_request(
             prompt, max_new_tokens, sampling=sampling, adapter=adapter,
             interleave_admission=interleave_admission,
+            prefill_chunk=prefill_chunk,
         )
         L = int(prompt.shape[0])
-        free_rows = np.flatnonzero(~self.active)
+        free_rows = np.flatnonzero(~self._occupied())
         if free_rows.size == 0:
             raise CapacityError("no free batch row (step() until one frees)")
-        if n_need > len(self.free_pages):
+        # match before allocating: matched pages are refs, not allocations,
+        # capped so at least one suffix token is left to give logits
+        hashes: list[bytes] = []
+        shared: list[int] = []
+        if self.prefix_cache_enabled:
+            self.prefix_stats["lookups"] += 1
+            hashes, shared = self._prefix_match(prompt)
+        matched = len(shared)
+        # take refs on shared pages before counting what is available, so
+        # that a parked match counts neither as free nor as evictable
+        for page in shared:
+            if self.page_ref[page] == 0:
+                self._pages_allocated += 1  # a parked page is held again
+            self.page_ref[page] += 1
+            self.evictable.pop(page, None)
+        available = len(self.free_pages) + len(self.evictable)
+        if n_need - matched > available:
+            for page in reversed(shared):
+                self._release_page(page)
             raise CapacityError(
-                f"page pool exhausted ({n_need} needed, "
-                f"{len(self.free_pages)} free)"
+                f"page pool exhausted ({n_need - matched} needed, "
+                f"{available} free)"
             )
+        if matched:
+            self.prefix_stats["hits"] += 1
+            self.prefix_stats["pages_reused"] += matched
         row = int(free_rows[0])
-        pages = [self._alloc_page() for _ in range(n_need)]
+        pages = shared + [self._alloc_page() for _ in range(n_need - matched)]
         req = self._next_request_id
         self._next_request_id += 1
-        self.block_table[row, :] = _SCRATCH_PAGE
-        self.block_table[row, :n_need] = pages
         try:
-            last_row = self._full_admit(prompt, pages, L)
+            if interleave_admission is not None:
+                # no model runs now; the global table keeps the row on the
+                # scratch page until activation, the windows carry their own
+                record = self._prefill_record(
+                    prompt, pages, hashes, matched, interleave_admission,
+                    sampling, max_new_tokens, req,
+                )
+            else:
+                self.block_table[row, :] = _SCRATCH_PAGE
+                self.block_table[row, :n_need] = pages
+                if matched:
+                    last_row = self._suffix_admit(row, prompt, matched,
+                                                  prefill_chunk)
+                else:
+                    last_row = self._full_admit(prompt, pages, L,
+                                                prefill_chunk)
         except BaseException:
-            # a failed admission must not leak its pages: the row never
-            # activated, so nothing else would return them
-            self.block_table[row, :] = _SCRATCH_PAGE
-            for page in reversed(pages):
-                self._release_page(page)
+            # a failed admission must not leak its pages or its row: the row
+            # never activated, so nothing else would return them (the JAX
+            # batcher leaks them when its interleaved branch fails)
+            self._drop_row_pages(row, pages)
             raise
-        return self._activate_row(row, last_row, pages, L, sampling,
-                                  max_new_tokens, req)
+        if interleave_admission is not None:
+            self.prefill_state[row] = record
+            self.results[req] = []
+            self.done[req] = False
+            return req
+        return self._activate_row(row, last_row, pages, hashes, L, sampling,
+                                  max_new_tokens, req, propagate=True)
 
-    def _activate_row(self, row, last_row, pages, L, sampling,
-                      max_new_tokens, req) -> int:
-        """Admission epilogue: sample the first token, activate the row.
-        First-token failures release the pages and propagate (the caller
-        never received the id), except an exhausted constraint, which
-        completes the request with an empty output."""
+    def _prefill_record(self, prompt, pages, hashes, matched, width,
+                        sampling, max_new_tokens, req) -> dict:
+        """The state of an interleaved admission: the suffix after any
+        prefix hit, padded to whole pages, and the row's own table."""
+        start = matched * self.page_size
+        bt_row = np.full((1, self.block_table.shape[1]), _SCRATCH_PAGE,
+                         dtype=np.int32)
+        bt_row[0, :len(pages)] = pages
+        return {
+            "req": req, "pages": pages, "hashes": hashes,
+            "suffix": self._padded_suffix(prompt, start), "pos": start,
+            "start": start, "L": int(prompt.shape[0]), "bt_row": bt_row,
+            "width": width, "sampling": sampling,
+            "max_new_tokens": max_new_tokens, "last_row": None,
+        }
+
+    def _padded_suffix(self, prompt, start: int) -> np.ndarray:
+        """The prompt from ``start`` on, zero-padded to whole pages."""
+        n = int(prompt.shape[0]) - start
+        suffix = np.zeros(-(-n // self.page_size) * self.page_size,
+                          dtype=np.int32)
+        suffix[:n] = prompt[start:]
+        return suffix
+
+    def _activate_row(self, row, last_row, pages, hashes, L, sampling,
+                      max_new_tokens, req, propagate=False) -> int:
+        """Admission epilogue of the blocking and interleaved paths:
+        sample the first token, register the prompt's full pages in the
+        prefix index, activate the row. First-token failures release the
+        pages; ``propagate`` re-raises them (blocking submit: the caller
+        never received the id), else they are recorded on the request. An
+        exhausted constraint completes the request with an empty output."""
         sampling = sampling or SamplingParams()
         try:
             rng = np.random.default_rng(sampling.seed)
             first = choose_host(last_row, sampling, rng, [])
         except ConstraintExhausted:
-            self.block_table[row, :] = _SCRATCH_PAGE
-            for page in reversed(pages):
-                self._release_page(page)
+            self._drop_row_pages(row, pages)
             self.results[req] = []
             if sampling.logprobs:
                 self.results_logprobs[req] = []
             self.done[req] = True
             self.finish[req] = "constraint"
             return req
-        except BaseException:
-            self.block_table[row, :] = _SCRATCH_PAGE
-            for page in reversed(pages):
-                self._release_page(page)
-            raise
+        except BaseException as e:
+            self._drop_row_pages(row, pages)
+            if propagate:
+                raise
+            self.done[req] = True
+            self.finish[req] = "error"
+            if sampling.logprobs:
+                self.results_logprobs[req] = []
+            self.errors[req] = repr(e)
+            return req
+        if self.prefix_cache_enabled:
+            self._register_prefix(pages, hashes, L)
         self.pos[row] = L
         self.current[row, 0] = first
         self.budget[row] = max_new_tokens
@@ -407,36 +547,200 @@ class ContinuousBatcher:
         self._retire_if_done(row)
         return req
 
-    def _full_admit(self, prompt, pages, L) -> np.ndarray:
-        """One-shot prefill of the prompt padded to whole pages (pad tokens
-        are causally invisible to rows < L, so logits[L-1] and K/V[:L] are
-        exact), then ``seed_prefill`` of K/V[:L] into the row's pages.
-        Returns the last prompt token's logits row."""
+    def _drop_row_pages(self, row, pages) -> None:
+        self.block_table[row, :] = _SCRATCH_PAGE
+        for page in reversed(pages):
+            self._release_page(page)
+
+    def _register_prefix(self, pages, hashes, L) -> None:
+        """Index every page wholly inside [0, L): nothing writes them for
+        the rest of the request. A matched page registers again as a no-op;
+        when two in-flight admissions computed the same page, the later
+        one wins and the displaced page loses its cache identity (and is
+        freed if it was parked)."""
+        for j in range(L // self.page_size):
+            page = int(pages[j])
+            prev = self.prefix_index.get(hashes[j])
+            if prev == page:
+                continue
+            if prev is not None:
+                self.page_hash.pop(prev, None)
+                if prev in self.evictable:
+                    del self.evictable[prev]
+                    self.free_pages.append(prev)
+            self.prefix_index[hashes[j]] = page
+            self.page_hash[page] = hashes[j]
+
+    def _advance_prefills(self) -> None:
+        """One window of every interleaved admission, at the top of
+        ``step``: windows over the record's own table (the global table
+        keeps the row on the scratch page until activation)."""
+        for row in sorted(self.prefill_state):
+            rec = self.prefill_state[row]
+            done_tokens = rec["pos"] - rec["start"]
+            win = rec["suffix"][done_tokens:done_tokens + rec["width"]]
+            last = self._window(win, rec["pos"], rec["bt_row"], rec["L"])
+            if last is not None:
+                rec["last_row"] = last
+            rec["pos"] += int(win.shape[0])
+            if done_tokens + rec["width"] >= len(rec["suffix"]):
+                del self.prefill_state[row]
+                n_need = len(rec["pages"])
+                self.block_table[row, :] = _SCRATCH_PAGE
+                self.block_table[row, :n_need] = rec["pages"]
+                self._activate_row(
+                    row, rec["last_row"], rec["pages"], rec["hashes"],
+                    rec["L"], rec["sampling"], rec["max_new_tokens"],
+                    rec["req"],
+                )
+
+    def _window(self, win, pos, bt_row, L) -> np.ndarray | None:
+        """One admission window: ``decode_window_paged`` over one row's
+        table. Returns the last prompt token's logits row when it lies in
+        this window."""
+        dev = self.device
+        logits, self.cache = transformer.decode_window_paged(
+            self.params,
+            torch.as_tensor(win[None, :], device=dev),
+            torch.as_tensor([pos], dtype=torch.int32, device=dev),
+            self.cache,
+            torch.as_tensor(bt_row, device=dev),
+            self.config,
+        )
+        idx = L - 1 - pos  # the last real token's index in this window
+        if 0 <= idx < win.shape[0]:
+            return logits[0, idx].cpu().numpy()
+        return None
+
+    # ------------------------------------------------- admission sub-paths
+    def _full_admit(self, prompt, pages, L, prefill_chunk) -> np.ndarray:
+        """Whole-prompt admission into the row's pages; returns the last
+        prompt token's logits row. One-shot: one ``forward`` over the prompt
+        padded to whole pages (pad tokens are causally invisible to rows
+        < L, so logits[L-1] and K/V[:L] are exact), then ``seed_prefill``.
+        Chunked: ``prefill_chunked`` builds the contiguous cache in the
+        pool's layout over the prompt pages and ``seed_from_contiguous``
+        copies it verbatim (int8 rows are not quantized twice)."""
         n_prompt_pages = -(-L // self.page_size)
+        pages_t = torch.as_tensor(pages[:n_prompt_pages], device=self.device)
+        if prefill_chunk is not None:
+            last_logits, contig = transformer.prefill_chunked(
+                self.params, torch.as_tensor(prompt[None, :], device=self.device),
+                self.config, total_len=n_prompt_pages * self.page_size,
+                chunk=prefill_chunk,
+            )
+            seed_from_contiguous(self.cache, pages_t,
+                                 {name: x[:, 0] for name, x in contig.items()})
+            return last_logits[0].cpu().numpy()
         padded = np.zeros(n_prompt_pages * self.page_size, dtype=np.int64)
         padded[:L] = prompt
         tokens = torch.as_tensor(padded[None, :], device=self.device)
         logits, (k_pre, v_pre) = transformer.forward(
             self.params, tokens, self.config, return_kv=True
         )
-        pages_t = torch.as_tensor(pages[:n_prompt_pages], device=self.device)
         seed_prefill(self.cache, pages_t,
                      k_pre[:, 0, :, :L, :], v_pre[:, 0, :, :L, :])
         return logits[0, L - 1, :].cpu().numpy()
 
+    def _suffix_admit(self, row, prompt, matched, prefill_chunk) -> np.ndarray:
+        """Prefix-hit admission: the suffix after the ``matched`` shared
+        pages, padded to whole pages, through consecutive page-aligned
+        ``decode_window_paged`` windows over the row's table; the windows
+        attend to the shared prefix through the table. ``prefill_chunk``
+        bounds the window width. Pad tokens of the last window write K/V
+        past L into the row's own pages, behind the cursor: invisible until
+        the decode overwrites them. Returns the last prompt token's logits
+        row."""
+        ps = self.page_size
+        start = matched * ps
+        width = ps * (max(1, prefill_chunk // ps) if prefill_chunk is not None
+                      else self.block_table.shape[1])
+        suffix = self._padded_suffix(prompt, start)
+        bt_row = self.block_table[row:row + 1]
+        last_row = None
+        for off in range(0, len(suffix), width):
+            last = self._window(suffix[off:off + width], start + off, bt_row,
+                                int(prompt.shape[0]))
+            if last is not None:
+                last_row = last
+        return last_row
+
+    # -------------------------------------------------- prefix-cache pages
+    def _prefix_match(self, prompt: np.ndarray) -> tuple[list[bytes], list[int]]:
+        """(chain hashes, prefix pages matched right now), the match capped
+        at (L-1)//ps pages so at least one suffix token remains."""
+        hashes = self._chain_hashes(prompt)
+        shared: list[int] = []
+        limit = min(len(hashes), (int(prompt.shape[0]) - 1) // self.page_size)
+        for i in range(limit):
+            page = self.prefix_index.get(hashes[i])
+            if page is None:
+                break
+            shared.append(page)
+        return hashes, shared
+
+    def prefix_credit(self, prompt, adapter: int | None = None) -> int:
+        """Full prompt pages a submission would reuse from the prefix index
+        right now (0 with the cache off): the engine subtracts them from a
+        request's page need."""
+        if adapter is not None:
+            raise not_ported("LoRA serving (adapter)")
+        if not self.prefix_cache_enabled:
+            return 0
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        return len(self._prefix_match(prompt)[1])
+
+    def _chain_hashes(self, prompt: np.ndarray) -> list[bytes]:
+        """The chain hash after each full page: ``hashes[i]`` commits to
+        tokens [0, (i+1)*page_size), salted with the adapter index (0, the
+        base model: LoRA is not ported) as the JAX batcher salts it, so the
+        keys are the JAX batcher's."""
+        h = hashlib.blake2b(digest_size=16)
+        h.update((0).to_bytes(8, "little"))
+        out: list[bytes] = []
+        ps = self.page_size
+        for i in range(len(prompt) // ps):
+            h.update(prompt[i * ps:(i + 1) * ps].astype(np.int32).tobytes())
+            out.append(h.digest())
+        return out
+
     def _alloc_page(self) -> int:
-        page = self.free_pages.pop()
+        """One fresh page: the free list first, then the LRU's oldest
+        parked prefix page (its index entry dies with it). Callers check
+        capacity first."""
+        if self.free_pages:
+            page = self.free_pages.pop()
+        else:
+            page, _ = self.evictable.popitem(last=False)
+            h = self.page_hash.pop(page, None)
+            if h is not None and self.prefix_index.get(h) == page:
+                del self.prefix_index[h]
+            self.prefix_stats["evictions"] += 1
         self.page_ref[page] = 1
+        self._pages_allocated += 1
         return page
 
     def _release_page(self, page: int) -> None:
+        """Drop one reference; at 0 an indexed prefix page parks in the LRU
+        (its K/V kept for later hits), any other page is freed."""
         self.page_ref[page] -= 1
-        if self.page_ref[page] == 0:
+        if self.page_ref[page] > 0:
+            return
+        self._pages_released += 1
+        h = self.page_hash.get(page)
+        if h is not None and self.prefix_index.get(h) == page:
+            self.evictable[page] = None  # the MRU end
+        else:
+            self.page_hash.pop(page, None)
             self.free_pages.append(page)
 
     # ----------------------------------------------------------------- step
     def step(self) -> None:
-        """Advance every active row by one token."""
+        """Advance every active row by one token; interleaved admissions
+        first run one window each, so their prefill and the batch's decode
+        share the step cadence."""
+        if self.prefill_state:
+            self._advance_prefills()
         if not self.active.any():
             return
         dev = self.device
@@ -545,12 +849,15 @@ class ContinuousBatcher:
     def stats(self) -> dict:
         return {
             "active_rows": int(self.active.sum()),
+            "prefilling_rows": len(self.prefill_state),
             "max_batch": int(self.active.shape[0]),
             "free_pages": len(self.free_pages),
+            "parked_pages": len(self.evictable),
             "held_pages": int((self.page_ref > 0).sum()),
             "requests_submitted": self._next_request_id,
             "requests_finished": sum(1 for v in self.done.values() if v),
             "tokens_generated": self.n_tokens_generated,
+            "prefix_cache": dict(self.prefix_stats),
         }
 
     def is_done(self, request_id: int) -> bool:
@@ -594,18 +901,45 @@ class ContinuousBatcher:
         return self.finish[request_id]
 
     def cancel(self, request_id: int) -> None:
-        """Abort a decoding request: row and pages free at once, tokens so
-        far stay readable. Cancelling a finished request is a no-op; an id
-        never issued raises KeyError."""
+        """Abort a decoding or still-admitting request: row and pages free
+        at once, tokens so far stay readable. Cancelling a finished request
+        is a no-op; an id never issued raises KeyError."""
         for row in np.flatnonzero(self.active):
             if int(self.row_request[row]) == request_id:
                 self._retire(int(row), "cancelled")
                 return
+        rec = self._drop_prefill(request_id)
+        if rec is not None:
+            self.done[request_id] = True
+            self.finish[request_id] = "cancelled"
+            if rec["sampling"] is not None and rec["sampling"].logprobs:
+                self.results_logprobs[request_id] = []
+            return
         if request_id not in self.done:
             raise KeyError(f"unknown request {request_id}")
 
     def preempt(self, request_id: int) -> bool:
-        raise not_ported("preemption (it needs interleaved admission)")
+        """Evict a request whose interleaved admission is still prefilling:
+        its pages free at once and the request is erased as if never
+        submitted (the caller submits the prompt again and the prefill is
+        recomputed, exactly, as nothing was emitted). False once the
+        request decodes, finished, or is unknown: ``cancel`` stops those."""
+        if self._drop_prefill(request_id) is None:
+            return False
+        self.results.pop(request_id, None)
+        self.done.pop(request_id, None)
+        return True
+
+    def _drop_prefill(self, request_id: int) -> dict | None:
+        """End a request's interleaved admission and release its pages
+        (shared ones drop their ref); its record, or None if it has none."""
+        for row, rec in list(self.prefill_state.items()):
+            if rec["req"] == request_id:
+                del self.prefill_state[row]
+                for page in reversed(rec["pages"]):
+                    self._release_page(page)
+                return rec
+        return None
 
     def release(self, request_id: int) -> None:
         """Drop a finished request's stored result; done-flag and finish

@@ -3,13 +3,18 @@ JAX package's ``models/transformer.py``.
 
 Ported: ``TransformerConfig``, ``rms_norm``, ``rope`` (split-half layout),
 the plain-array ``qeinsum``, ``init_params``, ``forward`` (``return_kv=True``
-gives the per-layer K/V, ``return_aux=True`` the MoE aux loss), the paged
-decode (``decode_window_paged`` / ``decode_step_paged``), ``loss_fn`` and
-``Transformer`` (``init``, ``apply``, ``make_optimizer``,
-``make_train_step``). Parameters are a plain dict: ``embed [V, D]``,
-``layers`` (a list of per-layer dicts, where JAX stacks them on a leading
-axis for ``lax.scan``), ``ln_f``, ``lm_head [D, V]``; weights keep JAX's
-``[d_in, d_out]`` layout.
+gives the per-layer K/V, ``return_aux=True`` the MoE aux loss), the
+contiguous cached decode (``alloc_decode_cache``, ``init_decode_cache``,
+``decode_window``, ``decode_step``, ``prefill_chunked``; bf16 or int8
+caches), the paged decode (``decode_window_paged`` / ``decode_step_paged``,
+bf16 or int8 pools), sampling (``sample_logits``, ``filter_logits``),
+``loss_fn`` and ``Transformer`` (``init``, ``apply``, ``make_optimizer``,
+``make_train_step``, ``generate``, ``generate_cached``). Parameters are a
+plain dict: ``embed [V, D]``, ``layers`` (a list of per-layer dicts, where
+JAX stacks them on a leading axis for ``lax.scan``), ``ln_f``,
+``lm_head [D, V]``; weights keep JAX's ``[d_in, d_out]`` layout. Caches and
+pools keep JAX's stacked ``[n_layers, ...]`` leaves; the layer loop writes
+through views of them, in place.
 
 The JAX code keeps f32 master weights and casts them to ``config.dtype`` at
 every einsum. Training does the same (``Transformer.init`` makes f32 masters
@@ -20,12 +25,12 @@ values are the same.
 
 Attention runs through the ops: prefill and training through the flash
 attention ``autograd.Function`` (``ops/flash_attention.py``: forward kernel,
-and the dK/dV and dQ kernels in the backward), decode through the paged
-decode kernel when ``paged_attention_kernel`` is set
+and the dK/dV and dQ kernels in the backward), single-token paged decode
+through the paged decode kernel when ``paged_attention_kernel`` is set
 (``ops/paged_attention.py``), all kernels on CUDA tensors and their plain
-versions on CPU tensors. Not ported yet and refused with
-``NotImplementedError``: int8 weights, MoE, LoRA, meshes; ``generate`` and
-``generate_cached`` wait for the contiguous decode family (ROADMAP Queue 1).
+versions on CPU tensors. Windows, int8 pools and the contiguous cache take
+the grouped einsums, as in JAX. Still refused with ``NotImplementedError``:
+weight-only int8 leaves, MoE, LoRA, meshes.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch.nn.functional as F
 
 from bee_code_interpreter_tpu_torch.device import resolve_device
 from bee_code_interpreter_tpu_torch.ops.flash_attention import local_attention
+from bee_code_interpreter_tpu_torch.ops.kv_cache import cache_append, cache_read
 from bee_code_interpreter_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
 )
@@ -75,7 +81,7 @@ class TransformerConfig:
     moe_dropless: bool = False
     rope_scaling: float = 1.0  # linear position interpolation
     sp_attention: str = "ring"
-    kv_cache_dtype: str = "bf16"  # "int8": not ported yet
+    kv_cache_dtype: str = "bf16"  # "int8": int8 K/V + per-row f32 scales
     sliding_window: int | None = None
     # single-token paged decode through the paged decode kernel
     paged_attention_kernel: bool = False
@@ -282,7 +288,111 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
     return logits
 
 
-# ------------------------------------------------------------- paged decode
+# ------------------------------------------------------------ cached decode
+
+
+def _grouped_attention(q, kf, vf, positions, config: TransformerConfig):
+    """The decode einsums of both cache layouts: queries ``[B, nh, W, dh]``
+    at ``positions [B, W]`` over K (f32) and V ``[B, kvh, S, dh]``; slot s
+    is visible to a query at position p when s <= p (and within the
+    sliding window). Returns ``[B, W, nh * dh]``."""
+    c = config
+    B, nh, W, dh = q.shape
+    kvh, S = kf.shape[1], kf.shape[2]
+    qg = q.reshape(B, kvh, nh // kvh, W, dh).float()
+    scores = torch.einsum("bgrwd,bgsd->bgrws", qg, kf) / math.sqrt(dh)
+    slots = torch.arange(S, device=q.device)[None, None, :]
+    visible = slots <= positions[:, :, None]  # [B, W, S]
+    if c.sliding_window is not None:
+        visible &= slots > positions[:, :, None] - c.sliding_window
+    scores = scores.masked_fill(~visible[:, None, None, :, :], float("-inf"))
+    weights = torch.softmax(scores, dim=-1).to(c.dtype)
+    attn = torch.einsum("bgrws,bgsd->bgrwd", weights, vf)
+    return attn.permute(0, 3, 1, 2, 4).reshape(B, W, nh * dh)
+
+
+def _decode_layers(params, tokens, positions, cache, config, attend):
+    """The layer loop both decode families share: ``attend(c_layer, q,
+    k_new, v_new)`` writes the new K/V ``[B, kvh, W, dh]`` into one layer's
+    cache views and returns the attention ``[B, W, nh * dh]``. Returns f32
+    logits ``[B, W, vocab]``."""
+    c = config
+    B, W = tokens.shape
+    dh, nh, kvh = c.head_dim, c.n_heads, c.kv_heads
+    h = params["embed"].to(c.dtype)[tokens.long()]  # [B, W, D]
+    for li, layer in enumerate(params["layers"]):
+        c_layer = {name: x[li] for name, x in cache.items()}  # views
+        x = rms_norm(h, layer["ln1"])
+
+        def proj(w, heads):
+            out = qeinsum("bld,dk->blk", x, w, c.dtype)
+            return out.reshape(B, W, heads, dh).transpose(1, 2)
+
+        q = rope(proj(layer["wq"], nh), positions, c.rope_theta, c.rope_scaling)
+        k_new = rope(proj(layer["wk"], kvh), positions, c.rope_theta,
+                     c.rope_scaling)
+        v_new = proj(layer["wv"], kvh)
+        attn = attend(c_layer, q, k_new, v_new)
+        h = h + qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
+        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
+    h = rms_norm(h, params["ln_f"])
+    return qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype).float()
+
+
+def alloc_decode_cache(config: TransformerConfig, B: int, total_len: int,
+                       device: torch.device | str | None = None) -> dict:
+    """Zeroed contiguous decode cache, k/v ``[n_layers, B, kvh, total_len,
+    dh]`` in the compute dtype, or int8 with f32 scale leaves ``k_s``/``v_s``
+    (last axis 1) for ``kv_cache_dtype="int8"``. ``device`` defaults to
+    CUDA (raises without it)."""
+    c = config
+    device = resolve_device(device)
+    shape = (c.n_layers, B, c.kv_heads, total_len, c.head_dim)
+    if c.kv_cache_dtype == "int8":
+        scales = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(scales, dtype=torch.float32, device=device),
+            "v_s": torch.zeros(scales, dtype=torch.float32, device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+            "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+
+
+def init_decode_cache(config: TransformerConfig, B: int, total_len: int,
+                      k_pre: torch.Tensor, v_pre: torch.Tensor) -> dict:
+    """The full-length decode cache seeded with the prefill K/V
+    ``[n_layers, B, kvh, L, dh]`` through the append the decode uses."""
+    cache = alloc_decode_cache(config, B, total_len, k_pre.device)
+    return cache_append(cache, k_pre, v_pre, 0)
+
+
+def decode_step(params, token, pos, cache, config: TransformerConfig):
+    """One incremental decode step: ``decode_window`` with W = 1."""
+    return decode_window(params, token, pos, cache, config)
+
+
+def decode_window(
+    params: Params,
+    tokens: torch.Tensor,  # [B, W] — W consecutive tokens
+    pos0: int,  # position of tokens[:, 0], the same for every row
+    cache: dict,  # alloc_decode_cache layout (updated in place)
+    config: TransformerConfig,
+):
+    """Multi-token cached decode at positions ``pos0 .. pos0 + W - 1``
+    against the contiguous cache, bf16 or int8. Returns ``(logits [B, W,
+    vocab] f32, cache)``; the cache is written in place."""
+    B, W = tokens.shape
+    pos0 = int(pos0)
+    positions = (pos0 + torch.arange(W, device=tokens.device)).expand(B, W)
+
+    def attend(c_layer, q, k_new, v_new):
+        cache_append(c_layer, k_new, v_new, pos0)
+        kf, vf = cache_read(c_layer, config.dtype)
+        return _grouped_attention(q, kf, vf, positions, config)
+
+    return _decode_layers(params, tokens, positions, cache, config, attend), cache
 
 
 def decode_step_paged(params, token, pos, cache, block_table,
@@ -302,14 +412,15 @@ def decode_window_paged(
     config: TransformerConfig,
     lora_bank=None,
 ):
-    """Multi-token decode over the paged pool with per-row positions.
-    Returns ``(logits [B, W, vocab] f32, cache)``; the pool is written in
-    place (JAX donates it instead).
+    """Multi-token decode over the paged pool (bf16 or int8) with per-row
+    positions. Returns ``(logits [B, W, vocab] f32, cache)``; the pool is
+    written in place (JAX donates it instead). A token whose position lies
+    past the block table writes nothing, as JAX's scatter drops it.
 
-    Attention is the JAX einsum path (``paged_read`` + grouped einsums +
-    ``visible`` mask), or the paged decode kernel under exactly the JAX
-    gate: ``paged_attention_kernel and W == 1 and sliding_window is None``
-    (the int8 pool that the gate also excludes is not ported)."""
+    Attention is the JAX einsum path (``paged_read`` + grouped einsums), or
+    the paged decode kernel under exactly the JAX gate:
+    ``paged_attention_kernel and W == 1 and "k_s" not in c_layer and
+    sliding_window is None``."""
     if lora_bank is not None:
         raise NotImplementedError("LoRA serving is not ported yet (ROADMAP Queue 1)")
     c = config
@@ -317,58 +428,95 @@ def decode_window_paged(
     dev = tokens.device
     ps = cache["k"].shape[3]
     P = block_table.shape[1]
-    S = P * ps
     positions = pos0.long()[:, None] + torch.arange(W, device=dev)[None, :]
-    page_idx = torch.gather(
-        block_table.long(), 1, (positions // ps).clamp(max=P - 1)
-    )
+    block = positions // ps
+    page_idx = torch.gather(block_table.long(), 1, block.clamp(max=P - 1))
     slot_idx = positions % ps
-    use_kernel = c.paged_attention_kernel and W == 1 and c.sliding_window is None
+    in_table = block < P
+    use_kernel = (c.paged_attention_kernel and W == 1 and "k_s" not in cache
+                  and c.sliding_window is None)
     if use_kernel:
         bt32 = block_table.to(torch.int32).contiguous()
         lengths = (positions[:, 0] + 1).to(torch.int32)
-    dh, nh, kvh = c.head_dim, c.n_heads, c.kv_heads
-    rep = nh // kvh
 
-    h = params["embed"].to(c.dtype)[tokens.long()]  # [B, W, D]
-    for li, layer in enumerate(params["layers"]):
-        c_layer = {"k": cache["k"][li], "v": cache["v"][li]}
-        x = rms_norm(h, layer["ln1"])
-
-        def proj(w, heads):
-            out = qeinsum("bld,dk->blk", x, w, c.dtype)
-            return out.reshape(B, W, heads, dh).transpose(1, 2)
-
-        q = rope(proj(layer["wq"], nh), positions, c.rope_theta, c.rope_scaling)
-        k_new = rope(proj(layer["wk"], kvh), positions, c.rope_theta,
-                     c.rope_scaling)
-        v_new = proj(layer["wv"], kvh)
+    def attend(c_layer, q, k_new, v_new):
         paged_append(c_layer, k_new.transpose(1, 2), v_new.transpose(1, 2),
-                     page_idx, slot_idx)
+                     page_idx, slot_idx, valid=in_table)
         if use_kernel:
             attn = paged_decode_attention(
                 q[:, :, 0, :].contiguous(), c_layer["k"], c_layer["v"],
                 bt32, lengths,
-            ).reshape(B, 1, nh * dh).to(c.dtype)
-        else:
-            kf, vf = paged_read(c_layer, block_table, c.dtype)
-            qg = q.reshape(B, kvh, rep, W, dh).float()
-            scores = torch.einsum("bgrwd,bgsd->bgrws", qg, kf) / math.sqrt(dh)
-            slots = torch.arange(S, device=dev)[None, None, :]
-            visible = slots <= positions[:, :, None]  # [B, W, S]
-            if c.sliding_window is not None:
-                visible &= slots > positions[:, :, None] - c.sliding_window
-            scores = scores.masked_fill(
-                ~visible[:, None, None, :, :], float("-inf")
             )
-            weights = torch.softmax(scores, dim=-1).to(c.dtype)
-            attn = torch.einsum("bgrws,bgsd->bgrwd", weights, vf)
-            attn = attn.permute(0, 3, 1, 2, 4).reshape(B, W, nh * dh)
-        h = h + qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
-        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
-    h = rms_norm(h, params["ln_f"])
-    logits = qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype)
-    return logits.float(), cache
+            return attn.reshape(B, 1, c.n_heads * c.head_dim).to(c.dtype)
+        kf, vf = paged_read(c_layer, block_table, c.dtype)
+        return _grouped_attention(q, kf, vf, positions, c)
+
+    return _decode_layers(params, tokens, positions, cache, c, attend), cache
+
+
+def prefill_chunked(params: Params, prompt: torch.Tensor,
+                    config: TransformerConfig, total_len: int,
+                    chunk: int = 512):
+    """The decode cache built by streaming the prompt ``[B, L]`` through
+    ``decode_window`` in chunks of ``chunk`` tokens (activation memory
+    bounded by the chunk), then a remainder chunk of ``L % chunk``.
+    Returns ``(last-position logits [B, vocab], cache)``."""
+    B, L = prompt.shape
+    if L == 0:
+        raise ValueError("prompt must be non-empty (L >= 1)")
+    if total_len < L:
+        raise ValueError(
+            f"total_len ({total_len}) must cover the prompt length ({L})"
+        )
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    cache = alloc_decode_cache(config, B, total_len, prompt.device)
+    last_logits = None
+    for start in range(0, L, chunk):
+        logits, cache = decode_window(params, prompt[:, start:start + chunk],
+                                      start, cache, config)
+        last_logits = logits[:, -1, :]
+    return last_logits, cache
+
+
+# ----------------------------------------------------------------- sampling
+
+
+def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
+                  temperature: float = 0.0, top_k: int | None = None,
+                  top_p: float | None = None) -> torch.Tensor:
+    """Next tokens ``[B, 1]`` (int64) from ``[B, V]`` logits: the exact
+    argmax at ``temperature == 0``, else one draw from ``generator`` over
+    the temperature-scaled logits after ``filter_logits``. JAX draws from a
+    key instead, so sampled tokens differ between the two; the filters and
+    the greedy path agree."""
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1, keepdim=True)
+    x = filter_logits(logits / temperature, top_k, top_p)
+    probs = torch.softmax(x, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)
+
+
+def filter_logits(x: torch.Tensor, top_k: int | None = None,
+                  top_p: float | None = None) -> torch.Tensor:
+    """The sampling filters on ``[B, V]`` temperature-scaled logits, masked
+    to -inf: top-k keeps every logit >= the k-th largest (ties included);
+    then the nucleus keeps the shortest prefix of the stable descending
+    order whose mass before each token is < ``top_p``, and always the top
+    token."""
+    if top_k is not None:
+        kth = torch.topk(x, top_k, dim=-1).values[:, -1:]
+        x = torch.where(x >= kth, x, float("-inf"))
+    if top_p is not None:
+        order = torch.argsort(-x, dim=-1, stable=True)
+        probs = torch.softmax(torch.gather(x, -1, order), dim=-1)
+        keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        keep_sorted[:, 0] = True
+        keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+        x = torch.where(keep, x, float("-inf"))
+    return x
 
 
 # ---------------------------------------------------------------- loss/train
@@ -400,8 +548,9 @@ def _adamw(params: Params, *, lr: float) -> torch.optim.AdamW:
 
 
 class Transformer:
-    """Config bundle with the training entry points of the JAX
-    ``Transformer`` (mesh-free; meshes are the parallel layer's slice)."""
+    """Config bundle with the training and generation entry points of the
+    JAX ``Transformer`` (mesh-free; meshes are the parallel layer's
+    slice)."""
 
     def __init__(self, config: TransformerConfig, mesh=None) -> None:
         if mesh is not None:
@@ -444,3 +593,70 @@ class Transformer:
             return params, opt_state, loss.detach()
 
         return train_step
+
+    # ------------------------------------------------------------- generate
+
+    def generate(self, params: Params, prompt: torch.Tensor,
+                 max_new_tokens: int = 32) -> torch.Tensor:
+        """Greedy decode without a cache: a full forward over the whole
+        ``[B, L + max_new_tokens]`` buffer per new token (the simple
+        correctness path). Returns the buffer, prompt included."""
+        prompt = torch.as_tensor(prompt, device=params["embed"].device)
+        B, L = prompt.shape
+        tokens = torch.zeros(B, L + max_new_tokens, dtype=torch.long,
+                             device=prompt.device)
+        tokens[:, :L] = prompt
+        for idx in range(L, L + max_new_tokens):
+            logits = forward(params, tokens, self.config)
+            tokens[:, idx] = torch.argmax(logits[:, idx - 1], dim=-1)
+        return tokens
+
+    def generate_cached(
+        self,
+        params: Params,
+        prompt: torch.Tensor,
+        max_new_tokens: int = 32,
+        *,
+        temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        generator: torch.Generator | None = None,
+        eos_id: int | None = None,
+        prefill_chunk: int | None = None,
+    ) -> torch.Tensor:
+        """KV-cached decode: one prefill (``forward``, or ``prefill_chunked``
+        with ``prefill_chunk``), then ``max_new_tokens - 1`` ``decode_step``
+        calls; returns ``[B, L + max_new_tokens]`` tokens, prompt included.
+        Greedy by default; ``temperature``/``top_k``/``top_p`` sample
+        through ``sample_logits`` from ``generator`` (default: seed 0 on the
+        prompt's device), so a fixed generator is deterministic. ``eos_id``
+        freezes a row once it emits that token: every later position
+        repeats it. The cache layout follows ``config.kv_cache_dtype``."""
+        c = self.config
+        prompt = torch.as_tensor(prompt, device=params["embed"].device)
+        B, L = prompt.shape
+        total = L + max_new_tokens
+        if generator is None:
+            generator = torch.Generator(device=prompt.device).manual_seed(0)
+        if prefill_chunk is not None:
+            last_logits, cache = prefill_chunked(params, prompt, c, total,
+                                                 chunk=prefill_chunk)
+        else:
+            logits, (k_pre, v_pre) = forward(params, prompt, c, return_kv=True)
+            cache = init_decode_cache(c, B, total, k_pre, v_pre)
+            last_logits = logits[:, L - 1, :]
+        current = sample_logits(last_logits, generator, temperature, top_k,
+                                top_p)
+        tokens = torch.zeros(B, total, dtype=torch.long, device=prompt.device)
+        tokens[:, :L] = prompt
+        tokens[:, L:L + 1] = current
+        done = current == eos_id if eos_id is not None else None
+        for pos in range(L, total - 1):
+            step_logits, cache = decode_step(params, current, pos, cache, c)
+            current = sample_logits(step_logits[:, -1, :], generator,
+                                    temperature, top_k, top_p)
+            if eos_id is not None:
+                current = torch.where(done, eos_id, current)
+                done = done | (current == eos_id)
+            tokens[:, pos + 1:pos + 2] = current
+        return tokens

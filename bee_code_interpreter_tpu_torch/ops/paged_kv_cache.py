@@ -8,14 +8,20 @@ every layer. Page 0 is the batcher's scratch page (models/serving.py).
 Where JAX returns an updated pool (and the batcher donates the old buffer),
 the port writes the pool IN PLACE: ``paged_append`` and ``seed_prefill``
 mutate the tensors they are given and return the same dict, so a step never
-copies the pool. Only bf16/f32 pools are in scope; the int8 layout
-(``kv_cache_dtype="int8"``) raises ``NotImplementedError``.
+copies the pool.
+
+``kv_cache_dtype="int8"`` pools hold int8 values plus per-(token, head) f32
+scale planes ``k_s``/``v_s`` of ``[n_layers, n_pages, kvh, page_size, 1]``:
+the layout of the contiguous cache (``ops/kv_cache.py``), whose scale
+leaves select the quantized strategy in append, read and seeding alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from bee_code_interpreter_tpu_torch.ops.kv_cache import dequantize, quantize
 
 
 def pool_telemetry(
@@ -58,24 +64,22 @@ def pool_telemetry(
     }
 
 
-def _refuse_int8(config_or_layer) -> None:
-    if getattr(config_or_layer, "kv_cache_dtype", "bf16") == "int8" or (
-        isinstance(config_or_layer, dict) and "k_s" in config_or_layer
-    ):
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP Queue 1)"
-        )
-
-
 def alloc_paged_cache(config, n_pages: int, page_size: int,
                       device: torch.device | str) -> dict:
-    """Zeroed page pool in the compute dtype on ``device``:
-    k/v ``[n_layers, n_pages, kvh, page_size, dh]``."""
-    _refuse_int8(config)
+    """Zeroed page pool on ``device``: k/v ``[n_layers, n_pages, kvh,
+    page_size, dh]`` in the compute dtype, or int8 with f32 scale planes
+    ``k_s``/``v_s`` (last axis 1) for ``kv_cache_dtype="int8"``."""
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
     shape = (config.n_layers, n_pages, config.kv_heads, page_size,
              config.head_dim)
+    if config.kv_cache_dtype == "int8":
+        def zeros(sh, dt):
+            return torch.zeros(sh, dtype=dt, device=device)
+
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_s": zeros(shape[:-1] + (1,), torch.float32),
+                "v_s": zeros(shape[:-1] + (1,), torch.float32)}
     return {
         "k": torch.zeros(shape, dtype=config.dtype, device=device),
         "v": torch.zeros(shape, dtype=config.dtype, device=device),
@@ -83,51 +87,76 @@ def alloc_paged_cache(config, n_pages: int, page_size: int,
 
 
 def paged_append(
-    c_layer: dict,  # one layer's pool views: [n_pages, kvh, ps, dh]
+    c_layer: dict,  # one layer's pool views: [n_pages, kvh, ps, ·]
     k_new: torch.Tensor,  # [B, W, kvh, dh]
     v_new: torch.Tensor,
     page_idx: torch.Tensor,  # [B, W] physical page per (row, token)
     slot_idx: torch.Tensor,  # [B, W] slot within the page
+    valid: torch.Tensor | None = None,  # [B, W] bool; None = all
 ) -> dict:
-    """Write W new tokens' K/V per row into their (page, slot)s, in place.
-    Two (row, token)s on one (page, slot) is a scheduler bug, except on the
-    scratch page, whose contents nothing reads."""
-    _refuse_int8(c_layer)
+    """Write W new tokens' K/V per row into their (page, slot)s, in place;
+    int8 pools quantize each (token, head) row. A token whose ``valid`` is
+    False writes back what its (page, slot) holds, so the pool is unchanged
+    there: JAX's scatter drops a token whose position lies past the block
+    table, and the caller marks those. Two (row, token)s on one (page, slot)
+    is a scheduler bug (a dropped token included), except on the scratch
+    page, whose contents nothing reads."""
     page_idx, slot_idx = page_idx.long(), slot_idx.long()
-    k, v = c_layer["k"], c_layer["v"]
-    k[page_idx, :, slot_idx, :] = k_new.to(k.dtype)
-    v[page_idx, :, slot_idx, :] = v_new.to(v.dtype)
+    if "k_s" in c_layer:
+        (kq, ks), (vq, vs) = quantize(k_new), quantize(v_new)
+        updates = {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
+    else:
+        updates = {"k": k_new, "v": v_new}
+    for name, new in updates.items():
+        dst = c_layer[name]
+        new = new.to(dst.dtype)
+        if valid is not None:
+            # a dropped token writes back what its slot already holds
+            old = dst[page_idx, :, slot_idx, :]
+            new = torch.where(valid[:, :, None, None], new, old)
+        dst[page_idx, :, slot_idx, :] = new
     return c_layer
 
 
 def paged_read(
-    c_layer: dict,  # [n_pages, kvh, ps, dh]
+    c_layer: dict,  # [n_pages, kvh, ps, ·]
     block_table: torch.Tensor,  # [B, P] logical block -> physical page
     dtype: torch.dtype,  # V compute dtype
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather each row's pages into the contiguous ``[B, kvh, P*ps, dh]``
-    view: K in f32 (scores operand), V in ``dtype``."""
-    _refuse_int8(c_layer)
+    view: K in f32 (scores operand), V in ``dtype``; int8 pools dequantize
+    after the gather, their scales gathered alongside."""
     B, P = block_table.shape
-    _, kvh, ps, dh = c_layer["k"].shape
     bt = block_table.long()
 
-    def view(x, out_dtype):
-        g = x[bt]  # [B, P, kvh, ps, dh]
-        return g.permute(0, 2, 1, 3, 4).reshape(B, kvh, P * ps, dh).to(out_dtype)
+    def view(x, out_dtype=None):
+        _, kvh, ps, last = x.shape
+        g = x[bt].permute(0, 2, 1, 3, 4).reshape(B, kvh, P * ps, last)
+        return g if out_dtype is None else g.to(out_dtype)
 
+    if "k_s" in c_layer:
+        return (dequantize(view(c_layer["k"]), view(c_layer["k_s"])),
+                dequantize(view(c_layer["v"]), view(c_layer["v_s"]), dtype))
     return view(c_layer["k"], torch.float32), view(c_layer["v"], dtype)
 
 
+def _page_view(x: torch.Tensor, n_pages: int, ps: int) -> torch.Tensor:
+    """``[n_layers, kvh, n_pages * ps, last]`` -> ``[n_layers, n_pages, kvh,
+    ps, last]``."""
+    nl, kvh, _, last = x.shape
+    return x.reshape(nl, kvh, n_pages, ps, last).permute(0, 2, 1, 3, 4)
+
+
 def seed_prefill(
-    cache: dict,  # full pool: [n_layers, n_pages, kvh, ps, dh]
+    cache: dict,  # full pool: [n_layers, n_pages, kvh, ps, ·]
     pages: torch.Tensor,  # [P] physical pages covering ceil(L / ps)
     k_pre: torch.Tensor,  # [n_layers, kvh, L, dh]: one sequence's prefill K
     v_pre: torch.Tensor,
 ) -> dict:
     """Write one sequence's prefill K/V into its pages, in place: one
-    indexed write per pool leaf, the tail of the last page zero-filled."""
-    _refuse_int8(cache)
+    indexed write per pool leaf, the tail of the last page zero-filled.
+    int8 pools quantize per (token, head) row, as ``paged_append`` does;
+    the zero tail quantizes to scale-0 exact zeros."""
     ps = cache["k"].shape[3]
     n_used = int(pages.shape[0])
     L = k_pre.shape[2]
@@ -135,8 +164,32 @@ def seed_prefill(
         raise ValueError(f"prefill length {L} exceeds {n_used} pages of {ps}")
     pages = pages.long()
     for name, pre in (("k", k_pre), ("v", v_pre)):
-        nl, kvh, _, dh = pre.shape
         padded = torch.nn.functional.pad(pre, (0, 0, 0, n_used * ps - L))
-        vals = padded.reshape(nl, kvh, n_used, ps, dh).permute(0, 2, 1, 3, 4)
-        cache[name][:, pages] = vals.to(cache[name].dtype)
+        vals = _page_view(padded, n_used, ps)
+        if name + "_s" in cache:
+            q, s = quantize(vals)
+            cache[name][:, pages] = q
+            cache[name + "_s"][:, pages] = s
+        else:
+            cache[name][:, pages] = vals.to(cache[name].dtype)
+    return cache
+
+
+def seed_from_contiguous(
+    cache: dict,  # paged pool: [n_layers, n_pages, kvh, ps, ·]
+    pages: torch.Tensor,  # [P] pages covering the contiguous row
+    contig_row: dict,  # one row of a contiguous cache: [n_layers, kvh, P*ps, ·]
+) -> dict:
+    """Copy a contiguous-cache row, already in the pool's layout (bf16
+    values, or int8 values and scales), into pages verbatim and in place:
+    int8 rows are never quantized twice, so a chunked admission decodes
+    exactly like the contiguous cache it came from."""
+    P = int(pages.shape[0])
+    ps = cache["k"].shape[3]
+    pages = pages.long()
+    for name, x in contig_row.items():
+        total = x.shape[2]
+        if total != P * ps:
+            raise ValueError(f"contiguous length {total} != {P} pages of {ps}")
+        cache[name][:, pages] = _page_view(x, P, ps).to(cache[name].dtype)
     return cache

@@ -9,6 +9,9 @@ stack is split here. Serving casts the weights once, to ``dtype`` (default
 every einsum instead, to the same values. Training takes them as f32 masters
 that require grad (``dtype=torch.float32, requires_grad=True``) and casts at
 every einsum as JAX does.
+
+``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
+tests can seed both frameworks with the same K/V state.
 """
 
 from __future__ import annotations
@@ -61,3 +64,23 @@ def params_from_jax(params_np: dict, config, device=None,
         "ln_f": leaf(params_np["ln_f"]),
         "lm_head": leaf(params_np["lm_head"]),
     }
+
+
+def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype (bfloat16 arrays,
+    which numpy only knows through ml_dtypes, cross as their bits)."""
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr).view(np.uint16).astype(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def cache_from_jax(cache: dict, device=None) -> dict:
+    """A JAX contiguous decode cache (``alloc_decode_cache``: leaves
+    ``[n_layers, B, kvh, max, ·]``) or page pool (``alloc_paged_cache``:
+    ``[n_layers, n_pages, kvh, ps, ·]``), bf16/f32 or int8 with ``k_s``/
+    ``v_s`` scales, given as numpy arrays, in the port's layout: the same
+    stacked leaves and dtypes, on ``device`` (default CUDA; raises without
+    it)."""
+    device = resolve_device(device)
+    return {name: _tensor(np.asarray(x), device) for name, x in cache.items()}

@@ -30,27 +30,43 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    64-1024 tokens on 8 rows, 32 new tokens each, greedy and seeded sampled;
    the launch counts of K1 and K2 must match the admissions and decode
    steps; a second identical run must give identical tokens.
-6. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
+6. admission and KV caches, on the same weights, each with its own launch
+   counts: ``admission_prefix`` (8 requests sharing a 512-token system
+   prompt, prefix cache on: 7 hits reusing 224 pages, K1 only for the miss,
+   consistent page totals, each hit's first-token logits against a one-shot
+   admission); ``admission_chunked`` (4 prompts of 1024 tokens with
+   ``prefill_chunk=256``: no K1, logits against a one-shot admission, two
+   runs identical); ``admission_interleaved`` (5 rows decoding while prompts
+   of 1024 tokens admit in windows of 128; one of them preempted after two
+   windows and finished later: no decoding row misses a step, the
+   preemption returns every page); ``serving_int8`` (phase 5's traffic on
+   an int8 pool: K2 never launched, the pool 0.516x the bf16 one);
+   ``contiguous_decode`` (``Transformer.generate_cached`` at B=2, L=512,
+   one-shot, chunked and int8, each step's logits against one
+   teacher-forced forward; K1 only for the one-shot prefills).
+7. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits.
-7. training reference: one training step of the decoder cut to 2 layers at
+8. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
    gradient.
-8. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut to
+9. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut to
    8 layers (f32 masters and AdamW state do not fit one card at 32), one
    fixed batch of 2 x 1024 tokens, 4 steps: falling loss, a finite non-zero
    gradient on every leaf after step 1, K1/K3/K4 each launched once per
    layer and step.
 
-The last lines are the ``kernels`` JSON line, the nvidia-smi line, and
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
+The last lines are the ``kernels`` JSON line (with each serving kernel's
+launches by phase), the nvidia-smi line, and ``{"ok": true, "device":
+{...}}``. Without CUDA it exits non-zero and prints
 no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -113,6 +129,15 @@ REFERENCE_TOL = 5e-2
 # weight casts); the limits keep 60x and 1.6x headroom.
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 4e-2
+# admission and KV-cache phases on Llama-3-8B (32 layers, bf16): max |logit
+# error| over max |logit| of one path against another. A prefix hit's
+# suffix windows (einsum attention over the pool) and a chunked admission
+# against a one-shot admission (K1); the contiguous decode, one-shot or
+# chunked, and with an int8 cache, against one teacher-forced forward. The
+# first H100 run read 0.0210 (hit), 0.0214 (chunked), 0.0196 / 0.0187
+# (contiguous one-shot / chunked) and 0.0208 (int8 cache): 5e-2 keeps 2.3x
+# to 2.7x headroom.
+PATH_LOGIT_TOL = 5e-2
 # (B, Lq, Lk, causal, window): the largest prefill the serving path runs
 K1_MAIN_CASE = (1, 1024, 1024, True, None)
 # the training path: Llama-3-8B widths cut to 8 layers (2.80 B parameters,
@@ -480,12 +505,8 @@ def check_reference(params, cfg, dev) -> dict:
 # ---------------------------------------------------------------- main path
 
 
-def serve(params, cfg, requests) -> dict:
-    """One Engine run over ``requests``; counts kernel launches and decode
-    steps from zero."""
-    batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
-                                max_pages_per_seq=128, n_pages=1 + 8 * 128)
-    engine = Engine(batcher)
+def count_decode_steps():
+    """Counts ``decode_step_paged`` calls while installed: (counter, undo)."""
     steps = [0]
     decode = transformer.decode_step_paged
 
@@ -493,13 +514,46 @@ def serve(params, cfg, requests) -> dict:
         steps[0] += 1
         return decode(*args, **kwargs)
 
+    transformer.decode_step_paged = counted
+    return steps, lambda: setattr(transformer, "decode_step_paged", decode)
+
+
+def capture_admissions(batcher) -> dict:
+    """Wraps the batcher's blocking admission paths: request id -> (the
+    first token's logits row, the admission's start and end on the host
+    clock)."""
+    seen = {}
+    for name in ("_full_admit", "_suffix_admit"):
+        admit = getattr(batcher, name)
+
+        def wrapped(*args, admit=admit, **kwargs):
+            rid = batcher._next_request_id - 1  # assigned before the prefill
+            t = time.perf_counter()
+            row = admit(*args, **kwargs)
+            seen[rid] = (row, t, time.perf_counter())  # row is on the host
+            return row
+
+        setattr(batcher, name, wrapped)
+    return seen
+
+
+def serve(params, cfg, requests, **batcher_kw) -> dict:
+    """One Engine run over ``requests`` ((prompt, new tokens, sampling,
+    submit kwargs) each, all submitted at t=0); counts kernel launches and
+    decode steps from zero."""
+    batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
+                                max_pages_per_seq=128, n_pages=1 + 8 * 128,
+                                **batcher_kw)
+    engine = Engine(batcher)
+    admissions = capture_admissions(batcher)
     fa.FLASH_FWD.launches = 0
     pa.PAGED_DECODE.launches = 0
-    transformer.decode_step_paged = counted
+    steps, undo = count_decode_steps()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tickets = [engine.submit(p, n, sampling=s) for p, n, s in requests]
+        tickets = [engine.submit(p, n, sampling=s, **kw)
+                   for p, n, s, kw in requests]
         ttft: dict[int, float] = {}
         decode_only_ms = []
         while engine.pending or batcher.busy:
@@ -516,7 +570,8 @@ def serve(params, cfg, requests) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        transformer.decode_step_paged = decode
+        undo()
+    rids = [engine._state[t] for t in tickets]
     return {
         "tokens": [engine.result(t) for t in tickets],
         "finish": [engine.finish_reason(t) for t in tickets],
@@ -526,10 +581,19 @@ def serve(params, cfg, requests) -> dict:
         "wall_s": wall,
         "ttft_s": [ttft[t] for t in tickets],
         "decode_only_step_ms": decode_only_ms,
+        # per request: the first token's logits, the admission's start and
+        # end on the host clock from t0 (the first token is sampled at once)
+        "first_logits": [admissions[r][0] for r in rids],
+        "admit_s": [(admissions[r][1] - t0, admissions[r][2] - t0)
+                    for r in rids],
+        "prefix_stats": dict(batcher.prefix_stats),
+        "kv_telemetry": batcher.kv_telemetry(),
+        "pool_bytes": sum(x.numel() * x.element_size()
+                          for x in batcher.cache.values()),
     }
 
 
-def main_path(params, cfg) -> tuple[dict, dict]:
+def main_path(params, cfg) -> tuple[dict, dict, list]:
     rng = np.random.default_rng(5)
     new_tokens = 32
     requests = []
@@ -537,7 +601,7 @@ def main_path(params, cfg) -> tuple[dict, dict]:
         prompt = rng.integers(0, cfg.vocab_size, int(L)).tolist()
         sampling = (SamplingParams() if i % 2 == 0 else
                     SamplingParams(temperature=0.8, top_k=50, seed=100 + i))
-        requests.append((prompt, new_tokens, sampling))
+        requests.append((prompt, new_tokens, sampling, {}))
     first = serve(params, cfg, requests)
     second = serve(params, cfg, requests)
     n_layers, n_req = cfg.n_layers, len(requests)
@@ -558,7 +622,7 @@ def main_path(params, cfg) -> tuple[dict, dict]:
     report = {
         "phase": "main_path", "config": "llama3_8b", "dtype": "bfloat16",
         "layers": n_layers, "requests": n_req,
-        "prompt_lens": [len(p) for p, _, _ in requests],
+        "prompt_lens": [len(p) for p, _, _, _ in requests],
         "new_tokens": new_tokens, "max_batch": 8,
         "tokens_per_s": generated / first["wall_s"],
         "wall_s": first["wall_s"],
@@ -572,8 +636,295 @@ def main_path(params, cfg) -> tuple[dict, dict]:
         "weight_stream_bound_ms": 2.0 * n_params / HBM_BYTES_PER_S * 1e3,
         "second_run_identical": True,
         "second_run_tokens_per_s": generated / second["wall_s"],
+        "pool_gb": first["pool_bytes"] / 1e9,
+        # each one-shot admission's prefill, by prompt length
+        "admit_ms_by_len": sorted(
+            (len(p), (end - start) * 1e3)
+            for (p, _, _, _), (start, end) in zip(requests, first["admit_s"])),
     }
-    return report, first
+    return report, first, requests
+
+
+# ------------------------------------------------- admission and KV caches
+
+
+def first_token_err(params, cfg, prompts, rows) -> float:
+    """Max over ``prompts`` of max |logit error| / max |logit| of each
+    request's first-token logits ``rows`` against a one-shot admission of
+    the same prompt (one ``forward`` over it padded to whole pages, the
+    path of a miss with the prefix cache off)."""
+    worst = 0.0
+    for prompt, row in zip(prompts, rows):
+        L = len(prompt)
+        padded = np.zeros(-(-L // 16) * 16, dtype=np.int64)
+        padded[:L] = prompt
+        want = transformer.forward(
+            params, torch.as_tensor(padded[None], device=params["embed"].device),
+            cfg)[0, L - 1].float().cpu()
+        got = torch.as_tensor(row)
+        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+    return worst
+
+
+def admission_prefix(params, cfg) -> dict:
+    """8 requests sharing a 512-token system prompt (32 pages), then
+    distinct suffixes, with the prefix cache on: one miss through K1, seven
+    hits through page-aligned windows over the shared pages."""
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, cfg.vocab_size, 512).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(32, 257, size=8)]
+    run = serve(params, cfg, [(p, 32, SamplingParams(), {}) for p in prompts],
+                prefix_cache=True)
+    stats, tele = run["prefix_stats"], run["kv_telemetry"]
+    n_layers = cfg.n_layers
+    check(stats["hits"] == 7 and stats["pages_reused"] == 7 * 32,
+          f"admission_prefix: prefix stats {stats}")
+    check(run["k1_launches"] == n_layers,
+          f"admission_prefix: flash_fwd launched {run['k1_launches']} times, "
+          f"expected {n_layers} (one miss)")
+    check(run["decode_steps"] > 0
+          and run["k2_launches"] == n_layers * run["decode_steps"],
+          f"admission_prefix: paged_decode launched {run['k2_launches']} "
+          f"times over {run['decode_steps']} decode steps")
+    check(tele["pages_held"] == (tele["pages_allocated_total"]
+                                 - tele["pages_released_total"])
+          and tele["pages_held"] == 0
+          and tele["pages_free"] + tele["pages_parked"] == tele["pages_total"],
+          f"admission_prefix: page totals {tele}")
+    check(all(f == "length" for f in run["finish"]),
+          f"admission_prefix: finish reasons {run['finish']}")
+    err = first_token_err(params, cfg, prompts[1:], run["first_logits"][1:])
+    check(err <= PATH_LOGIT_TOL,
+          f"admission_prefix: hit logits vs one-shot, rel err {err}")
+    admit_ms = [(end - start) * 1e3 for start, end in run["admit_s"]]
+    ttft_ms = [end * 1e3 for _, end in run["admit_s"]]
+    return {
+        "phase": "admission_prefix", "requests": 8, "system_prompt": 512,
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": 32,
+        "prefix_stats": stats, "k1_launches": run["k1_launches"],
+        "k2_launches": run["k2_launches"],
+        "decode_steps": run["decode_steps"],
+        "pages": {k: tele[k] for k in ("pages_total", "pages_free",
+                                       "pages_parked", "pages_held",
+                                       "pages_allocated_total",
+                                       "pages_released_total")},
+        "hit_rel_logit_err": err, "tolerance": PATH_LOGIT_TOL,
+        "miss_admit_ms": admit_ms[0],
+        "hit_admit_ms_p50": float(np.median(admit_ms[1:])),
+        "miss_ttft_ms": ttft_ms[0],
+        "hit_ttft_ms_p50": float(np.median(ttft_ms[1:])),
+        "tokens_per_s": sum(map(len, run["tokens"])) / run["wall_s"],
+        "decode_step_p50_ms": float(np.median(run["decode_only_step_ms"])),
+    }
+
+
+def admission_chunked(params, cfg) -> dict:
+    """4 requests of 1024-token prompts admitted by ``prefill_chunk=256``
+    (prefill_chunked + seed_from_contiguous: no K1), twice."""
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(4)]
+    requests = [(p, 32, SamplingParams(), {"prefill_chunk": 256})
+                for p in prompts]
+    first = serve(params, cfg, requests)
+    second = serve(params, cfg, requests)
+    n_layers = cfg.n_layers
+    check(first["k1_launches"] == 0,
+          f"admission_chunked: flash_fwd launched {first['k1_launches']} times")
+    check(first["decode_steps"] > 0
+          and first["k2_launches"] == n_layers * first["decode_steps"],
+          f"admission_chunked: paged_decode launched {first['k2_launches']} "
+          f"times over {first['decode_steps']} decode steps")
+    check(second["tokens"] == first["tokens"],
+          "admission_chunked: second run gave other tokens")
+    check(all(f == "length" for f in first["finish"]),
+          f"admission_chunked: finish reasons {first['finish']}")
+    err = first_token_err(params, cfg, prompts, first["first_logits"])
+    check(err <= PATH_LOGIT_TOL,
+          f"admission_chunked: first-token logits vs one-shot, rel err {err}")
+    return {
+        "phase": "admission_chunked", "requests": 4, "prompt_len": 1024,
+        "prefill_chunk": 256, "new_tokens": 32,
+        "k1_launches": first["k1_launches"], "k2_launches": first["k2_launches"],
+        "decode_steps": first["decode_steps"],
+        "rel_logit_err": err, "tolerance": PATH_LOGIT_TOL,
+        "second_run_identical": True,
+        "admit_ms": [(end - start) * 1e3 for start, end in first["admit_s"]],
+        "ttft_p50_ms": float(np.median(first["ttft_s"])) * 1e3,
+        "tokens_per_s": sum(map(len, first["tokens"])) / first["wall_s"],
+    }
+
+
+def admission_interleaved(params, cfg) -> dict:
+    """5 requests decoding on 8 rows while 2 prompts of 1024 tokens admit
+    in windows of 128 (``interleave_admission``); a third such request
+    takes the last row and is preempted after its second window, then
+    admitted again from the head of the queue and finished."""
+    rng = np.random.default_rng(13)
+    batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
+                                max_pages_per_seq=128, n_pages=1 + 8 * 128)
+    engine = Engine(batcher)
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    steps, undo = count_decode_steps()
+    window_ms, decode_ms, stalls, window_steps = [], [], [], 0
+
+    def step():
+        nonlocal window_steps
+        before = {t: len(engine.partial_result(t)) for t in tickets}
+        windows = bool(batcher.prefill_state) or engine.pending
+        k1, n_steps = fa.FLASH_FWD.launches, steps[0]
+        t = time.perf_counter()
+        engine.step()
+        dt = (time.perf_counter() - t) * 1e3
+        if batcher.stats["prefilling_rows"] or windows:
+            window_steps += 1
+            window_ms.append(dt)
+            # a row decoding before the step gains exactly one token
+            stalls.extend(t for t, n in before.items()
+                          if n and not engine.is_done(t)
+                          and len(engine.partial_result(t)) != n + 1)
+        elif fa.FLASH_FWD.launches == k1 and steps[0] > n_steps:
+            decode_ms.append(dt)
+
+    try:
+        tickets = [engine.submit(rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+                                 64) for n in rng.integers(64, 257, size=5)]
+        step()  # the 5 admit (K1) and decode
+        longs = [rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(3)]
+        tickets += [engine.submit(p, 32, interleave_admission=128)
+                    for p in longs[:2]]
+        step()  # both admit: first windows
+        free_before = len(batcher.free_pages)
+        tickets.append(engine.submit(longs[2], 32, interleave_admission=128))
+        step()  # admitted: its first window
+        step()  # its second window
+        preempted = engine.preempt(tickets[-1])
+        free_after = len(batcher.free_pages)
+        while engine.pending or batcher.busy:
+            step()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    finish = [engine.finish_reason(t) for t in tickets]
+    check(preempted, "admission_interleaved: preempt returned False")
+    check(free_after == free_before,
+          f"admission_interleaved: {free_after} free pages after the "
+          f"preemption, {free_before} before its submit")
+    check(not stalls, f"admission_interleaved: tickets {stalls} stalled")
+    check(all(f == "length" for f in finish),
+          f"admission_interleaved: finish reasons {finish}")
+    check(fa.FLASH_FWD.launches == 5 * cfg.n_layers,
+          f"admission_interleaved: flash_fwd launched {fa.FLASH_FWD.launches} "
+          "times, expected only by the 5 one-shot admissions")
+    return {
+        "phase": "admission_interleaved", "max_batch": 8, "decoding": 5,
+        "interleaved": 3, "prompt_len": 1024, "width": 128,
+        "preempted_after_windows": 2, "free_pages_restored": True,
+        "no_stalls": True, "window_steps": window_steps,
+        "k1_launches": fa.FLASH_FWD.launches,
+        "k2_launches": pa.PAGED_DECODE.launches, "decode_steps": steps[0],
+        "window_step_ms_p50": float(np.median(window_ms)),
+        "decode_only_step_ms_p50": float(np.median(decode_ms)),
+        "window_step_ms": window_ms,
+    }
+
+
+def serving_int8(params, cfg, requests, bf16) -> dict:
+    """main_path's traffic on an int8 KV pool: K1 admits, the einsum path
+    decodes (the JAX gate keeps K2 off int8 pools)."""
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    run = serve(params, cfg8, requests)
+    n_layers, n_req = cfg.n_layers, len(requests)
+    check(run["k2_launches"] == 0,
+          f"serving_int8: paged_decode launched {run['k2_launches']} times")
+    check(run["k1_launches"] == n_layers * n_req,
+          f"serving_int8: flash_fwd launched {run['k1_launches']} times")
+    check(all(f == "length" for f in run["finish"]),
+          f"serving_int8: finish reasons {run['finish']}")
+    ratio = run["pool_bytes"] / bf16["pool_bytes"]
+    # 1 byte a value + 4 bytes of scale a head_dim-wide row, against 2 bytes
+    # a value in bf16
+    want = (1 + 4 / cfg.head_dim) / cfg.dtype.itemsize
+    check(abs(ratio - want) < 1e-6, f"serving_int8: pool bytes ratio {ratio}")
+    greedy = [i for i, (_, _, s, _) in enumerate(requests) if s.temperature == 0]
+    same = [a == b for i in greedy
+            for a, b in zip(run["tokens"][i], bf16["tokens"][i])]
+    return {
+        "phase": "serving_int8", "requests": n_req,
+        "pool_gb": run["pool_bytes"] / 1e9,
+        "bf16_pool_gb": bf16["pool_bytes"] / 1e9, "pool_ratio": ratio,
+        "k1_launches": run["k1_launches"], "k2_launches": run["k2_launches"],
+        "decode_steps": run["decode_steps"],
+        "tokens_per_s": sum(map(len, run["tokens"])) / run["wall_s"],
+        "ttft_p50_ms": float(np.median(run["ttft_s"])) * 1e3,
+        "decode_step_p50_ms": float(np.median(run["decode_only_step_ms"])),
+        "greedy_token_agreement_with_bf16": float(np.mean(same)),
+    }
+
+
+def contiguous_decode(params, cfg) -> dict:
+    """``Transformer.generate_cached`` at B=2, L=512, 32 new greedy tokens:
+    one-shot bf16, ``prefill_chunk=128``, and an int8 cache. Each way is
+    also driven by hand, ``decode_step`` by step, and every step's logits
+    are held against one teacher-forced ``forward`` over prompt + tokens."""
+    dev = params["embed"].device
+    B, L, new = 2, 512, 32
+    prompt = torch.as_tensor(
+        np.random.default_rng(14).integers(0, cfg.vocab_size, (B, L)), device=dev)
+    out = {"phase": "contiguous_decode", "B": B, "L": L, "new_tokens": new}
+    one_shot = None
+    for way, kv, chunk in (("one_shot", "bf16", None), ("chunked", "bf16", 128),
+                           ("int8", "int8", None)):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        fa.FLASH_FWD.launches = 0
+        tokens = transformer.Transformer(c).generate_cached(
+            params, prompt, new, prefill_chunk=chunk)
+        k1 = fa.FLASH_FWD.launches
+        # by hand: the same prefill, then decode_step by step, each timed
+        if chunk is None:
+            logits, (k_pre, v_pre) = transformer.forward(params, prompt, c,
+                                                         return_kv=True)
+            cache = transformer.init_decode_cache(c, B, L + new, k_pre, v_pre)
+            last = logits[:, -1]
+            del logits, k_pre, v_pre
+        else:
+            last, cache = transformer.prefill_chunked(params, prompt, c,
+                                                      L + new, chunk=chunk)
+        rows, step_ms = [last.float()], []
+        current = last.argmax(-1, keepdim=True)
+        for pos in range(L, L + new - 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = transformer.decode_step(params, current, pos,
+                                                    cache, c)
+            current = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            rows.append(logits[:, -1].float())
+        del cache
+        got = torch.stack(rows, dim=1)  # [B, new, V]
+        check(torch.equal(tokens[:, L:], got.argmax(-1)),
+              f"contiguous_decode {way}: generate_cached and decode_step differ")
+        # one teacher-forced forward over the prompt and this way's tokens
+        want = transformer.forward(params, tokens[:, :-1], cfg)[:, L - 1:]
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        check(bool(torch.isfinite(got).all()) and rel <= PATH_LOGIT_TOL,
+              f"contiguous_decode {way}: rel logit err {rel}")
+        want_k1 = cfg.n_layers if chunk is None else 0
+        check(k1 == want_k1,
+              f"contiguous_decode {way}: flash_fwd launched {k1} times, "
+              f"expected {want_k1}")
+        one_shot = tokens if one_shot is None else one_shot
+        out[way] = {
+            "k1_launches": k1, "rel_logit_err": rel,
+            "tolerance": PATH_LOGIT_TOL,
+            "decode_step_ms_p50": float(np.median(step_ms)),
+            "greedy_agreement_with_one_shot": (
+                (tokens[:, L:] == one_shot[:, L:]).float().mean().item()),
+        }
+        del got, want
+    return out
 
 
 # ----------------------------------------------------------------- training
@@ -717,8 +1068,31 @@ def main() -> int:
                               paged_attention_kernel=True)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     emit(check_reference(params, cfg, dev))
-    report, first = main_path(params, cfg)
+    report, first, requests = main_path(params, cfg)
     emit(report)
+    k1_by_phase = {"main_path": first["k1_launches"]}
+    k2_by_phase = {"main_path": first["k2_launches"]}
+    for name, phase in (
+        ("admission_prefix", lambda: admission_prefix(params, cfg)),
+        ("admission_chunked", lambda: admission_chunked(params, cfg)),
+        ("admission_interleaved", lambda: admission_interleaved(params, cfg)),
+        ("serving_int8", lambda: serving_int8(params, cfg, requests, first)),
+        ("contiguous_decode", lambda: contiguous_decode(params, cfg)),
+    ):
+        t = time.perf_counter()
+        result = phase()
+        # the phase's batcher and its pool go before the next phase (the
+        # admission wrappers of serve() hold it in a reference cycle)
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["seconds"] = time.perf_counter() - t
+        emit(result)
+        if name == "contiguous_decode":  # no paged decode in this phase
+            k1_by_phase[name] = sum(result[w]["k1_launches"]
+                                    for w in ("one_shot", "chunked", "int8"))
+        else:
+            k1_by_phase[name] = result["k1_launches"]
+            k2_by_phase[name] = result["k2_launches"]
     del params  # the training phases need the card's memory
     torch.cuda.empty_cache()
 
@@ -766,6 +1140,8 @@ def main() -> int:
             "replaces": "bee_code_interpreter_tpu/ops/flash_attention.py:48",
             "launches": first["k1_launches"],
             "train_launches": train["launches"]["flash_fwd"],
+            "launches_by_phase": {**k1_by_phase,
+                                  "train": train["launches"]["flash_fwd"]},
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],
             "plain_ms": main_k1["plain_ms"], "bound_ms": main_k1["bound_ms"],
@@ -782,6 +1158,7 @@ def main() -> int:
             "source": "bee_code_interpreter_tpu_torch/ops/csrc/paged_decode.cu",
             "replaces": "bee_code_interpreter_tpu/ops/paged_attention.py:47",
             "launches": first["k2_launches"],
+            "launches_by_phase": k2_by_phase,
             "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
             "ms": paged["ms"], "kernel_ms": paged["ms"],
             "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],

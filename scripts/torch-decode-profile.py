@@ -2,10 +2,16 @@
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
     python3 scripts/torch-decode-profile.py [--layers 32] [--steps 8]
+        [--kv-cache-dtype bf16|int8] [--window W]
 
 Serves Llama-3-8B widths (random bf16 weights from a seed, paged decode
 kernel on) with 8 rows admitted at prompt lengths 64-1024, then profiles
-``--steps`` decode steps with ``torch.profiler``. Prints one JSON line: wall
+``--steps`` decode steps with ``torch.profiler``; ``--kv-cache-dtype int8``
+does so on an int8 page pool (einsum attention, no paged decode kernel).
+``--window W`` profiles admission windows instead: one prompt of
+``(2 * steps + 2) * W`` tokens admitted with ``interleave_admission=W`` and
+no row decoding, so each step runs one window of W tokens (the path of
+prefix hits and interleaved admission). Prints one JSON line: wall
 time per step, device time per step summed over kernels, the device idle
 share (1 - device time / wall), and the device time per kernel name (top
 15) from the traced steps, next to the nvidia-smi name and power limit. Needs CUDA; exits
@@ -41,6 +47,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--kv-cache-dtype", choices=("bf16", "int8"),
+                    default="bf16")
+    ap.add_argument("--window", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch-decode-profile: CUDA is not available", file=sys.stderr)
@@ -50,14 +59,19 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
-                              n_layers=args.layers, paged_attention_kernel=True)
+                              n_layers=args.layers, paged_attention_kernel=True,
+                              kv_cache_dtype=args.kv_cache_dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
                                 max_pages_per_seq=128, n_pages=1 + 8 * 128)
     rng = np.random.default_rng(5)
-    for L in rng.integers(64, 1025, size=8):
-        batcher.submit(rng.integers(0, cfg.vocab_size, int(L)).tolist(),
-                       2 * args.steps + 4)
+    if args.window:
+        prompt = rng.integers(0, cfg.vocab_size, (2 * args.steps + 2) * args.window)
+        batcher.submit(prompt.tolist(), 1, interleave_admission=args.window)
+    else:
+        for L in rng.integers(64, 1025, size=8):
+            batcher.submit(rng.integers(0, cfg.vocab_size, int(L)).tolist(),
+                           2 * args.steps + 4)
     for _ in range(2):  # warm up
         batcher.step()
     torch.cuda.synchronize()
@@ -84,6 +98,7 @@ def main() -> int:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "nvidia_smi": smi, "layers": args.layers, "steps": args.steps,
+        "kv_cache_dtype": args.kv_cache_dtype, "window": args.window,
         "rows": int(batcher.active.sum()),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,

@@ -3,8 +3,6 @@ prefill seeding must give exactly the JAX arrays on identical inputs (they
 move values, they compute nothing), and pool telemetry identical dicts. The
 port writes the pool in place where JAX returns a new one."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,13 +107,14 @@ def test_pool_telemetry_identical_dicts():
 
 
 def test_alloc_matches_jax_layout_and_refuses_int8():
-    jcfg, tcfg = tiny_configs()
-    want = jax_pkv.alloc_paged_cache(jcfg, 5, 4)
-    got = pkv.alloc_paged_cache(tcfg, 5, 4, "cpu")
-    for name in ("k", "v"):
-        assert tuple(got[name].shape) == want[name].shape
-        assert got[name].dtype == torch.float32 and not got[name].any()
-    with pytest.raises(NotImplementedError):
-        pkv.alloc_paged_cache(
-            dataclasses.replace(tcfg, kv_cache_dtype="int8"), 5, 4, "cpu"
-        )
+    """The bf16/f32 pool and the int8 pool (int8 values, f32 scale planes),
+    which earlier slices refused, in the JAX package's layout."""
+    for kv in ("bf16", "int8"):
+        jcfg, tcfg = tiny_configs(kv_cache_dtype=kv)
+        want = jax_pkv.alloc_paged_cache(jcfg, 5, 4)
+        got = pkv.alloc_paged_cache(tcfg, 5, 4, "cpu")
+        assert set(got) == set(want)
+        for name, leaf in got.items():
+            assert tuple(leaf.shape) == want[name].shape
+            assert str(leaf.dtype).removeprefix("torch.") == str(want[name].dtype)
+            assert not leaf.any()

@@ -190,27 +190,30 @@ def test_engine_queue_priorities_and_cancel(models):
 
 
 def test_unported_features_raise(models):
+    """What later slices port still raises; the int8 pool, the prefix cache,
+    chunked and interleaved admission and preemption no longer do."""
     _, tcfg, _, tparams = models
-    for kw in (dict(prefix_cache=True), dict(adapters=[{}]), dict(mesh=object()),
+    for kw in (dict(adapters=[{}]), dict(mesh=object()),
                dict(metrics=object()), dict(monitor=object()),
                dict(draft_params=tparams, draft_config=tcfg)):
         with pytest.raises(NotImplementedError):
             torch_serving.ContinuousBatcher(tparams, tcfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        torch_serving.ContinuousBatcher(
-            tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
-            device="cpu",
-        )
+    torch_serving.ContinuousBatcher(
+        tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
+        device="cpu", prefix_cache=True,
+    )
     _, b = batchers(models)
-    for kw in (dict(prefill_chunk=4), dict(interleave_admission=4),
-               dict(adapter=0)):
-        with pytest.raises(NotImplementedError):
-            b.submit(PROMPTS[0], 2, **kw)
+    with pytest.raises(NotImplementedError):
+        b.submit(PROMPTS[0], 2, adapter=0)
+    with pytest.raises(NotImplementedError):
+        b.prefix_credit(PROMPTS[0], adapter=0)
     eng = torch_engine.Engine(b)
-    for call in (lambda: eng.preempt(0), eng.state_dict, b.state_dict,
-                 lambda: b.preempt(0)):
+    for call in (eng.state_dict, b.state_dict,
+                 lambda: eng.load_state_dict({}),
+                 lambda: b.load_state_dict({})):
         with pytest.raises(NotImplementedError):
             call()
+    assert b.preempt(0) is False  # no such interleaved admission
     with pytest.raises(NotImplementedError):
         torch_engine.Engine(b, metrics=object())
 

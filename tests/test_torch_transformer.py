@@ -136,6 +136,32 @@ def test_decode_window_paged_matches_jax(setup, window):
                                    atol=KV_TOL, rtol=KV_TOL)
 
 
+@pytest.mark.parametrize("kernel", [False, True])
+def test_decode_step_paged_drops_a_token_past_the_table(setup, kernel):
+    """page_size 4, a table of 2 pages, position 8: JAX's gather fills the
+    out-of-range page index and its scatter drops the token, so the pool
+    stays all zero. The port wrote it into page 2, the row's last live
+    page, until the clamp gave way to the same drop."""
+    jcfg, tcfg, jparams, tparams = setup
+    jcfg = dataclasses.replace(jcfg, paged_attention_kernel=kernel)
+    tcfg = dataclasses.replace(tcfg, paged_attention_kernel=kernel)
+    bt = np.asarray([[1, 2]], dtype=np.int32)
+    token = np.asarray([[7]], dtype=np.int32)
+    pos = np.asarray([8], dtype=np.int32)
+    want_logits, want_pool = jax_t.decode_step_paged(
+        jparams, jnp.asarray(token), jnp.asarray(pos), jax_alloc(jcfg, 4, 4),
+        jnp.asarray(bt), jcfg,
+    )
+    pool = torch_t.decode_step_paged(
+        tparams, torch.from_numpy(token), torch.from_numpy(pos),
+        {n: torch.zeros(x.shape) for n, x in want_pool.items()},
+        torch.from_numpy(bt), tcfg,
+    )[1]
+    for name in ("k", "v"):
+        assert not np.asarray(want_pool[name]).any()
+        assert not pool[name].any()
+
+
 def test_init_params_distributions_and_dtype():
     _, tcfg = tiny_configs()
     gen = torch.Generator().manual_seed(0)

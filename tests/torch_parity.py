@@ -55,3 +55,35 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def batcher_pair(models, **kw):
+    """The same ``ContinuousBatcher`` in both frameworks, as (JAX, port);
+    ``models`` is (JAX config, port config, JAX params, port params)."""
+    from bee_code_interpreter_tpu.models import serving as jax_serving
+    from bee_code_interpreter_tpu_torch.models import serving as torch_serving
+
+    jcfg, tcfg, jparams, tparams = models
+    return (jax_serving.ContinuousBatcher(jparams, jcfg, **kw),
+            torch_serving.ContinuousBatcher(tparams, tcfg, device="cpu", **kw))
+
+
+def host_state(b) -> dict:
+    """A batcher's host bookkeeping, which the port must hold exactly as
+    the JAX batcher does: the prefix index, page identities, refcounts,
+    the free list, the LRU's order, block tables, cursors, counters and
+    telemetry."""
+    return {
+        "prefix_index": dict(b.prefix_index),
+        "page_hash": dict(b.page_hash),
+        "page_ref": b.page_ref.tolist(),
+        "free_pages": list(b.free_pages),
+        "evictable": list(b.evictable),
+        "prefix_stats": dict(b.prefix_stats),
+        "block_table": b.block_table.tolist(),
+        "pos": b.pos.tolist(),
+        "active": b.active.tolist(),
+        "prefilling": sorted(b.prefill_state),
+        "kv_telemetry": b.kv_telemetry(),
+        "stats": b.stats,
+    }
