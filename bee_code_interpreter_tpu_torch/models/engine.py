@@ -7,14 +7,16 @@ and enough pages are free, in (priority desc, arrival) order with deliberate
 head-of-line blocking; pages a prefix-cache hit would reuse count as
 available. ``new_tokens`` is the streaming read; ``cancel`` works on queued
 and admitted tickets; ``preempt`` sends an interleaved admission that has
-not produced a token back to the head of its priority class.
+not produced a token back to the head of its priority class. A request's
+``adapter`` rides with it to admission and to the prefix credit;
+``state_dict`` / ``load_state_dict`` snapshot the batcher and the queue.
 
-Not ported yet (``NotImplementedError``): the ``metrics``/``monitor`` hooks,
-``adapter`` on ``submit`` (LoRA) and ``state_dict``.
+Not ported yet (``NotImplementedError``): the ``metrics``/``monitor`` hooks.
 """
 
 from __future__ import annotations
 
+import copy
 import heapq
 from dataclasses import dataclass
 
@@ -34,6 +36,7 @@ class _Queued:
     max_new_tokens: int
     sampling: SamplingParams | None
     prefill_chunk: int | None
+    adapter: int | None
     pages_needed: int
     interleave_admission: int | None = None
     priority: int = 0  # kept so a preempted ticket requeues in its class
@@ -72,11 +75,39 @@ class Engine:
         self._preemptable: dict[int, _Queued] = {}
         self._front_seq = 0
 
+    # ----------------------------------------------------- snapshot/resume
     def state_dict(self) -> dict:
-        raise not_ported("serving snapshots (state_dict)")
+        """The batcher's snapshot (``ContinuousBatcher.state_dict``) plus
+        the queue: tickets not yet admitted resume queued, in their
+        (priority, arrival) order. Pickles unless a request carries a
+        callable ``allowed_tokens``."""
+        return {
+            "batcher": self.batcher.state_dict(),
+            "heap": copy.deepcopy(self._heap),
+            "state": copy.deepcopy(self._state),
+            "queued": set(self._queued),
+            "stream_cursor": dict(self._stream_cursor),
+            "holdback": dict(self._holdback),
+            "next_seq": self._next_seq,
+            "next_ticket": self._next_ticket,
+            "preemptable": copy.deepcopy(self._preemptable),
+            "front_seq": self._front_seq,
+        }
 
     def load_state_dict(self, state: dict) -> None:
-        raise not_ported("serving snapshots (load_state_dict)")
+        """Adopt a snapshot taken by ``state_dict``. ``max_queue`` is this
+        engine's policy, not serving state, and stays."""
+        self.batcher.load_state_dict(state["batcher"])
+        self._heap = copy.deepcopy(state["heap"])
+        heapq.heapify(self._heap)
+        self._state = copy.deepcopy(state["state"])
+        self._queued = set(state["queued"])
+        self._stream_cursor = dict(state["stream_cursor"])
+        self._holdback = dict(state["holdback"])
+        self._next_seq = state["next_seq"]
+        self._next_ticket = state["next_ticket"]
+        self._preemptable = copy.deepcopy(state["preemptable"])
+        self._front_seq = state["front_seq"]
 
     # ------------------------------------------------------------- intake
     def submit(
@@ -101,7 +132,7 @@ class Engine:
         if self.max_queue is not None and len(self._queued) >= self.max_queue:
             raise RuntimeError(f"queue full ({self.max_queue})")
         req = _Queued(prompt, max_new_tokens, sampling, prefill_chunk,
-                      pages_needed, interleave_admission, priority)
+                      adapter, pages_needed, interleave_admission, priority)
         ticket = self._next_ticket
         self._next_ticket += 1
         seq = self._next_seq
@@ -134,7 +165,7 @@ class Engine:
                 len(self.batcher.free_pages) + len(self.batcher.evictable)
             )
             fresh_needed = req.pages_needed - self.batcher.prefix_credit(
-                req.prompt
+                req.prompt, req.adapter
             )
             if fresh_needed > available:
                 return
@@ -143,7 +174,7 @@ class Engine:
             try:
                 rid = self.batcher.submit(
                     req.prompt, req.max_new_tokens, sampling=req.sampling,
-                    prefill_chunk=req.prefill_chunk,
+                    prefill_chunk=req.prefill_chunk, adapter=req.adapter,
                     interleave_admission=req.interleave_admission,
                 )
             except CapacityError:

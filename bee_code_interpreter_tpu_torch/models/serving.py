@@ -21,14 +21,18 @@ request's output never depends on its batch-mates. Where JAX compiles
 pool in place where JAX donates it.
 
 Ported: every admission path above, the plain decode step, stops, eos,
-cancel, preempt, results and logprobs. Refused with ``NotImplementedError``
-until a later slice ports them (ROADMAP Queue 1): speculative decoding
-(``draft_params``), LoRA ``adapters``, ``mesh``, the ``metrics``/``monitor``
-hooks and serving snapshots (``state_dict``).
+cancel, preempt, results and logprobs; multi-LoRA serving (``adapters``:
+per-row adapters in one decode pass, adapter admissions through the
+windows); speculative serving (``draft_params``: a draft's own pool over
+the same pages, greedy draft-verify and rejection sampling); serving
+snapshots (``state_dict`` / ``load_state_dict``). Refused with
+``NotImplementedError`` until a later slice ports them (ROADMAP Queue 1):
+``mesh`` and the ``metrics``/``monitor`` hooks.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -38,6 +42,7 @@ import torch
 
 from bee_code_interpreter_tpu_torch.device import resolve_device
 from bee_code_interpreter_tpu_torch.models import transformer
+from bee_code_interpreter_tpu_torch.models.lora import stack_lora_bank
 from bee_code_interpreter_tpu_torch.models.transformer import TransformerConfig
 from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
     alloc_paged_cache,
@@ -188,6 +193,42 @@ def choose_host(
     return sample_host(logits, params, rng)
 
 
+def rejection_sample_commit(
+    proposals,  # gamma draft proposals, x_g ~ q_dists[g]
+    q_dists,  # gamma FILTERED draft distributions [V]
+    p_fn,  # g -> FILTERED target distribution [V], g in [0, gamma]
+    rng: np.random.Generator,
+) -> tuple[list[int], int]:
+    """Leviathan et al. rejection sampling for one verify window: accept
+    proposal x with probability min(1, p(x)/q(x)); the first rejection
+    resamples from normalize(max(p - q, 0)); a fully-accepted window draws
+    its bonus token from the last target distribution. Returns (committed
+    tokens, accepted proposal count). ``p_fn`` is called lazily, and the
+    strict ``<`` keeps a token outside the target's support from
+    committing. The JAX function line for line (host numpy), so the same
+    generator state gives the same draws."""
+    commit: list[int] = []
+    n = 0
+    for g, x in enumerate(proposals):
+        p_dist, q_dist = p_fn(g), q_dists[g]
+        x = int(x)
+        if q_dist[x] > 0 and rng.random() < min(
+            1.0, float(p_dist[x] / q_dist[x])
+        ):
+            commit.append(x)
+            n += 1
+            continue
+        resid = np.maximum(p_dist - q_dist, 0.0)
+        total = float(resid.sum())
+        if total <= 0.0:  # p == q pointwise: resample from p directly
+            resid, total = p_dist, float(p_dist.sum())
+        commit.append(int(rng.choice(resid.shape[0], p=resid / total)))
+        return commit, n
+    p_last = p_fn(len(proposals))
+    commit.append(int(rng.choice(p_last.shape[0], p=p_last)))
+    return commit, n
+
+
 class ContinuousBatcher:
     """Admit -> step -> collect loop over ``decode_step_paged``.
 
@@ -199,6 +240,20 @@ class ContinuousBatcher:
     tokens (refcounts, and an LRU of parked pages evicted under pool
     pressure). ``device`` defaults to CUDA (raises without it); ``params``
     must already live there.
+
+    ``adapters`` (LoRA trees of ``models/lora.py`` on the attention
+    projections) are stacked into one bank; ``submit(adapter=i)`` serves a
+    request under adapter i, rows under different adapters decoding in one
+    pass with the delta applied unmerged (scaled by ``lora_scale``).
+    Adapter admissions prefill through the page-aligned windows, and the
+    prefix cache keys pages by (adapter, tokens).
+
+    ``draft_params`` / ``draft_config`` make the batcher speculative: each
+    step the draft proposes ``gamma`` tokens per row from its own pool
+    (the same pages and tables), the target scores each row's window in
+    one ``decode_window_paged`` and each row commits its own accepted
+    prefix plus one token: the target's argmax for greedy rows, rejection
+    sampling for sampled ones. Greedy rows equal plain greedy decoding.
     """
 
     def __init__(
@@ -213,17 +268,16 @@ class ContinuousBatcher:
         eos_id: int | None = None,
         draft_params=None,
         draft_config: TransformerConfig | None = None,
+        gamma: int = 4,
         prefix_cache: bool = False,
         adapters: list | None = None,
+        lora_scale: float = 1.0,
         mesh=None,
         metrics=None,
         monitor=None,
         device: torch.device | str | None = None,
     ) -> None:
         for name, value in (
-            ("speculative decoding (draft_params)", draft_params),
-            ("speculative decoding (draft_config)", draft_config),
-            ("LoRA serving (adapters)", adapters),
             ("tensor-parallel serving (mesh)", mesh),
             ("the metrics hook", metrics),
             ("the monitor hook", monitor),
@@ -241,8 +295,51 @@ class ContinuousBatcher:
         self.page_size = page_size
         self.eos_id = eos_id
         self.max_len = max_pages_per_seq * page_size
+        self.draft_params = draft_params
+        self.draft_config = draft_config
+        self.gamma = gamma
         self.prefix_cache_enabled = prefix_cache
+        self.lora_scale = float(lora_scale)
+        # only the stacked bank is kept, on the batcher's device
+        self.n_adapters = len(adapters) if adapters else 0
+        if adapters:
+            bank = stack_lora_bank(list(adapters))
+            unknown = set(bank) - {"wq", "wk", "wv", "wo"}
+            if unknown:
+                raise ValueError(
+                    f"serving adapters target {sorted(unknown)}; the decode "
+                    "path supports attention projections (wq/wk/wv/wo) only"
+                )
+            self.lora_bank = {
+                t: {k: x.to(self.device) for k, x in ab.items()}
+                for t, ab in bank.items()
+            }
+        else:
+            self.lora_bank = None
+        self.row_adapter = np.zeros(max_batch, dtype=np.int32)
+        if (draft_params is None) != (draft_config is None):
+            raise ValueError(
+                "speculative mode needs BOTH draft_params and draft_config"
+            )
+        if draft_config is not None:
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError("target and draft must share a vocabulary")
+            # The JAX batcher also refuses a capacity-routed MoE target here
+            # (its verify window routes B·(γ+1) tokens where plain decode
+            # routes B): MoE is not ported yet (ROADMAP Queue 1).
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            if draft_params["embed"].device != self.device:
+                raise ValueError(
+                    f"draft params live on {draft_params['embed'].device}, "
+                    f"the batcher runs on {self.device}"
+                )
         self.cache = alloc_paged_cache(config, n_pages, page_size, self.device)
+        # the draft's own pool, addressed by the same block tables and pages
+        self.draft_cache = (
+            alloc_paged_cache(draft_config, n_pages, page_size, self.device)
+            if draft_config is not None else None
+        )
         self.block_table = np.full(
             (max_batch, max_pages_per_seq), _SCRATCH_PAGE, dtype=np.int32
         )
@@ -279,9 +376,13 @@ class ContinuousBatcher:
         # row -> interleaved admission in progress: the row is occupied but
         # not active until its last window ran
         self.prefill_state: dict[int, dict] = {}
-        # lifetime page churn: held pages = allocated - released
+        # lifetime telemetry (not serving state: a restored snapshot
+        # realigns them): page churn, held pages = allocated - released, and
+        # speculative proposals accepted / rejected
         self._pages_allocated = 0
         self._pages_released = 0
+        self._spec_accepted = 0
+        self._spec_rejected = 0
 
     def kv_telemetry(self) -> dict:
         """Page accounting, slot-level fragmentation of the pool, the
@@ -309,11 +410,86 @@ class ContinuousBatcher:
         out["pages_released_total"] = self._pages_released
         return out
 
+    # ----------------------------------------------------- snapshot/resume
+    _HOST_STATE = (
+        "block_table", "pos", "active", "current", "budget", "row_request",
+        "row_adapter", "page_ref", "results", "results_logprobs", "done",
+        "finish", "errors", "row_sampling", "row_rng", "_next_request_id",
+        "n_tokens_generated", "free_pages", "prefix_index", "page_hash",
+        "prefix_stats", "prefill_state",
+    )
+
+    def _geometry(self) -> dict:
+        """The compatibility contract between a snapshot and the batcher
+        restoring it: everything that changes what in-flight rows mean,
+        behaviour (eos_id, gamma, lora_scale, the prefix cache) as well as
+        shapes."""
+        return {
+            "config": self.config,
+            "draft_config": self.draft_config,
+            "n_pages": int(self.page_ref.shape[0]),
+            "page_size": self.page_size,
+            "max_batch": int(self.active.shape[0]),
+            "max_pages_per_seq": int(self.block_table.shape[1]),
+            "n_adapters": self.n_adapters,
+            "eos_id": self.eos_id,
+            "gamma": self.gamma,
+            "lora_scale": self.lora_scale,
+            "prefix_cache": self.prefix_cache_enabled,
+        }
+
     def state_dict(self) -> dict:
-        raise not_ported("serving snapshots (state_dict)")
+        """Everything needed to resume serving mid-decode on a fresh
+        batcher built with the same geometry (``load_state_dict`` checks).
+        The pools come back as owned CPU tensors (numpy has no bf16), the
+        host bookkeeping as deep copies; the dict pickles unless a live
+        request carries a callable ``allowed_tokens``."""
+        def snap(pool):
+            return {k: x.to("cpu", copy=True) for k, x in pool.items()}
+
+        device = {"cache": snap(self.cache)}
+        if self.draft_config is not None:
+            device["draft_cache"] = snap(self.draft_cache)
+        host = {
+            name: copy.deepcopy(getattr(self, name))
+            for name in self._HOST_STATE
+        }
+        host["evictable"] = list(self.evictable)  # LRU order, oldest first
+        return {"device": device, "host": host, "meta": self._geometry()}
 
     def load_state_dict(self, state: dict) -> None:
-        raise not_ported("serving snapshots (load_state_dict)")
+        """Adopt a snapshot taken by ``state_dict``: decoding continues
+        where it stopped, with the same tokens and logprobs. The pools are
+        copied into this batcher's own tensors, which keep their storage."""
+        meta = state["meta"]
+        mine = self._geometry()
+        if set(meta) != set(mine):
+            raise ValueError(
+                "snapshot geometry keys differ from this build's "
+                f"({sorted(set(meta) ^ set(mine))}) — version skew"
+            )
+        for key, want in meta.items():
+            if mine[key] != want:
+                raise ValueError(
+                    f"snapshot geometry mismatch on {key!r}: snapshot has "
+                    f"{want}, this batcher has {mine[key]}"
+                )
+        for k, x in state["device"]["cache"].items():
+            self.cache[k].copy_(x)
+        if self.draft_config is not None:
+            for k, x in state["device"]["draft_cache"].items():
+                self.draft_cache[k].copy_(x)
+        for name in self._HOST_STATE:
+            setattr(self, name, copy.deepcopy(state["host"][name]))
+        self.evictable = OrderedDict(
+            (page, None) for page in state["host"]["evictable"]
+        )
+        # the telemetry counters are per process, but the adopted refcounts
+        # change what "held" means: realign so allocated - released keeps
+        # equalling the pool's ref > 0 count from here on
+        self._pages_allocated = self._pages_released + int(
+            (self.page_ref > 0).sum()
+        )
 
     # ------------------------------------------------------------- admission
     def _occupied(self) -> np.ndarray:
@@ -345,8 +521,6 @@ class ContinuousBatcher:
         transiently (``CapacityError``). Unlike the JAX batcher, which
         ignores ``prefill_chunk`` when ``interleave_admission`` is set,
         the two together are refused."""
-        if adapter is not None:
-            raise not_ported("LoRA serving (adapter)")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         L = int(prompt.shape[0])
         if L < 1:
@@ -369,11 +543,32 @@ class ContinuousBatcher:
                 )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        total = L + max_new_tokens
+        if adapter is not None:
+            if self.lora_bank is None:
+                raise ValueError(
+                    "no adapters configured (pass adapters= at construction)"
+                )
+            if not 0 <= adapter < self.n_adapters:
+                raise ValueError(
+                    f"adapter {adapter} out of range "
+                    f"(have {self.n_adapters})"
+                )
+        speculative = self.draft_params is not None
+        if speculative and sampling is not None and sampling.steered:
+            raise ValueError(
+                "speculative serving cannot apply logit_bias/allowed_tokens "
+                "(draft-verify commits the target's unsteered argmax tokens)"
+            )
+        # a speculative round writes draft and verify K/V past the budget
+        # before truncation, into pages the row must own: an active row's
+        # cursor is at most L + budget - 2, its deepest write cursor + gamma
+        overshoot = self.gamma - 1 if speculative else 0
+        total = L + max_new_tokens + overshoot
         if total > self.max_len:
             raise ValueError(
-                f"prompt+generation ({total}) exceeds the block table's "
-                f"budget ({self.max_len})"
+                f"prompt+generation ({total}, incl. speculative overshoot "
+                f"{overshoot}) exceeds the block table's budget "
+                f"({self.max_len})"
             )
         n_need = -(-total // self.page_size)  # ceil
         usable = self.page_ref.shape[0] - 1  # minus the scratch page
@@ -412,6 +607,9 @@ class ContinuousBatcher:
             prefill_chunk=prefill_chunk,
         )
         L = int(prompt.shape[0])
+        # internal index: 0 is the all-zeros base adapter of the bank
+        adapter_internal = 0 if adapter is None else adapter + 1
+        speculative = self.draft_params is not None
         free_rows = np.flatnonzero(~self._occupied())
         if free_rows.size == 0:
             raise CapacityError("no free batch row (step() until one frees)")
@@ -421,7 +619,7 @@ class ContinuousBatcher:
         shared: list[int] = []
         if self.prefix_cache_enabled:
             self.prefix_stats["lookups"] += 1
-            hashes, shared = self._prefix_match(prompt)
+            hashes, shared = self._prefix_match(prompt, adapter_internal)
         matched = len(shared)
         # take refs on shared pages before counting what is available, so
         # that a parked match counts neither as free nor as evictable
@@ -451,16 +649,27 @@ class ContinuousBatcher:
                 # scratch page until activation, the windows carry their own
                 record = self._prefill_record(
                     prompt, pages, hashes, matched, interleave_admission,
-                    sampling, max_new_tokens, req,
+                    sampling, max_new_tokens, req, adapter_internal,
                 )
+                if speculative:
+                    self._zero_draft_pages(pages[matched:])
             else:
                 self.block_table[row, :] = _SCRATCH_PAGE
                 self.block_table[row, :n_need] = pages
-                if matched:
-                    last_row = self._suffix_admit(row, prompt, matched,
-                                                  prefill_chunk)
+                if matched or adapter_internal > 0:
+                    # window admissions: prefix hits, and every adapter
+                    # admission (matched == 0 makes the whole prompt the
+                    # suffix); the windows are lora- and quantization-aware.
+                    # Only the fresh draft pages are zeroed: matched ones
+                    # hold draft K/V other rows may be sharing.
+                    if speculative:
+                        self._zero_draft_pages(pages[matched:])
+                    last_row = self._suffix_admit(
+                        row, prompt, matched, speculative, prefill_chunk,
+                        adapter_internal,
+                    )
                 else:
-                    last_row = self._full_admit(prompt, pages, L,
+                    last_row = self._full_admit(prompt, pages, L, speculative,
                                                 prefill_chunk)
         except BaseException:
             # a failed admission must not leak its pages or its row: the row
@@ -474,10 +683,12 @@ class ContinuousBatcher:
             self.done[req] = False
             return req
         return self._activate_row(row, last_row, pages, hashes, L, sampling,
-                                  max_new_tokens, req, propagate=True)
+                                  max_new_tokens, req, adapter_internal,
+                                  propagate=True)
 
     def _prefill_record(self, prompt, pages, hashes, matched, width,
-                        sampling, max_new_tokens, req) -> dict:
+                        sampling, max_new_tokens, req,
+                        adapter_internal=0) -> dict:
         """The state of an interleaved admission: the suffix after any
         prefix hit, padded to whole pages, and the row's own table."""
         start = matched * self.page_size
@@ -490,6 +701,8 @@ class ContinuousBatcher:
             "start": start, "L": int(prompt.shape[0]), "bt_row": bt_row,
             "width": width, "sampling": sampling,
             "max_new_tokens": max_new_tokens, "last_row": None,
+            "adapter_internal": adapter_internal,
+            "speculative": self.draft_params is not None,
         }
 
     def _padded_suffix(self, prompt, start: int) -> np.ndarray:
@@ -501,7 +714,8 @@ class ContinuousBatcher:
         return suffix
 
     def _activate_row(self, row, last_row, pages, hashes, L, sampling,
-                      max_new_tokens, req, propagate=False) -> int:
+                      max_new_tokens, req, adapter_internal=0,
+                      propagate=False) -> int:
         """Admission epilogue of the blocking and interleaved paths:
         sample the first token, register the prompt's full pages in the
         prefix index, activate the row. First-token failures release the
@@ -535,6 +749,7 @@ class ContinuousBatcher:
         self.pos[row] = L
         self.current[row, 0] = first
         self.budget[row] = max_new_tokens
+        self.row_adapter[row] = adapter_internal
         self.row_request[row] = req
         self.row_sampling[row] = sampling
         self.row_rng[row] = rng
@@ -579,7 +794,8 @@ class ContinuousBatcher:
             rec = self.prefill_state[row]
             done_tokens = rec["pos"] - rec["start"]
             win = rec["suffix"][done_tokens:done_tokens + rec["width"]]
-            last = self._window(win, rec["pos"], rec["bt_row"], rec["L"])
+            last = self._window(win, rec["pos"], rec["bt_row"], rec["L"],
+                                rec["adapter_internal"], rec["speculative"])
             if last is not None:
                 rec["last_row"] = last
             rec["pos"] += int(win.shape[0])
@@ -591,38 +807,58 @@ class ContinuousBatcher:
                 self._activate_row(
                     row, rec["last_row"], rec["pages"], rec["hashes"],
                     rec["L"], rec["sampling"], rec["max_new_tokens"],
-                    rec["req"],
+                    rec["req"], rec["adapter_internal"],
                 )
 
-    def _window(self, win, pos, bt_row, L) -> np.ndarray | None:
+    def _window(self, win, pos, bt_row, L, adapter_internal=0,
+                speculative=False) -> np.ndarray | None:
         """One admission window: ``decode_window_paged`` over one row's
-        table. Returns the last prompt token's logits row when it lies in
-        this window."""
+        table, under the row's adapter; in speculative mode the draft pool
+        replays it, so both pools stay in step. Returns the last prompt
+        token's logits row when it lies in this window."""
         dev = self.device
+        win_t = torch.as_tensor(win[None, :], device=dev)
+        pos_t = torch.as_tensor([pos], dtype=torch.int32, device=dev)
+        bt_t = torch.as_tensor(bt_row, device=dev)
         logits, self.cache = transformer.decode_window_paged(
-            self.params,
-            torch.as_tensor(win[None, :], device=dev),
-            torch.as_tensor([pos], dtype=torch.int32, device=dev),
-            self.cache,
-            torch.as_tensor(bt_row, device=dev),
-            self.config,
+            self.params, win_t, pos_t, self.cache, bt_t, self.config,
+            **self._lora_kwargs(np.array([adapter_internal])),
         )
+        if speculative:
+            _, self.draft_cache = transformer.decode_window_paged(
+                self.draft_params, win_t, pos_t, self.draft_cache, bt_t,
+                self.draft_config,
+            )
         idx = L - 1 - pos  # the last real token's index in this window
         if 0 <= idx < win.shape[0]:
             return logits[0, idx].cpu().numpy()
         return None
 
     # ------------------------------------------------- admission sub-paths
-    def _full_admit(self, prompt, pages, L, prefill_chunk) -> np.ndarray:
-        """Whole-prompt admission into the row's pages; returns the last
-        prompt token's logits row. One-shot: one ``forward`` over the prompt
-        padded to whole pages (pad tokens are causally invisible to rows
-        < L, so logits[L-1] and K/V[:L] are exact), then ``seed_prefill``.
-        Chunked: ``prefill_chunked`` builds the contiguous cache in the
-        pool's layout over the prompt pages and ``seed_from_contiguous``
-        copies it verbatim (int8 rows are not quantized twice)."""
+    def _full_admit(self, prompt, pages, L, speculative,
+                    prefill_chunk) -> np.ndarray:
+        """Whole-prompt base admission (no prefix hit, no adapter) into the
+        row's pages; returns the last prompt token's logits row. One-shot:
+        one ``forward`` over the prompt padded to whole pages (pad tokens
+        are causally invisible to rows < L, so logits[L-1] and K/V[:L] are
+        exact), then ``seed_prefill``. Chunked: ``prefill_chunked`` builds
+        the contiguous cache in the pool's layout over the prompt pages and
+        ``seed_from_contiguous`` copies it verbatim (int8 rows are not
+        quantized twice).
+
+        In speculative mode the row's draft pages are zeroed first (a
+        recycled page holds an earlier request's K/V, and a fully accepted
+        round lets the draft read one slot it never wrote: zeros make that
+        read independent of the pool's history; the target only reads slots
+        it wrote), then the draft prefills the padded prompt one-shot into
+        its pool at the same pages."""
         n_prompt_pages = -(-L // self.page_size)
         pages_t = torch.as_tensor(pages[:n_prompt_pages], device=self.device)
+        padded = np.zeros(n_prompt_pages * self.page_size, dtype=np.int64)
+        padded[:L] = prompt
+        tokens = torch.as_tensor(padded[None, :], device=self.device)
+        if speculative:
+            self._zero_draft_pages(pages)
         if prefill_chunk is not None:
             last_logits, contig = transformer.prefill_chunked(
                 self.params, torch.as_tensor(prompt[None, :], device=self.device),
@@ -631,26 +867,33 @@ class ContinuousBatcher:
             )
             seed_from_contiguous(self.cache, pages_t,
                                  {name: x[:, 0] for name, x in contig.items()})
-            return last_logits[0].cpu().numpy()
-        padded = np.zeros(n_prompt_pages * self.page_size, dtype=np.int64)
-        padded[:L] = prompt
-        tokens = torch.as_tensor(padded[None, :], device=self.device)
-        logits, (k_pre, v_pre) = transformer.forward(
-            self.params, tokens, self.config, return_kv=True
-        )
-        seed_prefill(self.cache, pages_t,
-                     k_pre[:, 0, :, :L, :], v_pre[:, 0, :, :L, :])
-        return logits[0, L - 1, :].cpu().numpy()
+            last_row = last_logits[0].cpu().numpy()
+        else:
+            logits, (k_pre, v_pre) = transformer.forward(
+                self.params, tokens, self.config, return_kv=True
+            )
+            seed_prefill(self.cache, pages_t,
+                         k_pre[:, 0, :, :L, :], v_pre[:, 0, :, :L, :])
+            last_row = logits[0, L - 1, :].cpu().numpy()
+        if speculative:
+            _, (dk, dv) = transformer.forward(
+                self.draft_params, tokens, self.draft_config, return_kv=True
+            )
+            seed_prefill(self.draft_cache, pages_t,
+                         dk[:, 0, :, :L, :], dv[:, 0, :, :L, :])
+        return last_row
 
-    def _suffix_admit(self, row, prompt, matched, prefill_chunk) -> np.ndarray:
-        """Prefix-hit admission: the suffix after the ``matched`` shared
-        pages, padded to whole pages, through consecutive page-aligned
-        ``decode_window_paged`` windows over the row's table; the windows
-        attend to the shared prefix through the table. ``prefill_chunk``
-        bounds the window width. Pad tokens of the last window write K/V
-        past L into the row's own pages, behind the cursor: invisible until
-        the decode overwrites them. Returns the last prompt token's logits
-        row."""
+    def _suffix_admit(self, row, prompt, matched, speculative, prefill_chunk,
+                      adapter_internal=0) -> np.ndarray:
+        """Window admission, for prefix hits (only the suffix after the
+        ``matched`` shared pages runs) and for every adapter admission
+        (``matched`` == 0: the whole prompt is the suffix): the suffix,
+        padded to whole pages, through consecutive page-aligned
+        ``decode_window_paged`` windows over the row's table, attending to
+        any shared prefix through it. ``prefill_chunk`` bounds the window
+        width. Pad tokens of the last window write K/V past L into the
+        row's own pages, behind the cursor: invisible until the decode
+        overwrites them. Returns the last prompt token's logits row."""
         ps = self.page_size
         start = matched * ps
         width = ps * (max(1, prefill_chunk // ps) if prefill_chunk is not None
@@ -660,16 +903,40 @@ class ContinuousBatcher:
         last_row = None
         for off in range(0, len(suffix), width):
             last = self._window(suffix[off:off + width], start + off, bt_row,
-                                int(prompt.shape[0]))
+                                int(prompt.shape[0]), adapter_internal,
+                                speculative)
             if last is not None:
                 last_row = last
         return last_row
 
+    def _zero_draft_pages(self, pages) -> None:
+        """Zero the draft pool's ``pages`` in place, every layer and leaf."""
+        if not pages:
+            return
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.device)
+        for x in self.draft_cache.values():
+            x.index_fill_(1, idx, 0)
+
+    # ------------------------------------------------------------ multi-LoRA
+    def _lora_kwargs(self, adapter_rows: np.ndarray) -> dict:
+        """The bank arguments of the paged decode and window calls when
+        adapters are configured; none (the untouched base path) otherwise."""
+        if self.lora_bank is None:
+            return {}
+        return {
+            "lora_bank": self.lora_bank,
+            "adapter_idx": torch.as_tensor(adapter_rows, dtype=torch.int32,
+                                           device=self.device),
+            "lora_scale": self.lora_scale,
+        }
+
     # -------------------------------------------------- prefix-cache pages
-    def _prefix_match(self, prompt: np.ndarray) -> tuple[list[bytes], list[int]]:
+    def _prefix_match(
+        self, prompt: np.ndarray, adapter_internal: int
+    ) -> tuple[list[bytes], list[int]]:
         """(chain hashes, prefix pages matched right now), the match capped
         at (L-1)//ps pages so at least one suffix token remains."""
-        hashes = self._chain_hashes(prompt)
+        hashes = self._chain_hashes(prompt, adapter_internal)
         shared: list[int] = []
         limit = min(len(hashes), (int(prompt.shape[0]) - 1) // self.page_size)
         for i in range(limit):
@@ -683,20 +950,20 @@ class ContinuousBatcher:
         """Full prompt pages a submission would reuse from the prefix index
         right now (0 with the cache off): the engine subtracts them from a
         request's page need."""
-        if adapter is not None:
-            raise not_ported("LoRA serving (adapter)")
         if not self.prefix_cache_enabled:
             return 0
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
-        return len(self._prefix_match(prompt)[1])
+        adapter_internal = 0 if adapter is None else adapter + 1
+        return len(self._prefix_match(prompt, adapter_internal)[1])
 
-    def _chain_hashes(self, prompt: np.ndarray) -> list[bytes]:
+    def _chain_hashes(self, prompt: np.ndarray,
+                      adapter_internal: int = 0) -> list[bytes]:
         """The chain hash after each full page: ``hashes[i]`` commits to
-        tokens [0, (i+1)*page_size), salted with the adapter index (0, the
-        base model: LoRA is not ported) as the JAX batcher salts it, so the
-        keys are the JAX batcher's."""
+        tokens [0, (i+1)*page_size), salted with the internal adapter index
+        (0 the base model): K/V under different adapters are different
+        values and never share pages. The keys are the JAX batcher's."""
         h = hashlib.blake2b(digest_size=16)
-        h.update((0).to_bytes(8, "little"))
+        h.update(int(adapter_internal).to_bytes(8, "little"))
         out: list[bytes] = []
         ps = self.page_size
         for i in range(len(prompt) // ps):
@@ -736,12 +1003,16 @@ class ContinuousBatcher:
 
     # ----------------------------------------------------------------- step
     def step(self) -> None:
-        """Advance every active row by one token; interleaved admissions
-        first run one window each, so their prefill and the batch's decode
-        share the step cadence."""
+        """Advance every active row by one token (or, speculative, by its
+        own accepted length plus one); interleaved admissions first run one
+        window each, so their prefill and the batch's decode share the step
+        cadence."""
         if self.prefill_state:
             self._advance_prefills()
         if not self.active.any():
+            return
+        if self.draft_params is not None:
+            self._step_speculative()
             return
         dev = self.device
         logits, self.cache = transformer.decode_step_paged(
@@ -751,6 +1022,7 @@ class ContinuousBatcher:
             self.cache,
             torch.as_tensor(self.block_table, device=dev),
             self.config,
+            **self._lora_kwargs(self.row_adapter),
         )
         active_rows = np.flatnonzero(self.active)
         # the all-greedy case reduces on the device and moves B ints; the
@@ -801,6 +1073,142 @@ class ContinuousBatcher:
                 )
             self._retire_if_done(int(row))
 
+    def _draft_step(self, tok, p, bt):
+        """One draft decode step over the draft pool: f32 logits [B, V]."""
+        lg, self.draft_cache = transformer.decode_step_paged(
+            self.draft_params, tok, p, self.draft_cache, bt, self.draft_config
+        )
+        return lg[:, -1, :]
+
+    def _step_speculative(self) -> None:
+        """One draft-propose / target-verify / per-row-commit round: the
+        draft runs ``gamma`` paged decode steps over the whole batch, the
+        target scores every row's (current + drafts) window in one
+        ``decode_window_paged``, and each row commits its own accepted
+        prefix plus the target's token, with no lockstep across rows.
+        Rejected positions stay in both pools behind each row's cursor,
+        invisible until overwritten. Once any active row samples, the whole
+        round goes through ``_step_speculative_sampled``.
+
+        As in the JAX batcher, a fully accepted round never appends the
+        last draft token to the draft pool, so later draft steps read the
+        zeros of that slot: draft quality, not correctness."""
+        active_rows = np.flatnonzero(self.active)
+        if any(
+            self.row_sampling[row].temperature > 0.0 for row in active_rows
+        ):
+            self._step_speculative_sampled(active_rows)
+            return
+        dev = self.device
+        bt = torch.as_tensor(self.block_table, device=dev)
+        pos_dev = torch.as_tensor(self.pos, device=dev)
+        cur = torch.as_tensor(self.current, device=dev)
+        drafts = []
+        tok, p = cur, pos_dev
+        for _ in range(self.gamma):
+            lg = self._draft_step(tok, p, bt)
+            tok = torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
+            drafts.append(tok)
+            p = p + 1
+        drafts_dev = torch.cat(drafts, dim=1)  # [B, gamma]
+        window = torch.cat([cur, drafts_dev], dim=1)  # [B, gamma + 1]
+        t_logits, self.cache = transformer.decode_window_paged(
+            self.params, window, pos_dev, self.cache, bt, self.config,
+            **self._lora_kwargs(self.row_adapter),
+        )
+        t_pred = torch.argmax(t_logits, dim=-1).to(torch.int32).cpu().numpy()
+        drafts_np = drafts_dev.cpu().numpy()
+        # the verify logits cross to the host only when a row records
+        # logprobs (commit[j]'s distribution is t_logits[row, j])
+        t_np = (
+            t_logits.cpu().numpy()
+            if any(self.row_sampling[row].logprobs for row in active_rows)
+            else None
+        )
+        for row in active_rows:
+            match = drafts_np[row] == t_pred[row, :self.gamma]
+            n = int(np.argmin(match)) if not match.all() else self.gamma
+            commit = [*drafts_np[row, :n].tolist(), int(t_pred[row, n])]
+            self._commit_row(row, commit, n, t_np)
+
+    def _commit_row(self, row, commit, n, t_np) -> None:
+        """Land one speculative round's tokens for a row: per-token stop
+        checks, logprobs off the verify logits, the cursor advanced by the
+        accepted count plus one, retirement. Shared by the greedy and the
+        sampled round."""
+        sp = self.row_sampling[row]
+        req = int(self.row_request[row])
+        self._spec_accepted += n
+        self._spec_rejected += self.gamma - n
+        out = self.results[req]
+        lp = self.results_logprobs.get(req) if sp.logprobs else None
+        for j, tok_committed in enumerate(commit):
+            out.append(int(tok_committed))
+            self.n_tokens_generated += 1
+            if lp is not None:
+                lp.append(logprob_of(t_np[row, j], int(tok_committed)))
+            if self._done_reason(row, out) is not None:
+                break  # later commits would pass the stop: dropped
+        self.pos[row] += n + 1
+        self.current[row, 0] = int(commit[-1])
+        self._retire_if_done(row)
+
+    def _step_speculative_sampled(self, active_rows) -> None:
+        """A speculative round with sampled rows: rejection sampling
+        (``rejection_sample_commit``) on each sampled row's filtered target
+        and draft distributions, each proposal drawn host-side from the
+        row's own generator; greedy rows keep the argmax draft-verify. The
+        committed stream is distributed as plain sampled decoding from the
+        target, and the same seeds give the same tokens."""
+        dev = self.device
+        bt = torch.as_tensor(self.block_table, device=dev)
+        pos_dev = torch.as_tensor(self.pos, device=dev)
+        cur = torch.as_tensor(self.current, device=dev)
+        B = self.current.shape[0]
+        gamma = self.gamma
+        drafts_np = np.zeros((B, gamma), dtype=np.int32)
+        q_dists: dict[int, list] = {int(r): [] for r in active_rows}
+        tok, p = cur, pos_dev
+        for g in range(gamma):
+            lg_np = self._draft_step(tok, p, bt).cpu().numpy()
+            # greedy and idle rows propose the host argmax
+            drafts_np[:, g] = lg_np.argmax(-1).astype(np.int32)
+            for row in active_rows:
+                sp = self.row_sampling[row]
+                if sp.temperature > 0.0:
+                    q = filtered_probs_host(lg_np[row], sp)
+                    drafts_np[row, g] = int(
+                        self.row_rng[row].choice(q.shape[0], p=q)
+                    )
+                    q_dists[int(row)].append(q)
+                else:
+                    q_dists[int(row)].append(None)
+            tok = torch.as_tensor(drafts_np[:, g:g + 1], device=dev)
+            p = p + 1
+        window = torch.cat([cur, torch.as_tensor(drafts_np, device=dev)], dim=1)
+        t_logits, self.cache = transformer.decode_window_paged(
+            self.params, window, pos_dev, self.cache, bt, self.config,
+            **self._lora_kwargs(self.row_adapter),
+        )
+        t_np = t_logits.cpu().numpy()  # [B, gamma + 1, V]
+        for row in active_rows:
+            sp = self.row_sampling[row]
+            if sp.temperature <= 0.0:
+                preds = t_np[row].argmax(-1).astype(np.int32)
+                match = drafts_np[row] == preds[:gamma]
+                n = int(np.argmin(match)) if not match.all() else gamma
+                commit = [*drafts_np[row, :n].tolist(), int(preds[n])]
+            else:
+                commit, n = rejection_sample_commit(
+                    drafts_np[row].tolist(),
+                    q_dists[int(row)],
+                    lambda g, row=row, sp=sp: filtered_probs_host(
+                        t_np[row, g], sp
+                    ),
+                    self.row_rng[row],
+                )
+            self._commit_row(row, commit, n, t_np)
+
     def _done_reason(self, row: int, out: list[int]) -> tuple[str, int] | None:
         """(finish_reason, tokens_to_trim) once a row's output is complete:
         eos (kept in the output), then a stop sequence (trimmed), then the
@@ -838,6 +1246,7 @@ class ContinuousBatcher:
         self.row_request[row] = -1
         self.row_sampling[row] = None
         self.row_rng[row] = None
+        self.row_adapter[row] = 0
         used = set(self.block_table[row].tolist()) - {_SCRATCH_PAGE}
         for page in sorted(used, reverse=True):
             self._release_page(page)

@@ -30,7 +30,7 @@ through the paged decode kernel when ``paged_attention_kernel`` is set
 (``ops/paged_attention.py``), all kernels on CUDA tensors and their plain
 versions on CPU tensors. Windows, int8 pools and the contiguous cache take
 the grouped einsums, as in JAX. Still refused with ``NotImplementedError``:
-weight-only int8 leaves, MoE, LoRA, meshes.
+MoE and meshes.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
     paged_append,
     paged_read,
 )
+from bee_code_interpreter_tpu_torch.ops.weight_quant import is_quantized
 
 Params = dict[str, Any]
 
@@ -142,12 +143,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def qeinsum(spec: str, x: torch.Tensor, leaf, dtype: torch.dtype):
-    """Einsum against a weight leaf: the plain-array branch of the JAX
-    ``qeinsum``. Weight-only-int8 leaves (``{"q", "s"}``) are not ported."""
-    if isinstance(leaf, dict):
-        raise NotImplementedError(
-            "weight-only int8 leaves are not ported yet (ROADMAP Queue 1)"
-        )
+    """Einsum against a weight leaf, a plain tensor or a weight-only-int8
+    dict (``{"q", "s"}``, ``ops/weight_quant.py``), as the JAX ``qeinsum``:
+    ``(x @ q) * s`` with the per-out-channel scale as the epilogue. Unlike
+    XLA, PyTorch does not fuse the int8 -> ``dtype`` convert into the
+    product, so each call makes a ``dtype`` copy of this one layer's
+    weight (the port's leaves are per layer; a stacked leaf would make the
+    copy n_layers times larger)."""
+    if is_quantized(leaf):
+        y = torch.einsum(spec, x, leaf["q"].to(dtype))
+        return (y * leaf["s"]).to(dtype)
     return torch.einsum(spec, x, leaf.to(dtype))
 
 
@@ -185,19 +190,10 @@ def init_params(
     def ones(n):
         return torch.ones(n, device=device, dtype=dtype)
 
-    dh, kvh, d, f = c.head_dim, c.kv_heads, c.d_model, c.ff_dim
+    d = c.d_model
     layers = [
-        {
-            "ln1": ones(d),
-            "wq": dense(d, d, c.n_heads * dh),
-            "wk": dense(d, d, kvh * dh),
-            "wv": dense(d, d, kvh * dh),
-            "wo": dense(c.n_heads * dh, c.n_heads * dh, d),
-            "ln2": ones(d),
-            "w_gate": dense(d, d, f),
-            "w_up": dense(d, d, f),
-            "w_down": dense(f, f, d),
-        }
+        {name: dense(shape[0], *shape) if len(shape) == 2 else ones(shape[0])
+         for name, shape in layer_shapes(c).items()}
         for _ in range(c.n_layers)
     ]
     params = {
@@ -209,6 +205,18 @@ def init_params(
     for leaf in param_leaves(params):
         leaf.requires_grad_(requires_grad)
     return params
+
+
+def layer_shapes(config: TransformerConfig) -> dict[str, tuple[int, ...]]:
+    """Each layer's leaves and their shapes, in ``init_params``' order:
+    the norms ``[d]`` and the projections ``[d_in, d_out]``."""
+    c = config
+    dh, kvh, d, f = c.head_dim, c.kv_heads, c.d_model, c.ff_dim
+    return {
+        "ln1": (d,), "wq": (d, c.n_heads * dh), "wk": (d, kvh * dh),
+        "wv": (d, kvh * dh), "wo": (c.n_heads * dh, d), "ln2": (d,),
+        "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
+    }
 
 
 def param_leaves(params: Params) -> list[torch.Tensor]:
@@ -311,29 +319,37 @@ def _grouped_attention(q, kf, vf, positions, config: TransformerConfig):
     return attn.permute(0, 3, 1, 2, 4).reshape(B, W, nh * dh)
 
 
-def _decode_layers(params, tokens, positions, cache, config, attend):
+def _decode_layers(params, tokens, positions, cache, config, attend,
+                   lora_delta=None):
     """The layer loop both decode families share: ``attend(c_layer, q,
     k_new, v_new)`` writes the new K/V ``[B, kvh, W, dh]`` into one layer's
-    cache views and returns the attention ``[B, W, nh * dh]``. Returns f32
-    logits ``[B, W, vocab]``."""
+    cache views and returns the attention ``[B, W, nh * dh]``;
+    ``lora_delta(li, x, name)``, when given, returns the adapter delta
+    added to projection ``name`` of layer ``li`` (None for a projection
+    without one). Returns f32 logits ``[B, W, vocab]``."""
     c = config
     B, W = tokens.shape
     dh, nh, kvh = c.head_dim, c.n_heads, c.kv_heads
     h = params["embed"].to(c.dtype)[tokens.long()]  # [B, W, D]
     for li, layer in enumerate(params["layers"]):
         c_layer = {name: x[li] for name, x in cache.items()}  # views
+
+        def project(x_in, name, spec):
+            out = qeinsum(spec, x_in, layer[name], c.dtype)
+            delta = lora_delta(li, x_in, name) if lora_delta else None
+            return out if delta is None else out + delta
+
         x = rms_norm(h, layer["ln1"])
 
-        def proj(w, heads):
-            out = qeinsum("bld,dk->blk", x, w, c.dtype)
+        def proj(name, heads):
+            out = project(x, name, "bld,dk->blk")
             return out.reshape(B, W, heads, dh).transpose(1, 2)
 
-        q = rope(proj(layer["wq"], nh), positions, c.rope_theta, c.rope_scaling)
-        k_new = rope(proj(layer["wk"], kvh), positions, c.rope_theta,
-                     c.rope_scaling)
-        v_new = proj(layer["wv"], kvh)
+        q = rope(proj("wq", nh), positions, c.rope_theta, c.rope_scaling)
+        k_new = rope(proj("wk", kvh), positions, c.rope_theta, c.rope_scaling)
+        v_new = proj("wv", kvh)
         attn = attend(c_layer, q, k_new, v_new)
-        h = h + qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
+        h = h + project(attn, "wo", "blk,kd->bld")
         h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
     h = rms_norm(h, params["ln_f"])
     return qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype).float()
@@ -396,11 +412,12 @@ def decode_window(
 
 
 def decode_step_paged(params, token, pos, cache, block_table,
-                      config: TransformerConfig, lora_bank=None):
+                      config: TransformerConfig, lora_bank=None,
+                      adapter_idx=None, lora_scale: float = 1.0):
     """One decode step over the paged pool: ``decode_window_paged`` with
     W = 1, as in the JAX package."""
     return decode_window_paged(params, token, pos, cache, block_table, config,
-                               lora_bank)
+                               lora_bank, adapter_idx, lora_scale)
 
 
 def decode_window_paged(
@@ -410,7 +427,9 @@ def decode_window_paged(
     cache: dict,  # ops/paged_kv_cache.alloc_paged_cache pool (updated in place)
     block_table: torch.Tensor,  # [B, P] int32 logical block -> physical page
     config: TransformerConfig,
-    lora_bank=None,
+    lora_bank: dict | None = None,  # {target: {A: [n_layers, n_adapters, d, r], B: ...}}
+    adapter_idx: torch.Tensor | None = None,  # [B] per-row adapter
+    lora_scale: float = 1.0,
 ):
     """Multi-token decode over the paged pool (bf16 or int8) with per-row
     positions. Returns ``(logits [B, W, vocab] f32, cache)``; the pool is
@@ -420,12 +439,37 @@ def decode_window_paged(
     Attention is the JAX einsum path (``paged_read`` + grouped einsums), or
     the paged decode kernel under exactly the JAX gate:
     ``paged_attention_kernel and W == 1 and "k_s" not in c_layer and
-    sliding_window is None``."""
-    if lora_bank is not None:
-        raise NotImplementedError("LoRA serving is not ported yet (ROADMAP Queue 1)")
+    sliding_window is None`` (the bank does not enter it).
+
+    ``lora_bank`` is multi-LoRA serving (``models/lora.py::stack_lora_bank``):
+    row b adds ``x @ A[adapter_idx[b]] @ B[adapter_idx[b]] * lora_scale`` to
+    each targeted attention projection, unmerged, so rows under different
+    adapters share one pass over the base weights."""
     c = config
     B, W = tokens.shape
     dev = tokens.device
+    lora_delta = None
+    if lora_bank is not None:
+        if adapter_idx is None:
+            raise ValueError("lora_bank needs adapter_idx")
+        unknown = set(lora_bank) - {"wq", "wk", "wv", "wo"}
+        if unknown:
+            raise ValueError(
+                f"lora_bank targets {sorted(unknown)} unsupported in the "
+                "decode path (attention projections only)"
+            )
+        idx = adapter_idx.to(dev).long()
+        scale = torch.tensor(lora_scale, dtype=c.dtype, device=dev)
+
+        def lora_delta(li, x_in, name):
+            if name not in lora_bank:
+                return None
+            Ab = lora_bank[name]["A"][li][idx].to(c.dtype)  # [B, d, r]
+            Bb = lora_bank[name]["B"][li][idx].to(c.dtype)  # [B, r, o]
+            return torch.einsum(
+                "blr,bro->blo", torch.einsum("bld,bdr->blr", x_in, Ab), Bb
+            ) * scale
+
     ps = cache["k"].shape[3]
     P = block_table.shape[1]
     positions = pos0.long()[:, None] + torch.arange(W, device=dev)[None, :]
@@ -451,7 +495,9 @@ def decode_window_paged(
         kf, vf = paged_read(c_layer, block_table, c.dtype)
         return _grouped_attention(q, kf, vf, positions, c)
 
-    return _decode_layers(params, tokens, positions, cache, c, attend), cache
+    logits = _decode_layers(params, tokens, positions, cache, c, attend,
+                            lora_delta)
+    return logits, cache
 
 
 def prefill_chunked(params: Params, prompt: torch.Tensor,
@@ -555,7 +601,7 @@ class Transformer:
     def __init__(self, config: TransformerConfig, mesh=None) -> None:
         if mesh is not None:
             raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP Queue 1 item 13)"
+                "meshes are not ported yet (ROADMAP Queue 1, the parallel layer)"
             )
         self.config = config
 

@@ -11,7 +11,7 @@ under a temporary name, fsynced, renamed over its final name and the
 directory fsynced, so a crash leaves either the whole checkpoint or none.
 ``keep_last`` bounds the disk while keeping a recent resume point.
 
-Not ported yet (the parallel layer, ROADMAP Queue 1 item 13):
+Not ported yet (the parallel layer, ROADMAP Queue 1):
 ``abstract_like`` and restoring onto another mesh.
 """
 

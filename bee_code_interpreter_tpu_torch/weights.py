@@ -10,6 +10,10 @@ every einsum instead, to the same values. Training takes them as f32 masters
 that require grad (``dtype=torch.float32, requires_grad=True``) and casts at
 every einsum as JAX does.
 
+Weight-only-int8 leaves (``{"q": int8, "s": f32}``, ``ops/weight_quant.py``)
+cross as they are: ``q`` stays int8 and ``s`` f32 whatever ``dtype`` says,
+split per layer like every other leaf.
+
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.
 """
@@ -34,14 +38,18 @@ def params_from_jax(params_np: dict, config, device=None,
     device = resolve_device(device)
     dtype = dtype or config.dtype
 
-    def leaf(x) -> torch.Tensor:
-        if isinstance(x, dict):
-            raise NotImplementedError(
-                "weight-only int8 leaves are not ported yet (ROADMAP Queue 1)"
-            )
+    def leaf(x):
+        if isinstance(x, dict):  # weight-only int8: {"q", "s"} as they are
+            return {name: torch.from_numpy(np.array(x[name])).to(device)
+                    for name in ("q", "s")}
         arr = np.array(x, dtype=np.float32)  # a writable copy
         out = torch.from_numpy(arr).to(device=device, dtype=dtype)
         return out.requires_grad_(requires_grad)
+
+    def layer_slice(x, i):
+        if isinstance(x, dict):
+            return {name: np.asarray(v)[i] for name, v in x.items()}
+        return np.asarray(x)[i]
 
     stacked = params_np["layers"]
     if "moe" in stacked:
@@ -49,13 +57,14 @@ def params_from_jax(params_np: dict, config, device=None,
     unknown = set(stacked) - set(LAYER_KEYS)
     if unknown:
         raise ValueError(f"unexpected layer leaves {sorted(unknown)}")
-    n_layers = int(np.asarray(stacked["wq"]).shape[0])
+    wq = stacked["wq"]
+    n_layers = int(np.asarray(wq["q"] if isinstance(wq, dict) else wq).shape[0])
     if n_layers != config.n_layers:
         raise ValueError(
             f"pytree has {n_layers} layers, config says {config.n_layers}"
         )
     layers = [
-        {name: leaf(np.asarray(stacked[name])[i]) for name in LAYER_KEYS}
+        {name: leaf(layer_slice(stacked[name], i)) for name in LAYER_KEYS}
         for i in range(n_layers)
     ]
     return {

@@ -44,13 +44,31 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    ``contiguous_decode`` (``Transformer.generate_cached`` at B=2, L=512,
    one-shot, chunked and int8, each step's logits against one
    teacher-forced forward; K1 only for the one-shot prefills).
+   Then the model breadth of serving, on the same weights:
+   ``serving_weight_int8`` (phase 5's traffic on ``quantize_weights``: K1
+   and K2 as in phase 5, the tree's bytes from its shapes, first-token
+   logits against the bf16 model's, two runs identical);
+   ``serving_lora`` (8 requests over 4 rank-16 adapters and the base
+   model: K1 only for the base rows, K2 every step, adapter rows against
+   a forward on ``merge_lora``, two runs identical);
+   ``serving_speculative`` (gamma 4: the target as its own draft, a draft
+   with Llama-3.2-3B's shapes, and two seeded sampled requests twice; each
+   greedy commit is the argmax of its verify logits; K1 for target and
+   draft at each admission, K2 only for draft steps);
+   ``serving_snapshot`` (phase 5's traffic, a pickled snapshot after 8
+   steps resumed on a fresh engine: tokens and logprobs bitwise, the pool's
+   storage kept); ``beam_search`` (B=1, L=256, beam 4, 16 tokens; beam 1
+   equals ``generate_cached``) and ``speculative_generate`` (the same
+   prompt, gamma 4, 32 tokens).
 7. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits.
 8. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
-   gradient.
+   gradient; then ``lora_train``, two ``make_lora_train_step`` steps of a
+   rank-16 adapter on the same cut: loss and the factors' gradients against
+   the CPU's from the same factors, the base unchanged bit for bit.
 9. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut to
    8 layers (f32 masters and AdamW state do not fit one card at 32), one
    fixed batch of 2 x 1024 tokens, 4 steps: falling loss, a finite non-zero
@@ -68,6 +86,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -80,10 +99,20 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from bee_code_interpreter_tpu_torch.models import transformer  # noqa: E402
+from bee_code_interpreter_tpu_torch.models.beam import beam_search  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.engine import Engine  # noqa: E402
+from bee_code_interpreter_tpu_torch.models.lora import (  # noqa: E402
+    init_lora,
+    lora_leaves,
+    make_lora_train_step,
+    merge_lora,
+)
 from bee_code_interpreter_tpu_torch.models.serving import (  # noqa: E402
     ContinuousBatcher,
     SamplingParams,
+)
+from bee_code_interpreter_tpu_torch.models.speculative import (  # noqa: E402
+    speculative_generate,
 )
 from bee_code_interpreter_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
@@ -97,6 +126,11 @@ from bee_code_interpreter_tpu_torch.ops.cuda_build import build_all  # noqa: E40
 from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (  # noqa: E402
     alloc_paged_cache,
     seed_prefill,
+)
+from bee_code_interpreter_tpu_torch.ops.weight_quant import (  # noqa: E402
+    DEFAULT_TARGETS,
+    quantize_weights,
+    quantized_nbytes,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
@@ -138,6 +172,24 @@ TRAIN_GRAD_TOL = 4e-2
 # (contiguous one-shot / chunked) and 0.0208 (int8 cache): 5e-2 keeps 2.3x
 # to 2.7x headroom.
 PATH_LOGIT_TOL = 5e-2
+# weight-only int8 (per out channel) against bf16 weights, first-token
+# logits of main_path's 12 requests at 32 layers: max |error| / max |logit|.
+# The bound is the JAX package's own quality bound for the quantized model
+# (tests/test_weight_quant.py: 0.25 of the largest logit).
+WEIGHT_INT8_TOL = 0.25
+# serving_lora: 4 adapters of rank 16 on wq/wk/wv/wo, alpha/rank 2, B drawn
+# N(0, LORA_B_STD^2): each delta's output ~2 * sqrt(16) * 0.02 = 0.16 of a
+# projection's unit-scale output, enough to move every logit
+LORA_RANK, LORA_SCALE, LORA_B_STD = 16, 2.0, 0.02
+SPEC_GAMMA = 4
+# Llama-3.2-3B's published shapes (meta-llama/Llama-3.2-3B config.json:
+# hidden 3072, 28 layers, 24 heads over 8 KV heads, head dim 128,
+# intermediate 8192, vocab 128256), untied head, random weights
+DRAFT_3B = dict(d_model=3072, n_layers=28, n_heads=24, n_kv_heads=8,
+                d_ff=8192)
+SNAPSHOT_AFTER_STEPS = 8
+# lora_train: Llama-3-8B widths cut to 2 layers, B=1, L=128, 2 steps
+LORA_TRAIN_LAYERS, LORA_TRAIN_STEPS = 2, 2
 # (B, Lq, Lk, causal, window): the largest prefill the serving path runs
 K1_MAIN_CASE = (1, 1024, 1024, True, None)
 # the training path: Llama-3-8B widths cut to 8 layers (2.80 B parameters,
@@ -537,15 +589,17 @@ def capture_admissions(batcher) -> dict:
     return seen
 
 
-def serve(params, cfg, requests, **batcher_kw) -> dict:
+def serve(params, cfg, requests, setup=None, **batcher_kw) -> dict:
     """One Engine run over ``requests`` ((prompt, new tokens, sampling,
     submit kwargs) each, all submitted at t=0); counts kernel launches and
-    decode steps from zero."""
+    decode steps from zero. ``setup(batcher)``, when given, runs before the
+    requests and its result comes back under ``"setup"``."""
     batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
                                 max_pages_per_seq=128, n_pages=1 + 8 * 128,
                                 **batcher_kw)
     engine = Engine(batcher)
     admissions = capture_admissions(batcher)
+    hooks = setup(batcher) if setup is not None else None
     fa.FLASH_FWD.launches = 0
     pa.PAGED_DECODE.launches = 0
     steps, undo = count_decode_steps()
@@ -590,6 +644,9 @@ def serve(params, cfg, requests, **batcher_kw) -> dict:
         "kv_telemetry": batcher.kv_telemetry(),
         "pool_bytes": sum(x.numel() * x.element_size()
                           for x in batcher.cache.values()),
+        "logprobs": [engine.result_logprobs(t) if s is not None and s.logprobs
+                     else None for t, (_, _, s, _) in zip(tickets, requests)],
+        "setup": hooks,
     }
 
 
@@ -927,6 +984,402 @@ def contiguous_decode(params, cfg) -> dict:
     return out
 
 
+# ------------------------------------------------ model breadth of serving
+
+
+def greedy_rows(requests) -> list[int]:
+    return [i for i, (_, _, s, _) in enumerate(requests)
+            if s is None or s.temperature == 0]
+
+
+def token_agreement(a, b, rows) -> float:
+    return float(np.mean([x == y for i in rows for x, y in zip(a[i], b[i])]))
+
+
+def serving_weight_int8(params, cfg, requests, bf16) -> dict:
+    """main_path's traffic on weight-only int8 weights (a bf16 pool): K1
+    admits, K2 decodes (the JAX gate does not look at the weights), every
+    projection converts its int8 weight to bf16 before its product."""
+    qparams = quantize_weights(params)
+    want = weight_int8_bytes(cfg)
+    got = quantized_nbytes(qparams)
+    fp = quantized_nbytes(params)
+    check(got == want, f"serving_weight_int8: {got} bytes, expected {want}")
+    first = serve(qparams, cfg, requests)
+    second = serve(qparams, cfg, requests)
+    del qparams
+    n_layers, n_req = cfg.n_layers, len(requests)
+    check(first["k1_launches"] == n_layers * n_req,
+          f"serving_weight_int8: flash_fwd launched {first['k1_launches']} times")
+    check(first["decode_steps"] > 0
+          and first["k2_launches"] == n_layers * first["decode_steps"],
+          f"serving_weight_int8: paged_decode launched {first['k2_launches']} "
+          f"times over {first['decode_steps']} decode steps")
+    check(second["tokens"] == first["tokens"],
+          "serving_weight_int8: second run gave other tokens")
+    check(all(f == "length" for f in first["finish"]),
+          f"serving_weight_int8: finish reasons {first['finish']}")
+    err = max(rel_err(torch.as_tensor(a), torch.as_tensor(b).float())[1]
+              for a, b in zip(first["first_logits"], bf16["first_logits"]))
+    check(err <= WEIGHT_INT8_TOL,
+          f"serving_weight_int8: first-token logits vs bf16, rel err {err}")
+    return {
+        "phase": "serving_weight_int8", "requests": n_req,
+        "targets": list(DEFAULT_TARGETS),
+        "weight_gb": got / 1e9, "bf16_weight_gb": fp / 1e9,
+        "weight_ratio": got / fp,
+        "k1_launches": first["k1_launches"], "k2_launches": first["k2_launches"],
+        "decode_steps": first["decode_steps"], "second_run_identical": True,
+        "first_token_rel_logit_err_vs_bf16": err, "tolerance": WEIGHT_INT8_TOL,
+        "tokens_per_s": sum(map(len, first["tokens"])) / first["wall_s"],
+        "ttft_p50_ms": float(np.median(first["ttft_s"])) * 1e3,
+        "decode_step_p50_ms": float(np.median(first["decode_only_step_ms"])),
+        "main_path": {
+            "tokens_per_s": sum(map(len, bf16["tokens"])) / bf16["wall_s"],
+            "ttft_p50_ms": float(np.median(bf16["ttft_s"])) * 1e3,
+            "decode_step_p50_ms": float(np.median(bf16["decode_only_step_ms"])),
+        },
+        "greedy_token_agreement_with_main_path": token_agreement(
+            first["tokens"], bf16["tokens"], greedy_rows(requests)),
+    }
+
+
+def weight_int8_bytes(cfg) -> int:
+    """The bytes of the quantized Llama tree from its shapes: int8 values
+    and one f32 scale per out column for every target, bf16 for the rest."""
+    shapes = transformer.layer_shapes(cfg)
+    total = 0
+    for name, shape in [*shapes.items()] * cfg.n_layers + [
+            ("embed", (cfg.vocab_size, cfg.d_model)), ("ln_f", (cfg.d_model,)),
+            ("lm_head", (cfg.d_model, cfg.vocab_size))]:
+        n = int(np.prod(shape))
+        total += n + 4 * shape[-1] if name in DEFAULT_TARGETS else 2 * n
+    return total
+
+
+def lora_adapters(cfg, dev, n: int, rank: int, seed: int) -> list[dict]:
+    """``n`` adapters on wq/wk/wv/wo from ``init_lora``, with B drawn from
+    a seeded generator (init_lora's B = 0 would change nothing)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    adapters = []
+    for _ in range(n):
+        lora = init_lora(cfg, gen, rank=rank, targets=("wq", "wk", "wv", "wo"))
+        for ab in lora.values():
+            ab["B"] = torch.randn(ab["B"].shape, generator=gen,
+                                  device=dev) * LORA_B_STD
+        adapters.append(lora)
+    return adapters
+
+
+def serving_lora(params, cfg) -> dict:
+    """8 requests of 64-512 tokens over 4 adapters and the base model,
+    decoding together: adapter rows admit through windows (no K1), base
+    rows one-shot (K1), and every decode step runs K2 with the bank."""
+    dev = params["embed"].device
+    adapters = lora_adapters(cfg, dev, 4, LORA_RANK, seed=15)
+    rng = np.random.default_rng(16)
+    which = [0, 1, 2, 3, None, 0, 1, None]
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, size=len(which))]
+    requests = [(p, 32, SamplingParams(), {"adapter": a})
+                for p, a in zip(prompts, which)]
+    kw = dict(adapters=adapters, lora_scale=LORA_SCALE)
+    first = serve(params, cfg, requests, **kw)
+    second = serve(params, cfg, requests, **kw)
+    n_layers = cfg.n_layers
+    n_base = sum(a is None for a in which)
+    check(first["k1_launches"] == n_layers * n_base,
+          f"serving_lora: flash_fwd launched {first['k1_launches']} times, "
+          f"expected {n_layers} x {n_base} base admissions")
+    check(first["decode_steps"] > 0
+          and first["k2_launches"] == n_layers * first["decode_steps"],
+          f"serving_lora: paged_decode launched {first['k2_launches']} times "
+          f"over {first['decode_steps']} decode steps")
+    check(second["tokens"] == first["tokens"],
+          "serving_lora: second run gave other tokens")
+    check(all(f == "length" for f in first["finish"]),
+          f"serving_lora: finish reasons {first['finish']}")
+    errs = {}
+    for i, lora in enumerate(adapters):
+        rows = [j for j, a in enumerate(which) if a == i]
+        merged = merge_lora(params, lora, LORA_SCALE)
+        errs[i] = first_token_err(merged, cfg, [prompts[j] for j in rows],
+                                  [first["first_logits"][j] for j in rows])
+        del merged
+    base_rows = [j for j, a in enumerate(which) if a is None]
+    base_err = first_token_err(params, cfg, [prompts[j] for j in base_rows],
+                               [first["first_logits"][j] for j in base_rows])
+    worst = max(errs.values())
+    check(worst <= PATH_LOGIT_TOL,
+          f"serving_lora: adapter rows vs merged forward, rel err {errs}")
+    check(base_err <= PATH_LOGIT_TOL,
+          f"serving_lora: base rows vs one-shot forward, rel err {base_err}")
+    # the adapters act: an adapter row's first token logits differ from
+    # the base model's on the same prompt
+    moved = first_token_err(params, cfg, [prompts[0]], [first["first_logits"][0]])
+    check(moved > 1e-3, f"serving_lora: adapter 0 moved the logits by {moved}")
+    return {
+        "phase": "serving_lora", "requests": len(requests),
+        "adapters": len(adapters), "rank": LORA_RANK, "lora_scale": LORA_SCALE,
+        "b_std": LORA_B_STD, "targets": ["wq", "wk", "wv", "wo"],
+        "row_adapters": which, "prompt_lens": [len(p) for p in prompts],
+        "k1_launches": first["k1_launches"], "k2_launches": first["k2_launches"],
+        "decode_steps": first["decode_steps"], "second_run_identical": True,
+        "adapter_rel_logit_err_vs_merged": errs,
+        "base_rel_logit_err_vs_one_shot": base_err,
+        "adapter_row_vs_base_model_rel_diff": moved,
+        "tolerance": PATH_LOGIT_TOL,
+        "tokens_per_s": sum(map(len, first["tokens"])) / first["wall_s"],
+        "ttft_p50_ms": float(np.median(first["ttft_s"])) * 1e3,
+        "decode_step_p50_ms": float(np.median(first["decode_only_step_ms"])),
+    }
+
+
+def watch_speculation(gamma: int, window):
+    """A ``serve`` setup that records each speculative round (batch-wide)
+    and checks that every greedy row's committed tokens are the argmax of
+    its verify logits, read off the verify window itself (``window`` is the
+    unwrapped ``decode_window_paged``; the caller puts it back)."""
+    def setup(batcher):
+        seen = {"rounds": 0, "commits": 0, "accepted": 0, "checked": 0,
+                "mismatches": 0}
+        last = {}
+
+        def verify(params, tokens, *args, **kwargs):
+            logits, cache = window(params, tokens, *args, **kwargs)
+            if tokens.shape == (batcher.current.shape[0], gamma + 1):
+                last["pred"] = logits.argmax(-1).cpu().numpy()
+            return logits, cache
+
+        for name in ("_step_speculative", "_commit_row"):
+            inner = getattr(batcher, name)
+
+            def wrapped(*args, inner=inner, name=name, **kwargs):
+                if name == "_step_speculative":
+                    seen["rounds"] += 1
+                else:
+                    row, commit, n, _ = args
+                    seen["commits"] += 1
+                    seen["accepted"] += n
+                    if batcher.row_sampling[row].temperature == 0:
+                        seen["checked"] += 1
+                        pred = last["pred"][row, :len(commit)].tolist()
+                        seen["mismatches"] += pred != list(commit)
+                return inner(*args, **kwargs)
+
+            setattr(batcher, name, wrapped)
+        transformer.decode_window_paged = verify
+        return seen
+
+    return setup
+
+
+def speculate(params, cfg, requests, draft, dcfg, gamma) -> dict:
+    window = transformer.decode_window_paged
+    try:
+        run = serve(params, cfg, requests, setup=watch_speculation(gamma, window),
+                    draft_params=draft, draft_config=dcfg, gamma=gamma)
+    finally:
+        transformer.decode_window_paged = window
+    run["spec"] = run["setup"]
+    return run
+
+
+def serving_speculative(params, cfg) -> dict:
+    """Speculative serving at gamma 4: (a) the target as its own draft,
+    greedy; (b) a draft with Llama-3.2-3B's published shapes, greedy; (c)
+    two seeded sampled requests through rejection sampling, twice. Target
+    K1 32 an admission, no target K2 (the verify is a window); draft K1 an
+    admission, draft K2 every draft step."""
+    dev = params["embed"].device
+    gamma, n_layers = SPEC_GAMMA, cfg.n_layers
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, size=8)]
+    greedy = [(p, 32, SamplingParams(), {}) for p in prompts]
+    plain = serve(params, cfg, greedy)
+    out = {"phase": "serving_speculative", "gamma": gamma, "requests": 8,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": 32,
+           "plain": {"tokens_per_s": sum(map(len, plain["tokens"])) / plain["wall_s"],
+                     "decode_steps": plain["decode_steps"]}}
+    dcfg3 = dataclasses.replace(cfg, **DRAFT_3B)  # the paged decode kernel on
+    draft3 = init_params(dcfg3, torch.Generator(device=dev).manual_seed(18), dev)
+    cases = (("self_draft", params, cfg, greedy),
+             ("llama3_2_3b_draft", draft3, dcfg3, greedy),
+             ("sampled", params, cfg,
+              [(prompts[i], 32, SamplingParams(temperature=0.8, top_k=50,
+                                               seed=200 + i), {})
+               for i in range(2)]))
+    for name, draft, dcfg, reqs in cases:
+        run = speculate(params, cfg, reqs, draft, dcfg, gamma)
+        spec, d_layers, n_req = run["spec"], dcfg.n_layers, len(reqs)
+        check(run["k1_launches"] == (n_layers + d_layers) * n_req,
+              f"serving_speculative {name}: flash_fwd launched "
+              f"{run['k1_launches']} times, expected ({n_layers} + {d_layers})"
+              f" x {n_req} admissions")
+        check(run["decode_steps"] == gamma * spec["rounds"]
+              and run["k2_launches"] == d_layers * run["decode_steps"],
+              f"serving_speculative {name}: paged_decode launched "
+              f"{run['k2_launches']} times over {run['decode_steps']} draft "
+              f"steps in {spec['rounds']} rounds")
+        check(spec["mismatches"] == 0,
+              f"serving_speculative {name}: {spec['mismatches']} of "
+              f"{spec['checked']} commits are not the verify argmax")
+        check(all(f == "length" for f in run["finish"])
+              and all(len(t) == 32 for t in run["tokens"]),
+              f"serving_speculative {name}: finish reasons {run['finish']}")
+        entry = {
+            "draft_layers": d_layers, "k1_launches": run["k1_launches"],
+            "k2_launches": run["k2_launches"], "draft_steps": run["decode_steps"],
+            "rounds": spec["rounds"], "row_commits": spec["commits"],
+            "acceptance_rate": spec["accepted"] / (gamma * spec["commits"]),
+            "tokens_per_row_commit": sum(map(len, run["tokens"])) / spec["commits"],
+            "greedy_commits_checked": spec["checked"],
+            "tokens_per_s": sum(map(len, run["tokens"])) / run["wall_s"],
+            "ttft_p50_ms": float(np.median(run["ttft_s"])) * 1e3,
+        }
+        if name == "sampled":
+            again = speculate(params, cfg, reqs, draft, dcfg, gamma)
+            check(again["tokens"] == run["tokens"],
+                  "serving_speculative sampled: second run gave other tokens")
+            entry["second_run_identical"] = True
+        else:
+            entry["greedy_agreement_with_plain"] = token_agreement(
+                run["tokens"], plain["tokens"], range(8))
+        out[name] = entry
+        out.setdefault("k1_launches", 0)
+        out.setdefault("k2_launches", 0)
+        out["k1_launches"] += run["k1_launches"]
+        out["k2_launches"] += run["k2_launches"]
+        del run
+    del draft3
+    out["draft_config"] = DRAFT_3B
+    return out
+
+
+def serving_snapshot(params, cfg, requests) -> dict:
+    """main_path's traffic (its prompts and sampling, logprobs on): 8 engine
+    steps, a pickled snapshot, then the run to its end; a fresh engine and
+    batcher load the snapshot and run to the end too. Tokens and logprobs
+    must be bitwise equal, and the load must keep the pool's storage."""
+    requests = [(p, n, dataclasses.replace(s, logprobs=True), kw)
+                for p, n, s, kw in requests]
+
+    def make():
+        return Engine(ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
+                                        max_pages_per_seq=128,
+                                        n_pages=1 + 8 * 128))
+
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    engine = make()
+    tickets = [engine.submit(p, n, sampling=s, **kw) for p, n, s, kw in requests]
+    for _ in range(SNAPSHOT_AFTER_STEPS):
+        engine.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    blob = pickle.dumps(engine.state_dict())
+    save_s = time.perf_counter() - t
+    engine.run_to_completion()
+    want = ([engine.result(tk) for tk in tickets],
+            [engine.result_logprobs(tk) for tk in tickets])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = make()
+    ptrs = {k: x.data_ptr() for k, x in fresh.batcher.cache.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fresh.load_state_dict(pickle.loads(blob))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    check({k: x.data_ptr() for k, x in fresh.batcher.cache.items()} == ptrs,
+          "serving_snapshot: load_state_dict moved the pool")
+    fresh.run_to_completion()
+    got = ([fresh.result(tk) for tk in tickets],
+           [fresh.result_logprobs(tk) for tk in tickets])
+    check(got[0] == want[0], "serving_snapshot: resumed tokens differ")
+    check(got[1] == want[1], "serving_snapshot: resumed logprobs differ")
+    check(all(fresh.finish_reason(tk) == "length" for tk in tickets),
+          "serving_snapshot: finish reasons")
+    return {
+        "phase": "serving_snapshot", "requests": len(requests),
+        "snapshot_after_steps": SNAPSHOT_AFTER_STEPS,
+        "tokens_bitwise_equal": True, "logprobs_bitwise_equal": True,
+        "pool_storage_kept": True, "pickled_mb": len(blob) / 1e6,
+        "state_dict_and_pickle_s": save_s, "unpickle_and_load_s": load_s,
+        "k1_launches": fa.FLASH_FWD.launches,
+        "k2_launches": pa.PAGED_DECODE.launches,
+    }
+
+
+def beam_phase(params, cfg) -> dict:
+    """``beam_search`` at B=1, a 256-token prompt, beam 4, 16 new tokens,
+    twice, and at beam 1 against ``generate_cached``'s greedy tokens."""
+    dev = params["embed"].device
+    prompt = torch.as_tensor(
+        np.random.default_rng(19).integers(0, cfg.vocab_size, (1, 256)),
+        device=dev)
+    fa.FLASH_FWD.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    seqs, scores = beam_search(params, cfg, prompt, max_new_tokens=16,
+                               beam_size=4, return_all=True)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t
+    k1 = fa.FLASH_FWD.launches
+    check(k1 == cfg.n_layers, f"beam_search: flash_fwd launched {k1} times")
+    seqs2, scores2 = beam_search(params, cfg, prompt, max_new_tokens=16,
+                                 beam_size=4, return_all=True)
+    check(torch.equal(seqs, seqs2) and torch.equal(scores, scores2),
+          "beam_search: two runs differ")
+    check(bool((torch.diff(scores, dim=1) <= 0).all()),
+          f"beam_search: beams not sorted: {scores.tolist()}")
+    check(bool(torch.equal(seqs[0, :, :256], prompt.expand(4, 256))),
+          "beam_search: a beam lost the prompt")
+    one = beam_search(params, cfg, prompt, max_new_tokens=16, beam_size=1)
+    greedy = transformer.Transformer(cfg).generate_cached(params, prompt, 16)
+    check(torch.equal(one, greedy),
+          "beam_search: beam_size=1 differs from generate_cached greedy")
+    return {"phase": "beam_search", "B": 1, "L": 256, "beam_size": 4,
+            "new_tokens": 16, "k1_launches": k1, "scores": scores[0].tolist(),
+            "two_runs_identical": True, "beam_one_equals_greedy": True,
+            "best_beam_agreement_with_greedy": float(
+                (seqs[0, 0, 256:] == greedy[0, 256:]).float().mean()),
+            "seconds": beam_s}
+
+
+def speculative_generate_phase(params, cfg) -> dict:
+    """``speculative_generate`` on beam_search's prompt, the target as its
+    own draft, gamma 4, 32 tokens, against ``generate_cached`` greedy."""
+    dev = params["embed"].device
+    prompt = torch.as_tensor(
+        np.random.default_rng(19).integers(0, cfg.vocab_size, (1, 256)),
+        device=dev)
+    fa.FLASH_FWD.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = speculative_generate(params, cfg, params, cfg, prompt,
+                               max_new_tokens=32, gamma=SPEC_GAMMA)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t
+    k1 = fa.FLASH_FWD.launches
+    check(k1 == 2 * cfg.n_layers,
+          f"speculative_generate: flash_fwd launched {k1} times, expected "
+          f"{2 * cfg.n_layers} (target and draft prefill)")
+    check(tuple(got.shape) == (1, 288) and torch.equal(got[:, :256], prompt),
+          "speculative_generate: wrong output")
+    t = time.perf_counter()
+    greedy = transformer.Transformer(cfg).generate_cached(params, prompt, 32)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t
+    return {"phase": "speculative_generate", "B": 1, "L": 256, "gamma": SPEC_GAMMA,
+            "new_tokens": 32, "k1_launches": k1,
+            "greedy_agreement": float((got[0, 256:] == greedy[0, 256:])
+                                      .float().mean()),
+            "seconds": spec_s, "generate_cached_seconds": greedy_s}
+
+
 # ----------------------------------------------------------------- training
 
 
@@ -972,6 +1425,63 @@ def check_train_reference(dev) -> dict:
             "loss_card": loss.item(), "loss_cpu": want.item(),
             "loss_rel_err": loss_rel, "max_grad_rel_err": max(grad_rel),
             "grad_rel_err_by_leaf": grad_rel,
+            "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL}}
+
+
+def lora_train(dev) -> dict:
+    """Two ``make_lora_train_step`` steps at Llama-3-8B widths cut to
+    ``LORA_TRAIN_LAYERS`` (B=1, L=128, f32 masters, one rank-16 adapter on
+    wq/wk/wv/wo with B drawn non-zero): before each step, the loss and the
+    factors' gradients of the f32 plain path on the CPU from the same
+    factors, against the step's own on the card (bf16 compute, K1/K3/K4).
+    The base must not move, bit for bit."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              n_layers=LORA_TRAIN_LAYERS)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(20), dev,
+                         dtype=torch.float32)
+    (lora,) = lora_adapters(cfg, dev, 1, LORA_RANK, seed=21)
+    base = [w.clone() for w in transformer.param_leaves(params)]
+    cpu = {name: w.cpu() for name, w in params.items() if name != "layers"}
+    cpu["layers"] = [{k: w.cpu() for k, w in layer.items()}
+                     for layer in params["layers"]]
+    batch = token_batch(np.random.default_rng(22), cfg, 1, 128, dev)
+    cpu_batch = {name: x.cpu() for name, x in batch.items()}
+    step, _ = make_lora_train_step(cfg, scale=LORA_SCALE)
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
+        kernel.launches = 0
+    state, losses, loss_rel, grad_rel = None, [], [], []
+    for _ in range(LORA_TRAIN_STEPS):
+        ref = {t: {k: x.detach().cpu().requires_grad_() for k, x in ab.items()}
+               for t, ab in lora.items()}
+        want = transformer.loss_fn(merge_lora(cpu, ref, LORA_SCALE), cpu_batch,
+                                   f32)
+        want_grads = torch.autograd.grad(want, lora_leaves(ref))
+        lora, state, loss = step(lora, state, params, batch)
+        losses.append(loss.item())
+        loss_rel.append(abs(loss.item() - want.item()) / abs(want.item()))
+        for w, g in zip(lora_leaves(lora), want_grads):
+            diff = torch.linalg.vector_norm(w.grad.cpu() - g)
+            grad_rel.append((diff / torch.linalg.vector_norm(g)).item())
+    launches = {"flash_fwd": fa.FLASH_FWD.launches,
+                "flash_bwd_dkdv": fa.FLASH_BWD_DKDV.launches,
+                "flash_bwd_dq": fa.FLASH_BWD_DQ.launches}
+    check(all(np.isfinite(grad_rel)), f"lora_train: grad errors {grad_rel}")
+    check(max(loss_rel) <= TRAIN_LOSS_TOL, f"lora_train: loss rel err {loss_rel}")
+    check(max(grad_rel) <= TRAIN_GRAD_TOL,
+          f"lora_train: max grad rel err {max(grad_rel)}")
+    check(all(torch.equal(w, b) and w.grad is None for w, b in
+              zip(transformer.param_leaves(params), base)),
+          "lora_train: the base moved or got a gradient")
+    want_launches = LORA_TRAIN_LAYERS * LORA_TRAIN_STEPS
+    check(all(n == want_launches for n in launches.values()),
+          f"lora_train: launches {launches}, expected {want_launches} each")
+    return {"phase": "lora_train", "layers": LORA_TRAIN_LAYERS, "B": 1,
+            "L": 128, "steps": LORA_TRAIN_STEPS, "rank": LORA_RANK,
+            "targets": ["wq", "wk", "wv", "wo"], "losses": losses,
+            "loss_rel_err": loss_rel, "max_grad_rel_err": max(grad_rel),
+            "grad_rel_err_by_leaf_and_step": grad_rel,
+            "base_unchanged": True, "launches": launches,
             "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL}}
 
 
@@ -1078,6 +1588,13 @@ def main() -> int:
         ("admission_interleaved", lambda: admission_interleaved(params, cfg)),
         ("serving_int8", lambda: serving_int8(params, cfg, requests, first)),
         ("contiguous_decode", lambda: contiguous_decode(params, cfg)),
+        ("serving_weight_int8",
+         lambda: serving_weight_int8(params, cfg, requests, first)),
+        ("serving_lora", lambda: serving_lora(params, cfg)),
+        ("serving_speculative", lambda: serving_speculative(params, cfg)),
+        ("serving_snapshot", lambda: serving_snapshot(params, cfg, requests)),
+        ("beam_search", lambda: beam_phase(params, cfg)),
+        ("speculative_generate", lambda: speculative_generate_phase(params, cfg)),
     ):
         t = time.perf_counter()
         result = phase()
@@ -1090,9 +1607,10 @@ def main() -> int:
         if name == "contiguous_decode":  # no paged decode in this phase
             k1_by_phase[name] = sum(result[w]["k1_launches"]
                                     for w in ("one_shot", "chunked", "int8"))
-        else:
+        else:  # beam_search and speculative_generate decode contiguously
             k1_by_phase[name] = result["k1_launches"]
-            k2_by_phase[name] = result["k2_launches"]
+            if "k2_launches" in result:
+                k2_by_phase[name] = result["k2_launches"]
     del params  # the training phases need the card's memory
     torch.cuda.empty_cache()
 
@@ -1103,6 +1621,12 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     emit(check_train_reference(dev))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lora = lora_train(dev)
+    lora["seconds"] = time.perf_counter() - t
+    emit(lora)
+    gc.collect()
     torch.cuda.empty_cache()
     train = train_path(dev)
     emit(train)
@@ -1123,6 +1647,8 @@ def main() -> int:
             "source": f"bee_code_interpreter_tpu_torch/ops/csrc/{name}.cu",
             "replaces": replaces,
             "launches": train["launches"][name],
+            "launches_by_phase": {"train": train["launches"][name],
+                                  "lora_train": lora["launches"][name]},
             "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows),
             "max_rel_err": max(r[key]["rel_err"] for r in bwd_rows),
             "ms": row["ms"], "kernel_ms": row["ms"],
@@ -1141,6 +1667,7 @@ def main() -> int:
             "launches": first["k1_launches"],
             "train_launches": train["launches"]["flash_fwd"],
             "launches_by_phase": {**k1_by_phase,
+                                  "lora_train": lora["launches"]["flash_fwd"],
                                   "train": train["launches"]["flash_fwd"]},
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],

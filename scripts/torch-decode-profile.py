@@ -2,12 +2,14 @@
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
     python3 scripts/torch-decode-profile.py [--layers 32] [--steps 8]
-        [--kv-cache-dtype bf16|int8] [--window W]
+        [--kv-cache-dtype bf16|int8] [--window W] [--weight-int8]
 
 Serves Llama-3-8B widths (random bf16 weights from a seed, paged decode
 kernel on) with 8 rows admitted at prompt lengths 64-1024, then profiles
 ``--steps`` decode steps with ``torch.profiler``; ``--kv-cache-dtype int8``
-does so on an int8 page pool (einsum attention, no paged decode kernel).
+does so on an int8 page pool (einsum attention, no paged decode kernel);
+``--weight-int8`` on weight-only int8 weights (``ops/weight_quant.py``:
+each projection converts its int8 weight to bf16 before the product).
 ``--window W`` profiles admission windows instead: one prompt of
 ``(2 * steps + 2) * W`` tokens admitted with ``interleave_admission=W`` and
 no row decoding, so each step runs one window of W tokens (the path of
@@ -41,6 +43,9 @@ from bee_code_interpreter_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     init_params,
 )
+from bee_code_interpreter_tpu_torch.ops.weight_quant import (  # noqa: E402
+    quantize_weights,
+)
 
 
 def main() -> int:
@@ -50,6 +55,7 @@ def main() -> int:
     ap.add_argument("--kv-cache-dtype", choices=("bf16", "int8"),
                     default="bf16")
     ap.add_argument("--window", type=int, default=None)
+    ap.add_argument("--weight-int8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch-decode-profile: CUDA is not available", file=sys.stderr)
@@ -62,6 +68,8 @@ def main() -> int:
                               n_layers=args.layers, paged_attention_kernel=True,
                               kv_cache_dtype=args.kv_cache_dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if args.weight_int8:
+        params = quantize_weights(params)
     batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
                                 max_pages_per_seq=128, n_pages=1 + 8 * 128)
     rng = np.random.default_rng(5)
@@ -99,6 +107,7 @@ def main() -> int:
     print(json.dumps({
         "nvidia_smi": smi, "layers": args.layers, "steps": args.steps,
         "kv_cache_dtype": args.kv_cache_dtype, "window": args.window,
+        "weight_int8": args.weight_int8,
         "rows": int(batcher.active.sum()),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,

@@ -102,9 +102,9 @@ def test_params_from_jax_refuses_what_is_not_ported():
     params_np = jax.tree.map(
         np.asarray, jax_t.init_params(jcfg, jax.random.PRNGKey(0))
     )
-    quantized = {**params_np, "lm_head": {"q": params_np["lm_head"], "s": None}}
-    with pytest.raises(NotImplementedError):
-        params_from_jax(quantized, tcfg, device="cpu")
+    moe = {**params_np, "layers": {**params_np["layers"], "moe": {}}}
+    with pytest.raises(NotImplementedError, match="MoE"):
+        params_from_jax(moe, tcfg, device="cpu")
     with pytest.raises(ValueError, match="layers"):
         params_from_jax(params_np, dataclasses.replace(tcfg, n_layers=3),
                         device="cpu")

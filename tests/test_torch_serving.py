@@ -190,29 +190,28 @@ def test_engine_queue_priorities_and_cancel(models):
 
 
 def test_unported_features_raise(models):
-    """What later slices port still raises; the int8 pool, the prefix cache,
-    chunked and interleaved admission and preemption no longer do."""
+    """What later slices port still raises (mesh, the metrics and monitor
+    hooks); the int8 pool, the prefix cache, chunked and interleaved
+    admission, preemption, adapters, a draft model and snapshots no longer
+    do."""
     _, tcfg, _, tparams = models
-    for kw in (dict(adapters=[{}]), dict(mesh=object()),
-               dict(metrics=object()), dict(monitor=object()),
-               dict(draft_params=tparams, draft_config=tcfg)):
+    for kw in (dict(mesh=object()), dict(metrics=object()),
+               dict(monitor=object())):
         with pytest.raises(NotImplementedError):
             torch_serving.ContinuousBatcher(tparams, tcfg, device="cpu", **kw)
     torch_serving.ContinuousBatcher(
         tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
         device="cpu", prefix_cache=True,
     )
+    torch_serving.ContinuousBatcher(tparams, tcfg, device="cpu",
+                                    draft_params=tparams, draft_config=tcfg)
     _, b = batchers(models)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no adapters configured"):
         b.submit(PROMPTS[0], 2, adapter=0)
-    with pytest.raises(NotImplementedError):
-        b.prefix_credit(PROMPTS[0], adapter=0)
+    assert b.prefix_credit(PROMPTS[0], adapter=0) == 0  # the cache is off
     eng = torch_engine.Engine(b)
-    for call in (eng.state_dict, b.state_dict,
-                 lambda: eng.load_state_dict({}),
-                 lambda: b.load_state_dict({})):
-        with pytest.raises(NotImplementedError):
-            call()
+    eng.load_state_dict(eng.state_dict())
+    b.load_state_dict(b.state_dict())
     assert b.preempt(0) is False  # no such interleaved admission
     with pytest.raises(NotImplementedError):
         torch_engine.Engine(b, metrics=object())

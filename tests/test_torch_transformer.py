@@ -182,13 +182,17 @@ def test_init_params_distributions_and_dtype():
 
 
 def test_unported_branches_raise(setup):
+    """MoE still raises; weight-only int8 leaves and a LoRA bank no longer
+    do (a bank without per-row adapters is a ValueError, as in JAX)."""
     _, tcfg, _, tparams = setup
     x = torch.zeros(1, 1, 64)
     with pytest.raises(NotImplementedError):
-        torch_t.qeinsum("bld,dk->blk", x, {"q": None, "s": None}, torch.float32)
-    with pytest.raises(NotImplementedError):
         torch_t._mlp_block(x, tparams["layers"][0],
                            dataclasses.replace(tcfg, n_experts=4))
-    with pytest.raises(NotImplementedError):
-        torch_t.decode_step_paged(tparams, None, None, None, None, tcfg,
+    leaf = {"q": torch.ones(64, 8, dtype=torch.int8), "s": torch.full((8,), 0.5)}
+    y = torch_t.qeinsum("bld,dk->blk", x + 1, leaf, torch.float32)
+    assert torch.equal(y, torch.full((1, 1, 8), 32.0))
+    tokens = torch.zeros(1, 1, dtype=torch.long)
+    with pytest.raises(ValueError, match="needs adapter_idx"):
+        torch_t.decode_step_paged(tparams, tokens, None, None, None, tcfg,
                                   lora_bank={})

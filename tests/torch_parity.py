@@ -51,6 +51,13 @@ def tiny_params(jcfg, tcfg, seed: int = 0, requires_grad: bool = False):
     return jparams, tparams
 
 
+def lora_to_torch(lora) -> dict:
+    """A JAX LoRA tree (stacked ``A``/``B`` per target) as the port's: the
+    same layout, as CPU tensors."""
+    return {t: {k: torch.from_numpy(np.array(v)) for k, v in ab.items()}
+            for t, ab in lora.items()}
+
+
 def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
