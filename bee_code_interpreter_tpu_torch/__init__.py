@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the accelerator half of bee_code_interpreter_tpu.
 
 The JAX package stays the reference; this package imports nothing of it.
-It serves the llama-style decoder with paged continuous batching (one-shot,
-chunked, prefix-cached and interleaved admission; bf16 or int8 KV pools),
-decodes it with a contiguous cache (``Transformer.generate_cached``) and
-trains it (``models/``), with hand-written Hopper kernels for the flash
-attention forward and backward and the paged decode attention (``ops/``).
+It serves the llama-style decoder, dense or Mixture-of-Experts, with paged
+continuous batching (one-shot, chunked, prefix-cached and interleaved
+admission; bf16 or int8 KV pools), decodes it with a contiguous cache
+(``Transformer.generate_cached``), trains it and loads HF Llama checkpoints
+(``models/``), with hand-written Hopper kernels for the flash attention
+forward and backward and the paged decode attention (``ops/``).
 """

@@ -36,9 +36,15 @@ def beam_search(
     ``([B, W, L + max_new_tokens]`` sequences sorted best first, ``[B, W]``
     scores)."""
     c = config
-    # The JAX function also refuses a capacity-routed MoE config (all B·W
-    # beam rows route in one competing pool, so a beam's score would depend
-    # on its siblings): MoE is not ported yet (ROADMAP Queue 1).
+    if not c.moe_exact:
+        # capacity routing puts all B·W beam rows in one competing pool,
+        # so a beam's tokens and score would depend on its siblings
+        raise NotImplementedError(
+            "beam_search requires a moe_exact config — dense, or MoE with "
+            "moe_dropless + moe_group_size=1 (capacity routing pools "
+            "couple sibling beams); use Transformer.generate_cached for "
+            "capacity-routed MoE"
+        )
     W = beam_size
     if W < 1:
         raise ValueError(f"beam_size must be >= 1, got {beam_size}")

@@ -79,7 +79,8 @@ def init_lora(
     nothing is materialised). The scale (alpha/rank) is an argument of
     ``merge_lora`` / ``make_lora_train_step``, not a leaf."""
     layer = {name: torch.empty(shape, device="meta")
-             for name, shape in layer_shapes(config).items()}
+             for name, shape in layer_shapes(config).items()
+             if name != "moe"}  # the expert weights take no adapter
     return init_lora_from_layers([layer] * config.n_layers, generator,
                                  rank=rank, targets=targets)
 

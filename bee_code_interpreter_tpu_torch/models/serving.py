@@ -28,6 +28,14 @@ the same pages, greedy draft-verify and rejection sampling); serving
 snapshots (``state_dict`` / ``load_state_dict``). Refused with
 ``NotImplementedError`` until a later slice ports them (ROADMAP Queue 1):
 ``mesh`` and the ``metrics``/``monitor`` hooks.
+
+Mixture-of-Experts configs serve as in JAX. Under capacity routing the
+tokens of one forward compete for expert slots, so a request routes
+against its batch-mates (free rows included) and its admission's padding:
+outputs are deterministic for a given pool state but not equal to solo
+decoding, and the prefix cache and speculative mode, whose guarantees are
+exactness claims, require ``config.moe_exact`` (dense, or dropless
+per-token routing).
 """
 
 from __future__ import annotations
@@ -298,6 +306,16 @@ class ContinuousBatcher:
         self.draft_params = draft_params
         self.draft_config = draft_config
         self.gamma = gamma
+        if prefix_cache and not config.moe_exact:
+            # capacity routing couples the tokens of one forward: a
+            # suffix-only prefill routes W tokens where the full prefill
+            # routes L, so shared-prefix K/V would stop being the K/V an
+            # unshared admission computes
+            raise NotImplementedError(
+                "prefix_cache requires a moe_exact config — dense, or MoE "
+                "with moe_dropless + moe_group_size=1 (capacity routing "
+                "pools differ between suffix-only and full prefill)"
+            )
         self.prefix_cache_enabled = prefix_cache
         self.lora_scale = float(lora_scale)
         # only the stacked bank is kept, on the batcher's device
@@ -324,9 +342,13 @@ class ContinuousBatcher:
         if draft_config is not None:
             if draft_config.vocab_size != config.vocab_size:
                 raise ValueError("target and draft must share a vocabulary")
-            # The JAX batcher also refuses a capacity-routed MoE target here
-            # (its verify window routes B·(γ+1) tokens where plain decode
-            # routes B): MoE is not ported yet (ROADMAP Queue 1).
+            if not config.moe_exact:
+                # the verify window routes B·(γ+1) tokens where plain
+                # decode routes B, so capacity routing can drop others
+                raise NotImplementedError(
+                    "speculative serving requires a moe_exact target — "
+                    "dense, or MoE with moe_dropless + moe_group_size=1"
+                )
             if gamma < 1:
                 raise ValueError(f"gamma must be >= 1, got {gamma}")
             if draft_params["embed"].device != self.device:

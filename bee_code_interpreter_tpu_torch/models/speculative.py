@@ -50,9 +50,17 @@ def speculative_generate(
     tc, dc = target_config, draft_config
     if tc.vocab_size != dc.vocab_size:
         raise ValueError("target and draft must share a vocabulary")
-    # The JAX function also refuses a capacity-routed MoE target (its verify
-    # window routes B·(γ+1) tokens where plain decode routes B, so the two
-    # can drop different tokens): MoE is not ported yet (ROADMAP Queue 1).
+    if not tc.moe_exact:
+        # the verify window routes B·(γ+1) tokens where plain decode routes
+        # B, so capacity routing can drop different tokens; an MoE draft
+        # is fine (drafts only propose)
+        raise NotImplementedError(
+            "speculative_generate requires a moe_exact target — dense, or "
+            "MoE with moe_dropless + moe_group_size=1 (capacity routing "
+            "pools differ between the verify window and plain decode); "
+            "use Transformer.generate_cached for capacity-routed MoE "
+            "targets"
+        )
     prompt = torch.as_tensor(prompt, device=target_params["embed"].device)
     B, L = prompt.shape
     if max_new_tokens < 1:

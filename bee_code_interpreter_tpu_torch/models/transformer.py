@@ -3,7 +3,7 @@ JAX package's ``models/transformer.py``.
 
 Ported: ``TransformerConfig``, ``rms_norm``, ``rope`` (split-half layout),
 the plain-array ``qeinsum``, ``init_params``, ``forward`` (``return_kv=True``
-gives the per-layer K/V, ``return_aux=True`` the MoE aux loss), the
+gives the per-layer K/V, ``return_aux=True`` the summed MoE aux loss), the
 contiguous cached decode (``alloc_decode_cache``, ``init_decode_cache``,
 ``decode_window``, ``decode_step``, ``prefill_chunked``; bf16 or int8
 caches), the paged decode (``decode_window_paged`` / ``decode_step_paged``,
@@ -12,7 +12,10 @@ bf16 or int8 pools), sampling (``sample_logits``, ``filter_logits``),
 ``make_train_step``, ``generate``, ``generate_cached``). Parameters are a
 plain dict: ``embed [V, D]``, ``layers`` (a list of per-layer dicts, where
 JAX stacks them on a leading axis for ``lax.scan``), ``ln_f``,
-``lm_head [D, V]``; weights keep JAX's ``[d_in, d_out]`` layout. Caches and
+``lm_head [D, V]``; weights keep JAX's ``[d_in, d_out]`` layout. A
+Mixture-of-Experts layer (``n_experts > 0``, ``models/moe.py``) holds a
+``moe`` dict (``router``, ``we_gate``, ``we_up``, ``we_down``) in place of
+``w_gate``/``w_up``/``w_down``. Caches and
 pools keep JAX's stacked ``[n_layers, ...]`` leaves; the layer loop writes
 through views of them, in place.
 
@@ -30,7 +33,7 @@ through the paged decode kernel when ``paged_attention_kernel`` is set
 (``ops/paged_attention.py``), all kernels on CUDA tensors and their plain
 versions on CPU tensors. Windows, int8 pools and the contiguous cache take
 the grouped einsums, as in JAX. Still refused with ``NotImplementedError``:
-MoE and meshes.
+meshes.
 """
 
 from __future__ import annotations
@@ -44,6 +47,11 @@ import torch
 import torch.nn.functional as F
 
 from bee_code_interpreter_tpu_torch.device import resolve_device
+from bee_code_interpreter_tpu_torch.models.moe import (
+    init_moe_params,
+    moe_mlp,
+    moe_shapes,
+)
 from bee_code_interpreter_tpu_torch.ops.flash_attention import local_attention
 from bee_code_interpreter_tpu_torch.ops.kv_cache import cache_append, cache_read
 from bee_code_interpreter_tpu_torch.ops.paged_attention import (
@@ -74,7 +82,7 @@ class TransformerConfig:
     rope_theta: float = 500000.0
     dtype: torch.dtype = torch.bfloat16
     z_loss: float = 1e-4
-    n_experts: int = 0  # MoE: not ported yet
+    n_experts: int = 0  # > 0: every layer's MLP is an MoE (models/moe.py)
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 1e-2
@@ -102,6 +110,17 @@ class TransformerConfig:
         raw = int(8 * self.d_model / 3)
         return (raw + 255) // 256 * 256
 
+    @property
+    def moe_exact(self) -> bool:
+        """True when a request's output does not depend on what shares its
+        batch: dense configs, and MoE under dropless per-token routing
+        (``moe_dropless`` and ``moe_group_size=1``: no choice is ever
+        dropped, so no token competes for a slot). The exactness features
+        (prefix cache, speculative decoding, beam search) require it."""
+        return self.n_experts == 0 or (
+            self.moe_dropless and self.moe_group_size == 1
+        )
+
     @classmethod
     def tiny(cls) -> "TransformerConfig":
         """Test size."""
@@ -109,10 +128,24 @@ class TransformerConfig:
                    max_seq_len=128, d_ff=128)
 
     @classmethod
+    def tiny_moe(cls) -> "TransformerConfig":
+        """Test MoE size (4 experts, top-2 routing)."""
+        return cls(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                   max_seq_len=128, d_ff=128, n_experts=4)
+
+    @classmethod
     def llama3_8b(cls) -> "TransformerConfig":
         """The flagship config (Llama-3-8B shapes)."""
         return cls(vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
                    n_kv_heads=8, d_ff=14336, max_seq_len=8192)
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "TransformerConfig":
+        """The MoE config (Mixtral-8x7B shapes: 8 experts, top-2), with the
+        JAX package's values (its ``rope_theta`` is the class default)."""
+        return cls(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, d_ff=14336, max_seq_len=8192,
+                   n_experts=8, moe_top_k=2)
 
 
 # ---------------------------------------------------------------- components
@@ -174,8 +207,6 @@ def init_params(
     tests that compare the two frameworks load JAX's weights through
     ``weights.params_from_jax`` instead."""
     c = config
-    if c.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue 1)")
     device = resolve_device(device)
     dtype = dtype or c.dtype
     if generator.device.type != device.type:
@@ -190,12 +221,16 @@ def init_params(
     def ones(n):
         return torch.ones(n, device=device, dtype=dtype)
 
+    def make(name, shape):
+        if name == "moe":
+            return init_moe_params(generator, d, c.ff_dim, c.n_experts,
+                                   device, dtype)
+        return dense(shape[0], *shape) if len(shape) == 2 else ones(shape[0])
+
     d = c.d_model
-    layers = [
-        {name: dense(shape[0], *shape) if len(shape) == 2 else ones(shape[0])
-         for name, shape in layer_shapes(c).items()}
-        for _ in range(c.n_layers)
-    ]
+    layers = [{name: make(name, shape)
+               for name, shape in layer_shapes(c).items()}
+              for _ in range(c.n_layers)]
     params = {
         "embed": dense(d, c.vocab_size, d),
         "layers": layers,
@@ -207,23 +242,35 @@ def init_params(
     return params
 
 
-def layer_shapes(config: TransformerConfig) -> dict[str, tuple[int, ...]]:
+def layer_shapes(config: TransformerConfig) -> dict:
     """Each layer's leaves and their shapes, in ``init_params``' order:
-    the norms ``[d]`` and the projections ``[d_in, d_out]``."""
+    the norms ``[d]``, the projections ``[d_in, d_out]``, and the MLP's
+    ``w_gate``/``w_up``/``w_down``, or for MoE configs a ``moe`` dict of
+    ``models/moe.py::moe_shapes``."""
     c = config
     dh, kvh, d, f = c.head_dim, c.kv_heads, c.d_model, c.ff_dim
-    return {
+    shapes = {
         "ln1": (d,), "wq": (d, c.n_heads * dh), "wk": (d, kvh * dh),
         "wv": (d, kvh * dh), "wo": (c.n_heads * dh, d), "ln2": (d,),
-        "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
     }
+    if c.n_experts:
+        shapes["moe"] = moe_shapes(d, f, c.n_experts)
+    else:
+        shapes.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+    return shapes
+
+
+def _layer_leaves(layer: Params) -> list[torch.Tensor]:
+    return [w for leaf in layer.values()
+            for w in (leaf.values() if isinstance(leaf, dict) else (leaf,))]
 
 
 def param_leaves(params: Params) -> list[torch.Tensor]:
-    """Every weight tensor in one fixed order (embed, each layer's leaves,
-    ln_f, lm_head): what the optimizer steps and its state is indexed by."""
+    """Every weight tensor in one fixed order (embed, each layer's leaves
+    with a ``moe`` dict's in its own order, ln_f, lm_head): what the
+    optimizer steps and its state is indexed by."""
     return ([params["embed"]]
-            + [w for layer in params["layers"] for w in layer.values()]
+            + [w for layer in params["layers"] for w in _layer_leaves(layer)]
             + [params["ln_f"], params["lm_head"]])
 
 
@@ -236,18 +283,27 @@ def n_params(params: Params) -> int:
 
 
 def _mlp_block(y: torch.Tensor, layer: Params, config: TransformerConfig):
+    """The post-attention MLP, dense SwiGLU or MoE, shared by the forward
+    and every decode path. Returns ``(mlp, aux)``: the layer's MoE
+    load-balancing loss (an f32 scalar), or 0.0 for dense configs (the
+    decode paths drop it)."""
     c = config
     if c.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue 1)")
+        return moe_mlp(
+            layer["moe"], y, n_experts=c.n_experts, top_k=c.moe_top_k,
+            capacity_factor=c.moe_capacity_factor, dtype=c.dtype,
+            group_size=c.moe_group_size, dropless=c.moe_dropless,
+        )
     gate = qeinsum("bld,df->blf", y, layer["w_gate"], c.dtype)
     up = qeinsum("bld,df->blf", y, layer["w_up"], c.dtype)
-    return qeinsum("blf,fd->bld", F.silu(gate) * up, layer["w_down"], c.dtype)
+    mlp = qeinsum("blf,fd->bld", F.silu(gate) * up, layer["w_down"], c.dtype)
+    return mlp, 0.0
 
 
 def _layer_apply(h, layer, config: TransformerConfig, positions,
                  return_kv: bool = False):
     """One decoder layer (the mesh-free JAX ``_layer_apply``). Returns
-    ``(h, (k, v) | None)``, K/V post-RoPE ``[B, kvh, L, dh]``."""
+    ``(h, (k, v) | None, aux)``, K/V post-RoPE ``[B, kvh, L, dh]``."""
     c = config
     B, L = h.shape[0], h.shape[1]
     x = rms_norm(h, layer["ln1"])
@@ -264,23 +320,25 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
     attn = local_attention(q, k, v, causal=True, window=c.sliding_window)
     attn = attn.transpose(1, 2).reshape(B, L, nh * dh)
     h = h + qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
-    h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
-    return h, ((k, v) if return_kv else None)
+    mlp, aux = _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
+    return h + mlp, ((k, v) if return_kv else None), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
             return_kv: bool = False, return_aux: bool = False):
     """Logits ``[B, L, vocab]`` in f32; with ``return_kv`` also the
     per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``; with
-    ``return_aux`` also the summed MoE load-balancing loss, an f32 0.0 for
-    dense configs (MoE itself raises in ``_mlp_block``)."""
+    ``return_aux`` also the MoE load-balancing loss summed over layers, an
+    f32 scalar (0.0 for dense configs)."""
     c = config
     B, L = tokens.shape
     positions = torch.arange(L, device=tokens.device).expand(B, L)
     h = params["embed"].to(c.dtype)[tokens.long()]
     ks, vs = [], []
+    aux = 0.0
     for layer in params["layers"]:
-        h, kv = _layer_apply(h, layer, c, positions, return_kv)
+        h, kv, layer_aux = _layer_apply(h, layer, c, positions, return_kv)
+        aux = aux + layer_aux
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -290,7 +348,8 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
     if return_kv:
         extras.append((torch.stack(ks), torch.stack(vs)))
     if return_aux:
-        extras.append(torch.zeros((), dtype=torch.float32, device=logits.device))
+        extras.append(aux if torch.is_tensor(aux) else torch.zeros(
+            (), dtype=torch.float32, device=logits.device))
     if extras:
         return (logits, *extras)
     return logits
@@ -350,7 +409,7 @@ def _decode_layers(params, tokens, positions, cache, config, attend,
         v_new = proj("wv", kvh)
         attn = attend(c_layer, q, k_new, v_new)
         h = h + project(attn, "wo", "blk,kd->bld")
-        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
+        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)[0]
     h = rms_norm(h, params["ln_f"])
     return qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype).float()
 

@@ -17,11 +17,14 @@ port keeps a dict per layer). At Llama-3-8B that moves >= 37.5 GB a decode
 step (int8 read, bf16 write, bf16 read) where a fused w8a16 product would
 move 7.5 GB; such a kernel is ROADMAP Queue 2 work.
 
-What quantizes: the seven dense projections of every layer and the
-lm_head. What does not: the embedding (a gather), the norms, LoRA banks
-(rank-r deltas applied on the raw activations, so multi-LoRA serving
-composes with a quantized base). Quantize after ``merge_lora`` if folding
-adapters.
+What quantizes: the dense projections of every layer (seven, or the four
+attention ones in an MoE layer) and the lm_head. What does not: the
+embedding (a gather), the norms, an MoE layer's ``moe`` leaves (router and
+expert weights: ``models/moe.py`` multiplies them as they are, as JAX
+does), LoRA banks (rank-r deltas applied on the raw activations, so
+multi-LoRA serving composes with a quantized base). Quantize after
+``merge_lora`` if folding adapters. ``quantized_nbytes`` counts every leaf,
+the MoE ones included.
 
 The params are the port's layout (``layers`` a list of per-layer dicts);
 quantizing a layer's ``[d_in, d_out]`` leaf gives the same ``q`` and ``s``,

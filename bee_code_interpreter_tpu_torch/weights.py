@@ -12,7 +12,10 @@ every einsum as JAX does.
 
 Weight-only-int8 leaves (``{"q": int8, "s": f32}``, ``ops/weight_quant.py``)
 cross as they are: ``q`` stays int8 and ``s`` f32 whatever ``dtype`` says,
-split per layer like every other leaf.
+split per layer like every other leaf. A Mixture-of-Experts tree's
+``layers.moe`` dict (``router``, ``we_gate``, ``we_up``, ``we_down``, each
+stacked ``[n_layers, ...]``) becomes each layer's ``moe`` dict, cast like
+the dense leaves.
 
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.
@@ -24,8 +27,10 @@ import numpy as np
 import torch
 
 from bee_code_interpreter_tpu_torch.device import resolve_device
+from bee_code_interpreter_tpu_torch.models.moe import MOE_KEYS
 
 LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down")
+MOE_LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "moe")
 
 
 def params_from_jax(params_np: dict, config, device=None,
@@ -52,21 +57,40 @@ def params_from_jax(params_np: dict, config, device=None,
         return np.asarray(x)[i]
 
     stacked = params_np["layers"]
-    if "moe" in stacked:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue 1)")
-    unknown = set(stacked) - set(LAYER_KEYS)
+    if ("moe" in stacked) != bool(config.n_experts):
+        raise ValueError(
+            f"the pytree {'has' if 'moe' in stacked else 'lacks'} an MoE "
+            f"tree (layers.moe) and the config has n_experts="
+            f"{config.n_experts}"
+        )
+    keys = MOE_LAYER_KEYS if config.n_experts else LAYER_KEYS
+    unknown = set(stacked) - set(keys)
     if unknown:
         raise ValueError(f"unexpected layer leaves {sorted(unknown)}")
+    if config.n_experts:
+        moe = stacked["moe"]
+        if set(moe) != set(MOE_KEYS):
+            raise ValueError(f"unexpected MoE leaves {sorted(moe)}")
+        n_experts = np.asarray(moe["router"]).shape[-1]
+        if n_experts != config.n_experts:
+            raise ValueError(
+                f"pytree has {n_experts} experts, config says "
+                f"{config.n_experts}"
+            )
     wq = stacked["wq"]
     n_layers = int(np.asarray(wq["q"] if isinstance(wq, dict) else wq).shape[0])
     if n_layers != config.n_layers:
         raise ValueError(
             f"pytree has {n_layers} layers, config says {config.n_layers}"
         )
-    layers = [
-        {name: leaf(layer_slice(stacked[name], i)) for name in LAYER_KEYS}
-        for i in range(n_layers)
-    ]
+
+    def layer_leaf(name, i):
+        if name == "moe":
+            return {k: leaf(np.asarray(stacked["moe"][k])[i]) for k in MOE_KEYS}
+        return leaf(layer_slice(stacked[name], i))
+
+    layers = [{name: layer_leaf(name, i) for name in keys}
+              for i in range(n_layers)]
     return {
         "embed": leaf(params_np["embed"]),
         "layers": layers,

@@ -60,20 +60,40 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    storage kept); ``beam_search`` (B=1, L=256, beam 4, 16 tokens; beam 1
    equals ``generate_cached``) and ``speculative_generate`` (the same
    prompt, gamma 4, 32 tokens).
-7. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
+7. Mixture-of-Experts serving, the Llama weights freed first, at
+   ``TransformerConfig.mixtral_8x7b()`` widths (vocab 32000, d 4096, 32/8
+   heads, d_ff 14336, 8 experts, top-2; random weights from a seed):
+   ``moe_reference`` (2 layers, bf16 on the card against the f32 plain path
+   on the CPU: teacher-forced logits at the positions whose routing agreed,
+   the routing agreement, the aux loss); ``serving_moe`` (cut to 16 of 32
+   layers: the whole model, 93.4 GB in bf16, does not fit one card; phase
+   5's traffic and batcher with capacity routing at factor 1.25, groups of
+   1024: K1 once per layer and admission, K2 once per layer and decode
+   step, against the 14.0 ms weight bound); ``serving_moe_exact`` (the same
+   weights under dropless per-token routing: 4 greedy requests batched and
+   each alone, token agreement reported; a shared-prefix pair with a prefix
+   hit; a probe of one prompt alone and beside another, which tells a
+   routing change from a GEMM's reduction order).
+8. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits.
-8. training reference: one training step of the decoder cut to 2 layers at
+9. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
    gradient; then ``lora_train``, two ``make_lora_train_step`` steps of a
    rank-16 adapter on the same cut: loss and the factors' gradients against
    the CPU's from the same factors, the base unchanged bit for bit.
-9. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut to
-   8 layers (f32 masters and AdamW state do not fit one card at 32), one
+10. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut
+   to 8 layers (f32 masters and AdamW state do not fit one card at 32), one
    fixed batch of 2 x 1024 tokens, 4 steps: falling loss, a finite non-zero
    gradient on every leaf after step 1, K1/K3/K4 each launched once per
-   layer and step.
+   layer and step. Then ``train_moe``: the same at Mixtral widths cut to 2
+   layers (3.16 B parameters, 50.6 GB of masters, gradients and moments),
+   loss and aux per step, after a 1-layer L=128 check of the first step's
+   loss, aux and router gradient norm against the f32 CPU path.
+11. ``hf_load``: an HF-named Llama state dict (Llama-3-8B widths, 2 layers)
+   built on the card from ``init_params``, loaded by ``load_llama_params``:
+   every leaf and the logits bitwise equal to the source's.
 
 The last lines are the ``kernels`` JSON line (with each serving kernel's
 launches by phase), the nvidia-smi line, and ``{"ok": true, "device":
@@ -90,6 +110,7 @@ import pickle
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -98,9 +119,13 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from bee_code_interpreter_tpu_torch.models import moe  # noqa: E402
 from bee_code_interpreter_tpu_torch.models import transformer  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.beam import beam_search  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.engine import Engine  # noqa: E402
+from bee_code_interpreter_tpu_torch.models.hf_loader import (  # noqa: E402
+    load_llama_params,
+)
 from bee_code_interpreter_tpu_torch.models.lora import (  # noqa: E402
     init_lora,
     lora_leaves,
@@ -207,6 +232,17 @@ BWD_CASES = [
     (2, 1000, 1000, True, None, True),
 ]
 BWD_MAIN_CASE = (TRAIN_B, TRAIN_L, TRAIN_L, True, None, False)
+# Mixtral-8x7B widths (TransformerConfig.mixtral_8x7b()). Serving is cut to
+# 16 of 32 layers: the whole model is 46.70 B parameters, 93.4 GB in bf16,
+# more than one 80 GB card; 16 layers are 23.48 B, 46.97 GB (a decode step's
+# weight-streaming bound 14.0 ms). Training is cut to 2 layers: 3.16 B
+# parameters, 50.6 GB of f32 masters, gradients and AdamW moments.
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_REFERENCE_LAYERS = 16, 2, 2
+MOE_EXACT_REQUESTS = 4
+# the MoE aux loss, bf16 on the card against f32 on the CPU: relative error
+# (a top-1 flip moves it by ~E/tokens x a probability gap; bf16 rounding of
+# the mean probabilities by ~1e-3)
+MOE_AUX_TOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -531,6 +567,15 @@ def teacher_forced_logits(params, cfg, device, prompts, feed) -> torch.Tensor:
     return torch.stack(out, dim=1).float().cpu()
 
 
+def cpu_f32(tree, requires_grad: bool = False):
+    """A parameter tree (dicts, lists, tensors) as f32 CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: cpu_f32(v, requires_grad) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cpu_f32(v, requires_grad) for v in tree]
+    return tree.detach().float().cpu().requires_grad_(requires_grad)
+
+
 def check_reference(params, cfg, dev) -> dict:
     small = dataclasses.replace(cfg, n_layers=2)
     cut = {**params, "layers": params["layers"][:2]}
@@ -538,14 +583,9 @@ def check_reference(params, cfg, dev) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 23)]
     feed = rng.integers(0, cfg.vocab_size, (2, 6))
     got = teacher_forced_logits(cut, small, dev, prompts, feed)
-    cpu = {
-        "embed": cut["embed"].float().cpu(), "ln_f": cut["ln_f"].float().cpu(),
-        "lm_head": cut["lm_head"].float().cpu(),
-        "layers": [{k: w.float().cpu() for k, w in layer.items()}
-                   for layer in cut["layers"]],
-    }
     f32 = dataclasses.replace(small, dtype=torch.float32)
-    want = teacher_forced_logits(cpu, f32, torch.device("cpu"), prompts, feed)
+    want = teacher_forced_logits(cpu_f32(cut), f32, torch.device("cpu"),
+                                 prompts, feed)
     rel = ((got - want).abs().max() / want.abs().max()).item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     check(bool(torch.isfinite(got).all()), "reference: non-finite logits")
@@ -650,15 +690,23 @@ def serve(params, cfg, requests, setup=None, **batcher_kw) -> dict:
     }
 
 
-def main_path(params, cfg) -> tuple[dict, dict, list]:
+def main_requests(vocab_size: int, new_tokens: int = 32) -> list:
+    """main_path's traffic: 12 prompts of 64-1024 tokens (numpy seed 5)
+    under ``vocab_size``, ``new_tokens`` each, even ones greedy and odd
+    ones seeded sampled."""
     rng = np.random.default_rng(5)
-    new_tokens = 32
     requests = []
     for i, L in enumerate(rng.integers(64, 1025, size=12)):
-        prompt = rng.integers(0, cfg.vocab_size, int(L)).tolist()
+        prompt = rng.integers(0, vocab_size, int(L)).tolist()
         sampling = (SamplingParams() if i % 2 == 0 else
                     SamplingParams(temperature=0.8, top_k=50, seed=100 + i))
         requests.append((prompt, new_tokens, sampling, {}))
+    return requests
+
+
+def main_path(params, cfg) -> tuple[dict, dict, list]:
+    new_tokens = 32
+    requests = main_requests(cfg.vocab_size, new_tokens)
     first = serve(params, cfg, requests)
     second = serve(params, cfg, requests)
     n_layers, n_req = cfg.n_layers, len(requests)
@@ -1380,6 +1428,387 @@ def speculative_generate_phase(params, cfg) -> dict:
             "seconds": spec_s, "generate_cached_seconds": greedy_s}
 
 
+# ------------------------------------------------------- Mixture-of-Experts
+
+
+def moe_config(n_layers: int, **kw) -> TransformerConfig:
+    """``TransformerConfig.mixtral_8x7b()`` widths (vocab 32000, d 4096,
+    32/8 heads, d_ff 14336, 8 experts, top-2) cut to ``n_layers``."""
+    return dataclasses.replace(TransformerConfig.mixtral_8x7b(),
+                               n_layers=n_layers, paged_attention_kernel=True,
+                               **kw)
+
+
+class AuxLog:
+    """Records the aux loss of each ``transformer.forward(...,
+    return_aux=True)`` (``loss_fn`` makes one) while installed."""
+
+    def __init__(self) -> None:
+        self.values: list[float] = []
+        self._forward = transformer.forward
+
+        def logged(*args, **kwargs):
+            out = self._forward(*args, **kwargs)
+            if kwargs.get("return_aux"):
+                self.values.append(out[-1].item())
+            return out
+
+        transformer.forward = logged
+
+    def close(self) -> None:
+        transformer.forward = self._forward
+
+
+class RoutingLog:
+    """Records each ``moe._route_group`` call's experts ``[G, k]`` (sorted
+    per token, so a set compares as a set) while installed."""
+
+    def __init__(self) -> None:
+        self.calls: list[torch.Tensor] = []
+        self._route = moe._route_group
+
+        def logged(*args, **kwargs):
+            r = self._route(*args, **kwargs)
+            self.calls.append(r.expert.reshape(-1, r.expert.shape[-1])
+                              .sort(dim=-1).values.cpu())
+            return r
+
+        moe._route_group = logged
+
+    def close(self) -> None:
+        moe._route_group = self._route
+
+
+def routing_agreement(a: list, b: list) -> tuple[float, list]:
+    """Share of (token, layer) expert sets equal between two logs of the
+    same calls, and the per-call [G] masks of tokens that flipped."""
+    check(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b)),
+          "routing logs of different calls")
+    flips = [(x != y).any(dim=-1) for x, y in zip(a, b)]
+    total = sum(f.numel() for f in flips)
+    return 1.0 - sum(int(f.sum()) for f in flips) / total, flips
+
+
+def moe_reference(dev) -> dict:
+    """Mixtral widths cut to 2 layers, bf16 on the card (K1 prefills, K2
+    decode steps) against the f32 plain path on the CPU on the same
+    weights: teacher-forced logits of two prompts (padded to 112 and 32
+    tokens: the routed and the every-expert form) and 6 decode steps, and
+    the aux loss of a 256-token forward. A bf16 router can put a token
+    whose 2nd and 3rd experts nearly tie on the other one; the logit error
+    is held at the positions whose own routing agreed in every layer, and
+    the routing agreement is reported and held above 0.9."""
+    cfg = moe_config(MOE_REFERENCE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(30))
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 23)]
+    feed = rng.integers(0, cfg.vocab_size, (2, 6))
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)))
+
+    def run(tree, c, d):
+        log = RoutingLog()
+        try:
+            got = teacher_forced_logits(tree, c, d, prompts, feed)
+            aux = transformer.forward(tree, tokens.to(d), c,
+                                      return_aux=True)[1].item()
+        finally:
+            log.close()
+        return got, aux, log.calls
+
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    card, aux_card, calls_card = run(params, cfg, dev)
+    launches = (fa.FLASH_FWD.launches, pa.PAGED_DECODE.launches)
+    cpu, aux_cpu, calls_cpu = run(cpu_f32(params), dataclasses.replace(
+        cfg, dtype=torch.float32), torch.device("cpu"))
+    agree, flips = routing_agreement(calls_card, calls_cpu)
+    # calls: each prompt's forward (a call a layer), then each decode step;
+    # then the aux forward. A position flipped when its own token did.
+    n_l = cfg.n_layers
+    own = torch.zeros(card.shape[:2], dtype=torch.bool)
+    for b, prompt in enumerate(prompts):
+        for li in range(n_l):
+            own[b, 0] |= flips[b * n_l + li][len(prompt) - 1]
+    for s in range(feed.shape[1]):
+        for li in range(n_l):
+            own[:, 1 + s] |= flips[(len(prompts) + s) * n_l + li]
+    err = (card - cpu).abs().amax(dim=-1) / cpu.abs().max()  # [B, positions]
+    held = err[~own]
+    rel = held.max().item() if held.numel() else float("nan")
+    aux_rel = abs(aux_card - aux_cpu) / abs(aux_cpu)
+    check(bool(torch.isfinite(card).all()), "moe_reference: non-finite logits")
+    check(agree >= 0.9, f"moe_reference: routing agreement {agree}")
+    check(rel <= REFERENCE_TOL, f"moe_reference: relative logit error {rel}")
+    check(aux_rel <= MOE_AUX_TOL, f"moe_reference: aux rel err {aux_rel}")
+    want_k1 = (len(prompts) + 1) * n_l
+    check(launches == (want_k1, n_l * feed.shape[1]),
+          f"moe_reference: K1/K2 launched {launches}")
+    return {"phase": "moe_reference", "config": "mixtral_8x7b",
+            "layers": n_l, "prompt_lens": [len(p) for p in prompts],
+            "decode_steps": feed.shape[1],
+            "rel_max_logit_err": rel,
+            "rel_max_logit_err_all_positions": err.max().item(),
+            "positions_with_own_routing_flip": int(own.sum()),
+            "routing_agreement": agree,
+            "argmax_agreement": (card.argmax(-1) == cpu.argmax(-1))
+            .float().mean().item(),
+            "aux_card": aux_card, "aux_cpu": aux_cpu, "aux_rel_err": aux_rel,
+            "k1_launches": launches[0], "k2_launches": launches[1],
+            "tolerance": {"logits": REFERENCE_TOL, "aux": MOE_AUX_TOL,
+                          "routing_agreement": 0.9}}
+
+
+def serve_report(name, cfg, run, requests, n_params) -> dict:
+    generated = sum(len(t) for t in run["tokens"])
+    return {
+        "phase": name, "config": "mixtral_8x7b", "dtype": "bfloat16",
+        "layers": cfg.n_layers, "layers_cut_from": 32,
+        "n_params": n_params, "requests": len(requests),
+        "prompt_lens": [len(p) for p, _, _, _ in requests],
+        "tokens_per_s": generated / run["wall_s"], "wall_s": run["wall_s"],
+        "ttft_p50_ms": float(np.median(run["ttft_s"])) * 1e3,
+        "decode_step_p50_ms": (float(np.median(run["decode_only_step_ms"]))
+                               if run["decode_only_step_ms"] else None),
+        "decode_only_steps": len(run["decode_only_step_ms"]),
+        "decode_steps": run["decode_steps"],
+        "weight_stream_bound_ms": 2.0 * n_params / HBM_BYTES_PER_S * 1e3,
+        "k1_launches": run["k1_launches"], "k2_launches": run["k2_launches"],
+    }
+
+
+def serving_moe(params, cfg) -> dict:
+    """main_path's traffic and batcher settings on Mixtral widths cut to
+    ``MOE_SERVE_LAYERS``, capacity routing at JAX's defaults (factor 1.25,
+    groups of 1024): K1 once per layer and admission, K2 once per layer
+    and decode step."""
+    requests = main_requests(cfg.vocab_size)
+    run = serve(params, cfg, requests)
+    n_l = cfg.n_layers
+    check(all(f == "length" for f in run["finish"]),
+          f"serving_moe: finish reasons {run['finish']}")
+    check(all(len(t) == 32 and all(0 <= x < cfg.vocab_size for x in t)
+              for t in run["tokens"]), "serving_moe: wrong results")
+    check(run["k1_launches"] == n_l * len(requests),
+          f"serving_moe: flash_fwd launched {run['k1_launches']} times")
+    check(run["decode_steps"] > 0
+          and run["k2_launches"] == n_l * run["decode_steps"],
+          f"serving_moe: paged_decode launched {run['k2_launches']} times "
+          f"over {run['decode_steps']} decode steps")
+    report = serve_report("serving_moe", cfg, run, requests,
+                          transformer.n_params(params))
+    report.update(capacity_factor=cfg.moe_capacity_factor,
+                  group_size=cfg.moe_group_size, max_batch=8)
+    return report
+
+
+def batch_composition_probe(params, cfg) -> dict:
+    """The same 256-token prompt alone and beside another in one forward
+    (B=1 against B=2): max |logit change| over max |logit|, and the
+    (token, layer) expert sets that changed. Dropless per-token routing
+    sees no batch-mate, so a routing change can only follow a change of
+    the token's own hidden state, i.e. of the GEMMs' reduction order."""
+    dev = params["embed"].device
+    rng = np.random.default_rng(33)
+    pair = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                           device=dev)
+    logs = []
+    for tokens in (pair[:1], pair):
+        log = RoutingLog()
+        try:
+            logits = transformer.forward(params, tokens, cfg)[0].float()
+        finally:
+            log.close()
+        logs.append((logits, [c[:256] for c in log.calls]))
+    (solo, solo_calls), (batch, batch_calls) = logs
+    agree, _ = routing_agreement(solo_calls, batch_calls)
+    return {"logit_change": ((batch - solo).abs().max()
+                             / solo.abs().max()).item(),
+            "logits_bitwise_equal": bool(torch.equal(batch, solo)),
+            "routing_agreement": agree}
+
+
+def serving_moe_exact(params, cfg) -> dict:
+    """The same weights under dropless per-token routing (``moe_exact``):
+    4 greedy requests of main_path's traffic served batched and each alone,
+    token agreement reported (exact on the TPU; cuBLAS may order a batched
+    product's sums otherwise than a solo one's); a shared-prefix pair with
+    the prefix cache on (a hit); and the batch-composition probe."""
+    exact = dataclasses.replace(cfg, moe_dropless=True, moe_group_size=1)
+    check(exact.moe_exact, "serving_moe_exact: config is not moe_exact")
+    greedy = [r for r in main_requests(cfg.vocab_size) if r[2].temperature == 0]
+    requests = greedy[:MOE_EXACT_REQUESTS]
+    batched = serve(params, exact, requests)
+    k1, k2 = batched["k1_launches"], batched["k2_launches"]
+    solo = []
+    for req in requests:
+        run = serve(params, exact, [req])
+        solo.append(run["tokens"][0])
+        k1, k2 = k1 + run["k1_launches"], k2 + run["k2_launches"]
+    pairs = [(a, b) for t, s in zip(batched["tokens"], solo)
+             for a, b in zip(t, s)]
+    agreement = sum(a == b for a, b in pairs) / len(pairs)
+    rng = np.random.default_rng(32)
+    shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+    tails = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 72)]
+    prefix_reqs = [(shared + t, 32, SamplingParams(), {}) for t in tails]
+    cached = serve(params, exact, prefix_reqs, prefix_cache=True)
+    k1, k2 = k1 + cached["k1_launches"], k2 + cached["k2_launches"]
+    check(cached["prefix_stats"]["hits"] >= 1,
+          f"serving_moe_exact: prefix stats {cached['prefix_stats']}")
+    check(all(len(t) == 32 for t in batched["tokens"] + solo
+              + cached["tokens"]), "serving_moe_exact: wrong result lengths")
+    report = serve_report("serving_moe_exact", exact, batched, requests,
+                          transformer.n_params(params))
+    report.update(
+        moe_dropless=True, group_size=1,
+        batched_vs_solo_token_agreement=agreement,
+        batched_vs_solo_streams_equal=[t == s for t, s in
+                                       zip(batched["tokens"], solo)],
+        prefix_stats=cached["prefix_stats"],
+        batch_composition=batch_composition_probe(params, exact),
+        k1_launches=k1, k2_launches=k2)
+    return report
+
+
+def train_moe(dev) -> dict:
+    """``Transformer.make_train_step`` at Mixtral widths cut to
+    ``MOE_TRAIN_LAYERS`` (f32 masters, bf16 compute, capacity routing), one
+    fixed batch of 2 x 1024 tokens, 4 steps: loss and aux each step, a
+    finite aux > 0, K1/K3/K4 once per layer and step. First, at a 1-layer
+    L=128 cut, the first step's loss, aux and router gradient norm against
+    the f32 plain path on the CPU."""
+    ref = moe_train_reference(dev)
+    cfg = moe_config(MOE_TRAIN_LAYERS)
+    model = transformer.Transformer(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(34), dev)
+    step = model.make_train_step()
+    batch = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
+        kernel.launches = 0
+    opt_state, losses, step_ms = None, [], []
+    aux_log = AuxLog()
+    try:
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(loss.item())  # waits for the step
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        aux_log.close()
+    auxes = aux_log.values
+    launches = {"flash_fwd": fa.FLASH_FWD.launches,
+                "flash_bwd_dkdv": fa.FLASH_BWD_DKDV.launches,
+                "flash_bwd_dq": fa.FLASH_BWD_DQ.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"train_moe: losses {losses}")
+    check(len(auxes) == TRAIN_STEPS and all(np.isfinite(a) and a > 0
+                                            for a in auxes),
+          f"train_moe: aux {auxes}")
+    check(losses[-1] < losses[0], f"train_moe: loss did not fall: {losses}")
+    want = MOE_TRAIN_LAYERS * TRAIN_STEPS
+    check(all(n == want for n in launches.values()),
+          f"train_moe: launches {launches}, expected {want} each")
+    return {
+        "phase": "train_moe", "config": "mixtral_8x7b",
+        "layers": MOE_TRAIN_LAYERS, "layers_cut_from": 32,
+        "dtype": "bfloat16 compute, float32 masters", "B": TRAIN_B,
+        "L": TRAIN_L, "steps": TRAIN_STEPS,
+        "n_params": transformer.n_params(params), "losses": losses,
+        "aux": auxes, "step_ms": step_ms,
+        "step_ms_p50_2_to_4": float(np.median(step_ms[1:])),
+        "peak_memory_gb": peak_gb, "launches": launches, "reference": ref,
+    }
+
+
+def moe_train_reference(dev) -> dict:
+    cfg = moe_config(1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(35),
+                         dev, dtype=torch.float32, requires_grad=True)
+    batch = token_batch(np.random.default_rng(36), cfg, 1, 128, dev)
+    out = []
+    for tree, c, b in (
+        (params, cfg, batch),
+        (cpu_f32(params, requires_grad=True),
+         dataclasses.replace(cfg, dtype=torch.float32),
+         {k: x.cpu() for k, x in batch.items()}),
+    ):
+        aux_log, log = AuxLog(), RoutingLog()
+        try:
+            loss = transformer.loss_fn(tree, b, c)
+        finally:
+            aux_log.close()
+            log.close()
+        loss.backward()
+        router = tree["layers"][0]["moe"]["router"].grad
+        out.append((loss.item(), aux_log.values[0],
+                    torch.linalg.vector_norm(router).item(), log.calls))
+    (loss, aux, gnorm, calls), (loss_cpu, aux_cpu, gnorm_cpu, calls_cpu) = out
+    agree, _ = routing_agreement(calls, calls_cpu)
+    rel = {"loss": abs(loss - loss_cpu) / abs(loss_cpu),
+           "aux": abs(aux - aux_cpu) / abs(aux_cpu),
+           "router_grad_norm": abs(gnorm - gnorm_cpu) / gnorm_cpu}
+    tol = {"loss": TRAIN_LOSS_TOL, "aux": MOE_AUX_TOL,
+           "router_grad_norm": TRAIN_GRAD_TOL}
+    check(all(rel[k] <= tol[k] for k in rel),
+          f"train_moe reference: rel errors {rel}, limits {tol}")
+    return {"layers": 1, "B": 1, "L": 128, "loss_card": loss,
+            "loss_cpu": loss_cpu, "aux_card": aux, "aux_cpu": aux_cpu,
+            "router_grad_norm_card": gnorm, "router_grad_norm_cpu": gnorm_cpu,
+            "routing_agreement": agree, "rel_err": rel, "tolerance": tol}
+
+
+# ------------------------------------------------------------------ HF loader
+
+
+def hf_load(dev) -> dict:
+    """An HF-named Llama state dict built on the card from ``init_params``
+    (Llama-3-8B widths, 2 layers, bf16), loaded by ``load_llama_params``:
+    every leaf equal to its source bitwise, and the logits too."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(37))
+    names = {"ln1": "input_layernorm", "wq": "self_attn.q_proj",
+             "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "ln2": "post_attention_layernorm",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["ln_f"],
+          "lm_head.weight": params["lm_head"].t().contiguous()}
+    for i, layer in enumerate(params["layers"]):
+        for name, w in layer.items():
+            sd[f"model.layers.{i}.{names[name]}.weight"] = (
+                w if w.dim() == 1 else w.t().contiguous())
+    hf_config = types.SimpleNamespace(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+        num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+        num_key_value_heads=cfg.n_kv_heads, intermediate_size=cfg.d_ff,
+        max_position_embeddings=cfg.max_seq_len, rope_theta=cfg.rope_theta,
+        rms_norm_eps=1e-5, hidden_act="silu")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded, loaded_cfg = load_llama_params(sd, hf_config, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    check(loaded_cfg == cfg, f"hf_load: config {loaded_cfg}")
+    pairs = list(zip(transformer.param_leaves(loaded),
+                     transformer.param_leaves(params)))
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+          "hf_load: a loaded leaf differs from its source")
+    tokens = torch.as_tensor(np.random.default_rng(38).integers(
+        0, cfg.vocab_size, (1, 256)), device=dev)
+    fa.FLASH_FWD.launches = 0
+    want = transformer.forward(params, tokens, cfg)
+    got = transformer.forward(loaded, tokens, loaded_cfg)
+    check(torch.equal(got, want), "hf_load: logits differ")
+    return {"phase": "hf_load", "config": "llama3_8b", "layers": 2,
+            "leaves": len(pairs), "leaves_bitwise_equal": True,
+            "logits_bitwise_equal": True,
+            "gb": sum(a.numel() * a.element_size() for a, _ in pairs) / 1e9,
+            "load_s": load_s, "k1_launches": fa.FLASH_FWD.launches}
+
+
 # ----------------------------------------------------------------- training
 
 
@@ -1582,6 +2011,26 @@ def main() -> int:
     emit(report)
     k1_by_phase = {"main_path": first["k1_launches"]}
     k2_by_phase = {"main_path": first["k2_launches"]}
+
+    def run_phase(name, phase) -> dict:
+        t = time.perf_counter()
+        result = phase()
+        # the phase's batcher and its pool go before the next phase (the
+        # admission wrappers of serve() hold it in a reference cycle)
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["seconds"] = time.perf_counter() - t
+        emit(result)
+        if name == "contiguous_decode":  # no paged decode in this phase
+            k1_by_phase[name] = sum(result[w]["k1_launches"]
+                                    for w in ("one_shot", "chunked", "int8"))
+        elif "k1_launches" in result:
+            k1_by_phase[name] = result["k1_launches"]
+            # beam_search, speculative_generate and hf_load run no K2
+            if "k2_launches" in result:
+                k2_by_phase[name] = result["k2_launches"]
+        return result
+
     for name, phase in (
         ("admission_prefix", lambda: admission_prefix(params, cfg)),
         ("admission_chunked", lambda: admission_chunked(params, cfg)),
@@ -1596,22 +2045,21 @@ def main() -> int:
         ("beam_search", lambda: beam_phase(params, cfg)),
         ("speculative_generate", lambda: speculative_generate_phase(params, cfg)),
     ):
-        t = time.perf_counter()
-        result = phase()
-        # the phase's batcher and its pool go before the next phase (the
-        # admission wrappers of serve() hold it in a reference cycle)
-        gc.collect()
-        torch.cuda.empty_cache()
-        result["seconds"] = time.perf_counter() - t
-        emit(result)
-        if name == "contiguous_decode":  # no paged decode in this phase
-            k1_by_phase[name] = sum(result[w]["k1_launches"]
-                                    for w in ("one_shot", "chunked", "int8"))
-        else:  # beam_search and speculative_generate decode contiguously
-            k1_by_phase[name] = result["k1_launches"]
-            if "k2_launches" in result:
-                k2_by_phase[name] = result["k2_launches"]
-    del params  # the training phases need the card's memory
+        run_phase(name, phase)
+    # the Llama weights go before the MoE phases and the training phases
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_phase("moe_reference", lambda: moe_reference(dev))
+    moe_cfg = moe_config(MOE_SERVE_LAYERS)
+    moe_params = init_params(moe_cfg,
+                             torch.Generator(device=dev).manual_seed(36))
+    run_phase("serving_moe", lambda: serving_moe(moe_params, moe_cfg))
+    run_phase("serving_moe_exact",
+              lambda: serving_moe_exact(moe_params, moe_cfg))
+    del moe_params
+    gc.collect()
     torch.cuda.empty_cache()
 
     timer = Timer(dev)
@@ -1630,6 +2078,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_path(dev)
     emit(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_m = run_phase("train_moe", lambda: train_moe(dev))
+    run_phase("hf_load", lambda: hf_load(dev))
 
     main_k1 = next(r for r in flash_rows
                    if (r["B"], r["L"], r["Lk"], r["causal"], r["window"])
@@ -1648,7 +2100,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": train["launches"][name],
             "launches_by_phase": {"train": train["launches"][name],
-                                  "lora_train": lora["launches"][name]},
+                                  "lora_train": lora["launches"][name],
+                                  "train_moe": train_m["launches"][name]},
             "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows),
             "max_rel_err": max(r[key]["rel_err"] for r in bwd_rows),
             "ms": row["ms"], "kernel_ms": row["ms"],
@@ -1668,7 +2121,8 @@ def main() -> int:
             "train_launches": train["launches"]["flash_fwd"],
             "launches_by_phase": {**k1_by_phase,
                                   "lora_train": lora["launches"]["flash_fwd"],
-                                  "train": train["launches"]["flash_fwd"]},
+                                  "train": train["launches"]["flash_fwd"],
+                                  "train_moe": train_m["launches"]["flash_fwd"]},
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],
             "plain_ms": main_k1["plain_ms"], "bound_ms": main_k1["bound_ms"],

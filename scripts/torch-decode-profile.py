@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
-    python3 scripts/torch-decode-profile.py [--layers 32] [--steps 8]
-        [--kv-cache-dtype bf16|int8] [--window W] [--weight-int8]
+    python3 scripts/torch-decode-profile.py [--layers N] [--steps 8]
+        [--kv-cache-dtype bf16|int8] [--window W] [--weight-int8] [--moe]
 
-Serves Llama-3-8B widths (random bf16 weights from a seed, paged decode
-kernel on) with 8 rows admitted at prompt lengths 64-1024, then profiles
+Serves Llama-3-8B widths, 32 layers (``--moe``: Mixtral-8x7B widths, 16 of
+its 32 layers, capacity routing at the defaults; random bf16 weights from a
+seed, paged decode kernel on) with 8 rows admitted at prompt lengths
+64-1024, then profiles
 ``--steps`` decode steps with ``torch.profiler``; ``--kv-cache-dtype int8``
 does so on an int8 page pool (einsum attention, no paged decode kernel);
 ``--weight-int8`` on weight-only int8 weights (``ops/weight_quant.py``:
@@ -42,6 +44,7 @@ from bee_code_interpreter_tpu_torch.models.serving import (  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     init_params,
+    n_params,
 )
 from bee_code_interpreter_tpu_torch.ops.weight_quant import (  # noqa: E402
     quantize_weights,
@@ -50,12 +53,14 @@ from bee_code_interpreter_tpu_torch.ops.weight_quant import (  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="default 32, or 16 with --moe")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--kv-cache-dtype", choices=("bf16", "int8"),
                     default="bf16")
     ap.add_argument("--window", type=int, default=None)
     ap.add_argument("--weight-int8", action="store_true")
+    ap.add_argument("--moe", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch-decode-profile: CUDA is not available", file=sys.stderr)
@@ -64,10 +69,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
-                              n_layers=args.layers, paged_attention_kernel=True,
+    base = (TransformerConfig.mixtral_8x7b() if args.moe
+            else TransformerConfig.llama3_8b())
+    layers = args.layers or (16 if args.moe else 32)
+    cfg = dataclasses.replace(base, n_layers=layers,
+                              paged_attention_kernel=True,
                               kv_cache_dtype=args.kv_cache_dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    # the bf16 weights' streaming bound (the int8 tree moves about half)
+    bound_ms = 2.0 * n_params(params) / 3.35e12 * 1e3
     if args.weight_int8:
         params = quantize_weights(params)
     batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
@@ -105,11 +115,13 @@ def main() -> int:
     device_ms = device_us / args.steps / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
-        "nvidia_smi": smi, "layers": args.layers, "steps": args.steps,
+        "nvidia_smi": smi, "config": "mixtral_8x7b" if args.moe else "llama3_8b",
+        "layers": layers, "steps": args.steps,
         "kv_cache_dtype": args.kv_cache_dtype, "window": args.window,
         "weight_int8": args.weight_int8,
         "rows": int(batcher.active.sum()),
         "wall_ms_per_step": wall_ms,
+        "bf16_weight_stream_bound_ms": bound_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "kernels_ms_per_step": {name: us / args.steps / 1e3

@@ -98,13 +98,29 @@ def test_params_from_jax_round_trips_shapes():
 
 
 def test_params_from_jax_refuses_what_is_not_ported():
+    """A dense config given an MoE tree, or the reverse, is a ValueError; a
+    tiny_moe tree round-trips, leaf for leaf."""
     jcfg, tcfg = tiny_configs()
     params_np = jax.tree.map(
         np.asarray, jax_t.init_params(jcfg, jax.random.PRNGKey(0))
     )
     moe = {**params_np, "layers": {**params_np["layers"], "moe": {}}}
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="MoE"):
         params_from_jax(moe, tcfg, device="cpu")
+    jmoe, tmoe = tiny_configs(n_experts=4)
+    with pytest.raises(ValueError, match="MoE"):
+        params_from_jax(params_np, tmoe, device="cpu")
+    moe_np = jax.tree.map(np.asarray,
+                          jax_t.init_params(jmoe, jax.random.PRNGKey(0)))
+    params = params_from_jax(moe_np, tmoe, device="cpu")
+    for i, layer in enumerate(params["layers"]):
+        assert list(layer) == list(torch_t.layer_shapes(tmoe))
+        for name, stacked in moe_np["layers"]["moe"].items():
+            assert torch.equal(layer["moe"][name],
+                               torch.from_numpy(np.array(stacked[i])))
+    with pytest.raises(ValueError, match="experts"):
+        params_from_jax(moe_np, dataclasses.replace(tmoe, n_experts=8),
+                        device="cpu")
     with pytest.raises(ValueError, match="layers"):
         params_from_jax(params_np, dataclasses.replace(tcfg, n_layers=3),
                         device="cpu")

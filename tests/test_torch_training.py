@@ -199,12 +199,17 @@ def test_resume_from_checkpoint_is_bitwise_equal_to_straight_run(tmp_path):
 
 
 def test_moe_and_mesh_still_raise():
+    """Meshes still raise, for MoE configs too; MoE itself no longer does:
+    its masters init and train (tests/test_torch_moe.py holds them to
+    JAX), and a dense tree is not an MoE tree."""
     jcfg, tcfg = configs()
     _, tparams = tiny_params(jcfg, tcfg)
-    with pytest.raises(NotImplementedError):
-        torch_t.Transformer(tcfg, mesh=object())
     moe = dataclasses.replace(tcfg, n_experts=4)
-    with pytest.raises(NotImplementedError):
-        torch_t.Transformer(moe).init(torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    for cfg in (tcfg, moe):
+        with pytest.raises(NotImplementedError, match="meshes"):
+            torch_t.Transformer(cfg, mesh=object())
+    params = torch_t.Transformer(moe).init(torch.Generator(), device="cpu")
+    loss = torch_t.loss_fn(params, torch_batch(make_batch()), moe)
+    assert torch.isfinite(loss) and loss.requires_grad
+    with pytest.raises(KeyError, match="moe"):
         torch_t.loss_fn(tparams, torch_batch(make_batch()), moe)

@@ -182,11 +182,15 @@ def test_init_params_distributions_and_dtype():
 
 
 def test_unported_branches_raise(setup):
-    """MoE still raises; weight-only int8 leaves and a LoRA bank no longer
-    do (a bank without per-row adapters is a ValueError, as in JAX)."""
+    """MoE, weight-only int8 leaves and a LoRA bank no longer raise: the
+    MLP block returns ``(mlp, aux)`` for both families (MoE needs its
+    ``moe`` leaves), and a bank without per-row adapters is a ValueError,
+    as in JAX."""
     _, tcfg, _, tparams = setup
     x = torch.zeros(1, 1, 64)
-    with pytest.raises(NotImplementedError):
+    mlp, aux = torch_t._mlp_block(x, tparams["layers"][0], tcfg)
+    assert mlp.shape == x.shape and aux == 0.0
+    with pytest.raises(KeyError, match="moe"):
         torch_t._mlp_block(x, tparams["layers"][0],
                            dataclasses.replace(tcfg, n_experts=4))
     leaf = {"q": torch.ones(64, 8, dtype=torch.int8), "s": torch.full((8,), 0.5)}
