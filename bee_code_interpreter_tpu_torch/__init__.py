@@ -6,5 +6,9 @@ continuous batching (one-shot, chunked, prefix-cached and interleaved
 admission; bf16 or int8 KV pools), decodes it with a contiguous cache
 (``Transformer.generate_cached``), trains it and loads HF Llama checkpoints
 (``models/``), with hand-written Hopper kernels for the flash attention
-forward and backward and the paged decode attention (``ops/``).
+forward and backward and the paged decode attention (``ops/``). Serving is
+observable as in the JAX package: metrics, per-request traces, step
+records, first calls of its programs, device memory and profiler captures
+(``observability/``, ``utils/metrics.py``), and measured by
+``models/serving_bench.py``.
 """

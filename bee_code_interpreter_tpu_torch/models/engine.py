@@ -11,13 +11,18 @@ not produced a token back to the head of its priority class. A request's
 ``adapter`` rides with it to admission and to the prefix credit;
 ``state_dict`` / ``load_state_dict`` snapshot the batcher and the queue.
 
-Not ported yet (``NotImplementedError``): the ``metrics``/``monitor`` hooks.
+``metrics`` (a ``utils.metrics.Registry``) and a lifecycle monitor (a
+``ServingMonitor``, given here or inherited from the batcher, usually
+through ``monitor.attach``) instrument what happens before a request reaches
+a batch row: queue depth and wait, capacity bounce-backs, rejections, with
+the JAX engine's metric names and hook order.
 """
 
 from __future__ import annotations
 
 import copy
 import heapq
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,7 +31,6 @@ from bee_code_interpreter_tpu_torch.models.serving import (
     CapacityError,
     ContinuousBatcher,
     SamplingParams,
-    not_ported,
 )
 
 
@@ -52,12 +56,34 @@ class Engine:
     def __init__(self, batcher: ContinuousBatcher,
                  max_queue: int | None = None, metrics=None,
                  monitor=None) -> None:
-        if metrics is not None:
-            raise not_ported("the metrics hook")
-        if monitor is not None:
-            raise not_ported("the monitor hook")
         self.batcher = batcher
         self.max_queue = max_queue
+        # the lifecycle monitor: the engine owns the queued / requeued /
+        # rejected part of a request's story, the batcher the rest; the
+        # batcher's is inherited so one attach() wires the whole stack
+        self._monitor = monitor if monitor is not None else getattr(
+            batcher, "_monitor", None
+        )
+        self._metrics = metrics
+        self._ticket_submit_t: dict[int, float] = {}
+        if metrics is not None:
+            self._queue_wait_seconds = metrics.histogram(
+                "bci_serving_queue_wait_seconds",
+                "Ticket wait from engine submit to batcher admission",
+            )
+            self._requeues_total = metrics.counter(
+                "bci_serving_requeues_total",
+                "Admissions bounced back to the queue by a capacity race",
+            )
+            self._rejected_total = metrics.counter(
+                "bci_serving_queue_rejected_total",
+                "Submissions rejected at the queue bound",
+            )
+            metrics.gauge(
+                "bci_serving_queue_depth",
+                "Accepted-but-not-admitted tickets",
+                lambda: len(self._queued),
+            )
         # heap entries: (-priority, arrival seq, ticket, request);
         # cancellation of a queued ticket is lazy — the ticket leaves
         # self._queued and its entry is skipped when it surfaces
@@ -130,6 +156,10 @@ class Engine:
             prefill_chunk=prefill_chunk,
         )
         if self.max_queue is not None and len(self._queued) >= self.max_queue:
+            if self._metrics is not None:
+                self._rejected_total.inc()
+            if self._monitor is not None:
+                self._monitor.on_ticket_rejected("queue_full")
             raise RuntimeError(f"queue full ({self.max_queue})")
         req = _Queued(prompt, max_new_tokens, sampling, prefill_chunk,
                       adapter, pages_needed, interleave_admission, priority)
@@ -146,7 +176,16 @@ class Engine:
         # completing later never trims a token already emitted
         stops = sampling.stop_sequences if sampling is not None else ()
         self._holdback[ticket] = max((len(s) for s in stops), default=1) - 1
+        if self._metrics is not None:
+            self._ticket_submit_t[ticket] = time.monotonic()
+        if self._monitor is not None:
+            self._monitor.on_ticket_queued(ticket)
         return ticket
+
+    def set_monitor(self, monitor) -> None:
+        """Attach a lifecycle monitor (``ServingMonitor.attach`` calls
+        this)."""
+        self._monitor = monitor
 
     # -------------------------------------------------------------- admit
     def _admit_ready(self) -> None:
@@ -171,6 +210,12 @@ class Engine:
                 return
             heapq.heappop(self._heap)
             self._queued.discard(ticket)
+            if self._monitor is not None:
+                # before the submit: the monitor stages this ticket's queue
+                # wait, so the request born inside the call starts its clock
+                # at engine intake (a blocking admission fixes TTFT before
+                # submit returns)
+                self._monitor.on_ticket_admitting(ticket)
             try:
                 rid = self.batcher.submit(
                     req.prompt, req.max_new_tokens, sampling=req.sampling,
@@ -180,15 +225,26 @@ class Engine:
             except CapacityError:
                 heapq.heappush(self._heap, (neg_prio, seq, ticket, req))
                 self._queued.add(ticket)
+                if self._metrics is not None:
+                    self._requeues_total.inc()
+                if self._monitor is not None:
+                    self._monitor.on_ticket_requeued(ticket)
                 return
             except Exception as e:
                 # validate_request ran at intake, so this "cannot happen";
                 # if it does, fail the ticket instead of wedging the queue
                 self._state[ticket] = ("error", repr(e))
+                self._ticket_submit_t.pop(ticket, None)
+                if self._monitor is not None:
+                    self._monitor.on_ticket_failed(ticket, repr(e))
                 continue
             self._state[ticket] = rid
             if req.interleave_admission is not None:
                 self._preemptable[ticket] = req
+            if self._metrics is not None:
+                t0 = self._ticket_submit_t.pop(ticket, None)
+                if t0 is not None:
+                    self._queue_wait_seconds.observe(time.monotonic() - t0)
 
     # --------------------------------------------------------------- step
     def step(self) -> None:
@@ -310,6 +366,12 @@ class Engine:
         self._queued.add(ticket)
         self._state[ticket] = "queued"
         self._stream_cursor[ticket] = 0
+        if self._metrics is not None:
+            # the queue wait is measured again from the preemption, as the
+            # monitor's fresh queued clock below
+            self._ticket_submit_t[ticket] = time.monotonic()
+        if self._monitor is not None:
+            self._monitor.on_ticket_queued(ticket)
         return True
 
     def cancel(self, ticket: int) -> None:
@@ -321,6 +383,9 @@ class Engine:
             self._state[ticket] = "cancelled"
             self._stream_cursor.pop(ticket, None)
             self._holdback.pop(ticket, None)
+            self._ticket_submit_t.pop(ticket, None)
+            if self._monitor is not None:
+                self._monitor.on_ticket_cancelled(ticket)
             return
         if rid != "cancelled" and not isinstance(rid, tuple):
             self.batcher.cancel(rid)

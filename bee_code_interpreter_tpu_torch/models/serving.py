@@ -25,9 +25,13 @@ cancel, preempt, results and logprobs; multi-LoRA serving (``adapters``:
 per-row adapters in one decode pass, adapter admissions through the
 windows); speculative serving (``draft_params``: a draft's own pool over
 the same pages, greedy draft-verify and rejection sampling); serving
-snapshots (``state_dict`` / ``load_state_dict``). Refused with
-``NotImplementedError`` until a later slice ports them (ROADMAP Queue 1):
-``mesh`` and the ``metrics``/``monitor`` hooks.
+snapshots (``state_dict`` / ``load_state_dict``); the observability hooks
+(``metrics``: a ``utils.metrics.Registry`` for the TTFT, inter-token and
+step histograms and the capacity gauges; ``set_monitor``: a
+``ServingMonitor``'s lifecycle and step hooks; ``set_device_monitor``: a
+``DeviceMonitor``'s first-call and step hooks), wired where the JAX batcher
+wires them. ``mesh`` is refused with ``NotImplementedError`` until a later
+slice ports it (ROADMAP Queue 1).
 
 Mixture-of-Experts configs serve as in JAX. Under capacity routing the
 tokens of one forward compete for expert slots, so a request routes
@@ -42,7 +46,9 @@ from __future__ import annotations
 
 import copy
 import hashlib
-from collections import OrderedDict
+import time
+from collections import OrderedDict, deque
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,6 +64,7 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
     seed_from_contiguous,
     seed_prefill,
 )
+from bee_code_interpreter_tpu_torch.utils.jitwatch import TrackedJit
 
 # physical page 0 is the scratch page: idle rows' block tables point at it,
 # so their (masked, ignored) reads and writes never touch a live request's
@@ -65,10 +72,12 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
 _SCRATCH_PAGE = 0
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1)"
-    )
+def _program(name: str, **bound):
+    """``transformer.<name>`` with ``bound`` keywords, the function looked
+    up at each call as a direct call would look it up."""
+    def call(*args, **kwargs):
+        return getattr(transformer, name)(*args, **bound, **kwargs)
+    return call
 
 
 @dataclass(frozen=True)
@@ -262,6 +271,14 @@ class ContinuousBatcher:
     one ``decode_window_paged`` and each row commits its own accepted
     prefix plus one token: the target's argmax for greedy rows, rejection
     sampling for sampled ones. Greedy rows equal plain greedy decoding.
+
+    ``metrics`` (a ``utils.metrics.Registry``) and ``monitor`` (a duck-typed
+    ``observability.ServingMonitor``, usually attached later through
+    ``monitor.attach``) are the JAX batcher's instrumentation: the same
+    metric names, step records and lifecycle hooks at the same points. With
+    neither, nor a device monitor, a step is one ``None`` check away from
+    the bare step, and no hook adds a device sync: gauges and step records
+    read the host's numpy bookkeeping.
     """
 
     def __init__(
@@ -285,13 +302,11 @@ class ContinuousBatcher:
         monitor=None,
         device: torch.device | str | None = None,
     ) -> None:
-        for name, value in (
-            ("tensor-parallel serving (mesh)", mesh),
-            ("the metrics hook", metrics),
-            ("the monitor hook", monitor),
-        ):
-            if value is not None:
-                raise not_ported(name)
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh) is not ported to the PyTorch "
+                "package yet (ROADMAP Queue 1)"
+            )
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -398,13 +413,147 @@ class ContinuousBatcher:
         # row -> interleaved admission in progress: the row is occupied but
         # not active until its last window ran
         self.prefill_state: dict[int, dict] = {}
-        # lifetime telemetry (not serving state: a restored snapshot
-        # realigns them): page churn, held pages = allocated - released, and
-        # speculative proposals accepted / rejected
+        # the programs of the JAX batcher under its names, tracked so that an
+        # attached device monitor sees the first call at each signature (the
+        # monitor resolves per call: one None check while unmonitored). The
+        # verify pass is a window over the target pool, one program with the
+        # suffix-admission windows, as in JAX.
+        self._device_monitor = None
+        self._mesh_key = "1"  # the shape key of one card (no mesh)
+        self._decode = self._track(
+            _program("decode_step_paged", config=config), "decode_step_paged"
+        )
+        self._prefill = self._track(
+            _program("forward", config=config, return_kv=True),
+            "prefill_forward",
+        )
+        self._prefill_chunked = self._track(
+            _program("prefill_chunked", config=config), "prefill_chunked"
+        )
+        self._window = self._track(
+            _program("decode_window_paged", config=config),
+            "decode_window_paged",
+        )
+        self._verify = self._window
+        if draft_config is not None:
+            self._draft_decode = self._track(
+                _program("decode_step_paged", config=draft_config),
+                "draft_decode_step_paged",
+            )
+            self._draft_prefill = self._track(
+                _program("forward", config=draft_config, return_kv=True),
+                "draft_prefill_forward",
+            )
+            self._draft_window = self._track(
+                _program("decode_window_paged", config=draft_config),
+                "draft_decode_window_paged",
+            )
+        # Instrumentation (JAX serving.py:622-716). ``metrics`` is a
+        # utils.metrics Registry; None keeps the step loop metrics-free.
+        # ``monitor`` is a duck-typed ServingMonitor, usually injected
+        # through monitor.attach -> set_monitor.
+        self._metrics = metrics
+        self._monitor = monitor
+        # Lifetime telemetry that the monitor's step records difference: page
+        # churn (held pages = allocated - released), prompt tokens prefilled,
+        # speculative proposals accepted / rejected. Not serving state (not
+        # in _HOST_STATE): a restored batcher counts from its own zero.
         self._pages_allocated = 0
         self._pages_released = 0
+        self._prefill_tokens = 0
         self._spec_accepted = 0
         self._spec_rejected = 0
+        self._t_submit: float | None = None  # the TTFT anchor (metrics only)
+        if metrics is not None:
+            from bee_code_interpreter_tpu_torch.utils.metrics import (
+                TOKEN_LATENCY_BUCKETS,
+            )
+
+            self._ttft_seconds = metrics.histogram(
+                "bci_serving_ttft_seconds",
+                "Time from submit to a request's first generated token",
+                buckets=TOKEN_LATENCY_BUCKETS,
+            )
+            self._inter_token_seconds = metrics.histogram(
+                "bci_serving_inter_token_seconds",
+                "Per-row latency between consecutive generated tokens",
+                buckets=TOKEN_LATENCY_BUCKETS,
+            )
+            self._step_seconds = metrics.histogram(
+                "bci_serving_step_seconds",
+                "Wall time of one batcher step",
+                buckets=TOKEN_LATENCY_BUCKETS,
+            )
+            self._tokens_total = metrics.counter(
+                "bci_serving_tokens_total",
+                "Tokens generated across all requests",
+            )
+            metrics.gauge(
+                "bci_serving_active_rows",
+                "Batch rows currently decoding",
+                lambda: int(self.active.sum()),
+            )
+            metrics.gauge(
+                "bci_serving_batch_occupancy",
+                "Fraction of batch rows decoding (0-1)",
+                lambda: float(self.active.sum()) / float(self.active.shape[0]),
+            )
+            metrics.gauge(
+                "bci_serving_free_pages",
+                "KV-cache pages on the free list",
+                lambda: len(self.free_pages),
+            )
+            metrics.gauge(
+                "bci_serving_tokens_per_second",
+                "Decode throughput over the recent step window",
+                self._tokens_per_second,
+            )
+            self._tokens_counted = 0
+            # (monotonic time, cumulative tokens) samples; the rate gauge
+            # reads their spread, so a scrape pays a subtraction
+            self._rate_samples: deque[tuple[float, int]] = deque(maxlen=512)
+
+    # the throughput gauge's window: older samples are dropped when it is
+    # read, and a gauge whose newest sample is older reads 0 (an idle server
+    # must not report its last burst's rate forever)
+    _RATE_WINDOW_S = 30.0
+
+    def _tokens_per_second(self) -> float:
+        s = self._rate_samples
+        if len(s) < 2:
+            return 0.0
+        now = time.monotonic()
+        if now - s[-1][0] > self._RATE_WINDOW_S:
+            return 0.0
+        while len(s) > 2 and now - s[0][0] > self._RATE_WINDOW_S:
+            s.popleft()
+        (t0, n0), (t1, n1) = s[0], s[-1]
+        return (n1 - n0) / (t1 - t0) if t1 > t0 else 0.0
+
+    def _sync_token_counter(self) -> None:
+        """Advance the token counter to the lifetime total, whichever path
+        (step, admission, interleaved activation) produced the tokens."""
+        delta = self.n_tokens_generated - self._tokens_counted
+        if delta > 0:
+            self._tokens_total.inc(delta)
+            self._tokens_counted = self.n_tokens_generated
+
+    def set_monitor(self, monitor) -> None:
+        """Attach (or detach, with None) a lifecycle monitor
+        (``ServingMonitor.attach`` calls this). Requests already in flight
+        are not traced retroactively."""
+        self._monitor = monitor
+
+    def _track(self, fn, name: str) -> TrackedJit:
+        """Wrap a program so an attached device monitor sees its first call
+        at each signature."""
+        return TrackedJit(fn, name, lambda: self._device_monitor)
+
+    def set_device_monitor(self, monitor) -> None:
+        """Attach (or detach, with None) a first-call and step telemetry
+        monitor (``DeviceMonitor.attach`` calls this). Signatures called
+        before attachment are not reported."""
+        self._device_monitor = monitor
 
     def kv_telemetry(self) -> dict:
         """Page accounting, slot-level fragmentation of the pool, the
@@ -506,6 +655,16 @@ class ContinuousBatcher:
         self.evictable = OrderedDict(
             (page, None) for page in state["host"]["evictable"]
         )
+        # Metrics are per process, not serving state: realign the token
+        # counter's cursor so the restored total does not replay into it,
+        # clear the throughput window, and drop the TTFT anchors (monotonic
+        # times of the snapshotting process's clock).
+        self._t_submit = None
+        for rec in self.prefill_state.values():
+            rec.pop("t_submit", None)
+        if self._metrics is not None:
+            self._tokens_counted = self.n_tokens_generated
+            self._rate_samples.clear()
         # the telemetry counters are per process, but the adopted refcounts
         # change what "held" means: realign so allocated - released keeps
         # equalling the pool's ref > 0 count from here on
@@ -622,6 +781,7 @@ class ContinuousBatcher:
         prefill: submit allocates the row and pages and runs no model, and
         each ``step`` first runs one window of that width, so the other
         rows keep decoding while a long prompt admits."""
+        t_submit = time.monotonic()  # the TTFT anchor (metrics only)
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         n_need = self.validate_request(
             prompt, max_new_tokens, sampling=sampling, adapter=adapter,
@@ -663,56 +823,88 @@ class ContinuousBatcher:
             self.prefix_stats["pages_reused"] += matched
         row = int(free_rows[0])
         pages = shared + [self._alloc_page() for _ in range(n_need - matched)]
+        # the request id is born once the row and pages are secured: the
+        # lifecycle monitor needs it before any prefill runs
         req = self._next_request_id
         self._next_request_id += 1
-        try:
-            if interleave_admission is not None:
-                # no model runs now; the global table keeps the row on the
-                # scratch page until activation, the windows carry their own
-                record = self._prefill_record(
-                    prompt, pages, hashes, matched, interleave_admission,
-                    sampling, max_new_tokens, req, adapter_internal,
-                )
-                if speculative:
-                    self._zero_draft_pages(pages[matched:])
-            else:
-                self.block_table[row, :] = _SCRATCH_PAGE
-                self.block_table[row, :n_need] = pages
-                if matched or adapter_internal > 0:
-                    # window admissions: prefix hits, and every adapter
-                    # admission (matched == 0 makes the whole prompt the
-                    # suffix); the windows are lora- and quantization-aware.
-                    # Only the fresh draft pages are zeroed: matched ones
-                    # hold draft K/V other rows may be sharing.
+        if self._monitor is not None:
+            self._monitor.on_submit(
+                req,
+                prompt_tokens=L,
+                max_new_tokens=max_new_tokens,
+                pages=n_need,
+                prefix_pages=matched,
+                adapter=adapter,
+                speculative=speculative,
+                interleaved=interleave_admission is not None,
+            )
+        # admission runs under the request's trace (monitor attached): the
+        # first call of a program at a new prefill shape lands as an
+        # ``xla.compile`` span in this request's span tree
+        admit_ctx = (
+            self._monitor.exemplar_context(req)
+            if self._monitor is not None
+            else nullcontext()
+        )
+        with admit_ctx:
+            try:
+                if interleave_admission is not None:
+                    # no model runs now; the global table keeps the row on
+                    # the scratch page until activation, the windows carry
+                    # their own
+                    record = self._prefill_record(
+                        prompt, pages, hashes, matched, interleave_admission,
+                        sampling, max_new_tokens, req, adapter_internal,
+                        t_submit,
+                    )
                     if speculative:
                         self._zero_draft_pages(pages[matched:])
-                    last_row = self._suffix_admit(
-                        row, prompt, matched, speculative, prefill_chunk,
-                        adapter_internal,
-                    )
                 else:
-                    last_row = self._full_admit(prompt, pages, L, speculative,
-                                                prefill_chunk)
-        except BaseException:
-            # a failed admission must not leak its pages or its row: the row
-            # never activated, so nothing else would return them (the JAX
-            # batcher leaks them when its interleaved branch fails)
-            self._drop_row_pages(row, pages)
-            raise
-        if interleave_admission is not None:
-            self.prefill_state[row] = record
-            self.results[req] = []
-            self.done[req] = False
-            return req
-        return self._activate_row(row, last_row, pages, hashes, L, sampling,
-                                  max_new_tokens, req, adapter_internal,
-                                  propagate=True)
+                    self.block_table[row, :] = _SCRATCH_PAGE
+                    self.block_table[row, :n_need] = pages
+                    if matched or adapter_internal > 0:
+                        # window admissions: prefix hits, and every adapter
+                        # admission (matched == 0 makes the whole prompt the
+                        # suffix); the windows are lora- and
+                        # quantization-aware. Only the fresh draft pages are
+                        # zeroed: matched ones hold draft K/V other rows may
+                        # be sharing.
+                        if speculative:
+                            self._zero_draft_pages(pages[matched:])
+                        last_row = self._suffix_admit(
+                            row, prompt, matched, speculative, prefill_chunk,
+                            adapter_internal,
+                        )
+                    else:
+                        last_row = self._full_admit(prompt, pages, L,
+                                                    speculative, prefill_chunk)
+            except BaseException as e:
+                # a failed admission must not leak its pages or its row: the
+                # row never activated, so nothing else would return them
+                # (the JAX batcher leaks them when its interleaved branch
+                # fails)
+                self._drop_row_pages(row, pages)
+                if self._monitor is not None:
+                    self._monitor.on_done(req, "error", tokens=0,
+                                          error=repr(e))
+                raise
+            if interleave_admission is not None:
+                self.prefill_state[row] = record
+                self.results[req] = []
+                self.done[req] = False
+                return req
+            self._prefill_tokens += L - matched * self.page_size
+            self._t_submit = t_submit
+            return self._activate_row(row, last_row, pages, hashes, L,
+                                      sampling, max_new_tokens, req,
+                                      adapter_internal, propagate=True)
 
     def _prefill_record(self, prompt, pages, hashes, matched, width,
-                        sampling, max_new_tokens, req,
-                        adapter_internal=0) -> dict:
+                        sampling, max_new_tokens, req, adapter_internal,
+                        t_submit) -> dict:
         """The state of an interleaved admission: the suffix after any
-        prefix hit, padded to whole pages, and the row's own table."""
+        prefix hit, padded to whole pages, the row's own table and the TTFT
+        anchor."""
         start = matched * self.page_size
         bt_row = np.full((1, self.block_table.shape[1]), _SCRATCH_PAGE,
                          dtype=np.int32)
@@ -725,6 +917,7 @@ class ContinuousBatcher:
             "max_new_tokens": max_new_tokens, "last_row": None,
             "adapter_internal": adapter_internal,
             "speculative": self.draft_params is not None,
+            "t_submit": t_submit,
         }
 
     def _padded_suffix(self, prompt, start: int) -> np.ndarray:
@@ -755,9 +948,13 @@ class ContinuousBatcher:
                 self.results_logprobs[req] = []
             self.done[req] = True
             self.finish[req] = "constraint"
+            if self._monitor is not None:
+                self._monitor.on_done(req, "constraint", tokens=0)
             return req
         except BaseException as e:
             self._drop_row_pages(row, pages)
+            if self._monitor is not None:
+                self._monitor.on_done(req, "error", tokens=0, error=repr(e))
             if propagate:
                 raise
             self.done[req] = True
@@ -777,6 +974,27 @@ class ContinuousBatcher:
         self.row_rng[row] = rng
         self.results[req] = [first]
         self.n_tokens_generated += 1
+        if self._monitor is not None:
+            # the first token exists: the prefill span closes, TTFT is fixed
+            # and the decode span opens, before the metric below (whose
+            # exemplar context needs the live record)
+            self._monitor.on_first_token(req)
+        if self._metrics is not None:
+            if self._t_submit is not None:
+                # under the request's trace, so the exemplar of
+                # bci_serving_ttft_seconds names the trace id of its wide
+                # event
+                ctx = (
+                    self._monitor.exemplar_context(req)
+                    if self._monitor is not None
+                    else nullcontext()
+                )
+                with ctx:
+                    self._ttft_seconds.observe(
+                        time.monotonic() - self._t_submit
+                    )
+                self._t_submit = None
+            self._sync_token_counter()
         if sampling.logprobs:
             self.results_logprobs[req] = [logprob_of(last_row, first)]
         self.done[req] = False
@@ -816,24 +1034,43 @@ class ContinuousBatcher:
             rec = self.prefill_state[row]
             done_tokens = rec["pos"] - rec["start"]
             win = rec["suffix"][done_tokens:done_tokens + rec["width"]]
-            last = self._window(win, rec["pos"], rec["bt_row"], rec["L"],
-                                rec["adapter_internal"], rec["speculative"])
+            t_win = time.monotonic()
+            # under the request's trace (monitor attached): the first call
+            # at a new window width is this request's
+            win_ctx = (
+                self._monitor.exemplar_context(rec["req"])
+                if self._monitor is not None
+                else nullcontext()
+            )
+            with win_ctx:
+                last = self._admit_window(
+                    win, rec["pos"], rec["bt_row"], rec["L"],
+                    rec["adapter_internal"], rec["speculative"],
+                )
             if last is not None:
                 rec["last_row"] = last
             rec["pos"] += int(win.shape[0])
+            self._prefill_tokens += int(win.shape[0])
+            if self._monitor is not None:
+                self._monitor.on_prefill_window(
+                    rec["req"],
+                    tokens=int(win.shape[0]),
+                    duration_s=time.monotonic() - t_win,
+                )
             if done_tokens + rec["width"] >= len(rec["suffix"]):
                 del self.prefill_state[row]
                 n_need = len(rec["pages"])
                 self.block_table[row, :] = _SCRATCH_PAGE
                 self.block_table[row, :n_need] = rec["pages"]
+                self._t_submit = rec.get("t_submit")
                 self._activate_row(
                     row, rec["last_row"], rec["pages"], rec["hashes"],
                     rec["L"], rec["sampling"], rec["max_new_tokens"],
                     rec["req"], rec["adapter_internal"],
                 )
 
-    def _window(self, win, pos, bt_row, L, adapter_internal=0,
-                speculative=False) -> np.ndarray | None:
+    def _admit_window(self, win, pos, bt_row, L, adapter_internal=0,
+                      speculative=False) -> np.ndarray | None:
         """One admission window: ``decode_window_paged`` over one row's
         table, under the row's adapter; in speculative mode the draft pool
         replays it, so both pools stay in step. Returns the last prompt
@@ -842,14 +1079,13 @@ class ContinuousBatcher:
         win_t = torch.as_tensor(win[None, :], device=dev)
         pos_t = torch.as_tensor([pos], dtype=torch.int32, device=dev)
         bt_t = torch.as_tensor(bt_row, device=dev)
-        logits, self.cache = transformer.decode_window_paged(
-            self.params, win_t, pos_t, self.cache, bt_t, self.config,
+        logits, self.cache = self._window(
+            self.params, win_t, pos_t, self.cache, bt_t,
             **self._lora_kwargs(np.array([adapter_internal])),
         )
         if speculative:
-            _, self.draft_cache = transformer.decode_window_paged(
+            _, self.draft_cache = self._draft_window(
                 self.draft_params, win_t, pos_t, self.draft_cache, bt_t,
-                self.draft_config,
             )
         idx = L - 1 - pos  # the last real token's index in this window
         if 0 <= idx < win.shape[0]:
@@ -882,25 +1118,20 @@ class ContinuousBatcher:
         if speculative:
             self._zero_draft_pages(pages)
         if prefill_chunk is not None:
-            last_logits, contig = transformer.prefill_chunked(
+            last_logits, contig = self._prefill_chunked(
                 self.params, torch.as_tensor(prompt[None, :], device=self.device),
-                self.config, total_len=n_prompt_pages * self.page_size,
-                chunk=prefill_chunk,
+                total_len=n_prompt_pages * self.page_size, chunk=prefill_chunk,
             )
             seed_from_contiguous(self.cache, pages_t,
                                  {name: x[:, 0] for name, x in contig.items()})
             last_row = last_logits[0].cpu().numpy()
         else:
-            logits, (k_pre, v_pre) = transformer.forward(
-                self.params, tokens, self.config, return_kv=True
-            )
+            logits, (k_pre, v_pre) = self._prefill(self.params, tokens)
             seed_prefill(self.cache, pages_t,
                          k_pre[:, 0, :, :L, :], v_pre[:, 0, :, :L, :])
             last_row = logits[0, L - 1, :].cpu().numpy()
         if speculative:
-            _, (dk, dv) = transformer.forward(
-                self.draft_params, tokens, self.draft_config, return_kv=True
-            )
+            _, (dk, dv) = self._draft_prefill(self.draft_params, tokens)
             seed_prefill(self.draft_cache, pages_t,
                          dk[:, 0, :, :L, :], dv[:, 0, :, :L, :])
         return last_row
@@ -924,9 +1155,10 @@ class ContinuousBatcher:
         bt_row = self.block_table[row:row + 1]
         last_row = None
         for off in range(0, len(suffix), width):
-            last = self._window(suffix[off:off + width], start + off, bt_row,
-                                int(prompt.shape[0]), adapter_internal,
-                                speculative)
+            last = self._admit_window(
+                suffix[off:off + width], start + off, bt_row,
+                int(prompt.shape[0]), adapter_internal, speculative,
+            )
             if last is not None:
                 last_row = last
         return last_row
@@ -1028,7 +1260,73 @@ class ContinuousBatcher:
         """Advance every active row by one token (or, speculative, by its
         own accepted length plus one); interleaved admissions first run one
         window each, so their prefill and the batch's decode share the step
-        cadence."""
+        cadence.
+
+        With a metrics registry, each step also observes its wall time, the
+        per-row inter-token latency (the step's time scaled by the tokens
+        each row committed) and the throughput window; with a lifecycle
+        monitor, it lands one step record (JAX serving.py:1641-1661); with a
+        device monitor, its time under the mesh shape key. The time runs
+        around the whole step, whose decode ends in the host read of its
+        tokens, so on the card it includes the step's device work."""
+        if (
+            self._metrics is None
+            and self._monitor is None
+            and self._device_monitor is None
+        ):
+            self._step_inner()
+            return
+        rows_before = int(np.count_nonzero(self.active))
+        prefilling_before = len(self.prefill_state)
+        tokens_before = self.n_tokens_generated
+        prefill_before = self._prefill_tokens
+        spec_acc_before = self._spec_accepted
+        spec_rej_before = self._spec_rejected
+        alloc_before = self._pages_allocated
+        released_before = self._pages_released
+        t0 = time.monotonic()
+        self._step_inner()
+        t1 = time.monotonic()
+        produced = self.n_tokens_generated - tokens_before
+        if self._metrics is not None:
+            self._step_seconds.observe(t1 - t0)
+            if produced:
+                if rows_before:
+                    self._inter_token_seconds.observe(
+                        (t1 - t0) * rows_before / produced
+                    )
+                self._rate_samples.append((t1, self.n_tokens_generated))
+            self._sync_token_counter()
+        if self._device_monitor is not None:
+            self._device_monitor.record_step(
+                (t1 - t0) * 1000.0, shape=self._mesh_key
+            )
+        if self._monitor is not None:
+            # occupancy is not a field: active_rows / max_batch is the
+            # reader's to derive
+            self._monitor.on_step(
+                {
+                    "duration_ms": (t1 - t0) * 1000.0,
+                    "mesh": self._mesh_key,
+                    "active_rows": rows_before,
+                    "active_rows_after": int(np.count_nonzero(self.active)),
+                    "prefilling_rows": prefilling_before,
+                    "max_batch": int(self.active.shape[0]),
+                    "decode_tokens": produced,
+                    "prefill_tokens": self._prefill_tokens - prefill_before,
+                    "spec_accepted": self._spec_accepted - spec_acc_before,
+                    "spec_rejected": self._spec_rejected - spec_rej_before,
+                    "pages_allocated": self._pages_allocated - alloc_before,
+                    "pages_released": self._pages_released - released_before,
+                    "free_pages": len(self.free_pages),
+                    "parked_pages": len(self.evictable),
+                    # allocated - released is the held count (a release is
+                    # counted when a page's refcount reaches 0)
+                    "held_pages": self._pages_allocated - self._pages_released,
+                }
+            )
+
+    def _step_inner(self) -> None:
         if self.prefill_state:
             self._advance_prefills()
         if not self.active.any():
@@ -1037,13 +1335,12 @@ class ContinuousBatcher:
             self._step_speculative()
             return
         dev = self.device
-        logits, self.cache = transformer.decode_step_paged(
+        logits, self.cache = self._decode(
             self.params,
             torch.as_tensor(self.current, device=dev),
             torch.as_tensor(self.pos, device=dev),
             self.cache,
             torch.as_tensor(self.block_table, device=dev),
-            self.config,
             **self._lora_kwargs(self.row_adapter),
         )
         active_rows = np.flatnonzero(self.active)
@@ -1097,8 +1394,8 @@ class ContinuousBatcher:
 
     def _draft_step(self, tok, p, bt):
         """One draft decode step over the draft pool: f32 logits [B, V]."""
-        lg, self.draft_cache = transformer.decode_step_paged(
-            self.draft_params, tok, p, self.draft_cache, bt, self.draft_config
+        lg, self.draft_cache = self._draft_decode(
+            self.draft_params, tok, p, self.draft_cache, bt
         )
         return lg[:, -1, :]
 
@@ -1134,8 +1431,8 @@ class ContinuousBatcher:
             p = p + 1
         drafts_dev = torch.cat(drafts, dim=1)  # [B, gamma]
         window = torch.cat([cur, drafts_dev], dim=1)  # [B, gamma + 1]
-        t_logits, self.cache = transformer.decode_window_paged(
-            self.params, window, pos_dev, self.cache, bt, self.config,
+        t_logits, self.cache = self._verify(
+            self.params, window, pos_dev, self.cache, bt,
             **self._lora_kwargs(self.row_adapter),
         )
         t_pred = torch.argmax(t_logits, dim=-1).to(torch.int32).cpu().numpy()
@@ -1162,6 +1459,8 @@ class ContinuousBatcher:
         req = int(self.row_request[row])
         self._spec_accepted += n
         self._spec_rejected += self.gamma - n
+        if self._monitor is not None:
+            self._monitor.on_commit(req, accepted=n, rejected=self.gamma - n)
         out = self.results[req]
         lp = self.results_logprobs.get(req) if sp.logprobs else None
         for j, tok_committed in enumerate(commit):
@@ -1208,8 +1507,8 @@ class ContinuousBatcher:
             tok = torch.as_tensor(drafts_np[:, g:g + 1], device=dev)
             p = p + 1
         window = torch.cat([cur, torch.as_tensor(drafts_np, device=dev)], dim=1)
-        t_logits, self.cache = transformer.decode_window_paged(
-            self.params, window, pos_dev, self.cache, bt, self.config,
+        t_logits, self.cache = self._verify(
+            self.params, window, pos_dev, self.cache, bt,
             **self._lora_kwargs(self.row_adapter),
         )
         t_np = t_logits.cpu().numpy()  # [B, gamma + 1, V]
@@ -1274,10 +1573,18 @@ class ContinuousBatcher:
             self._release_page(page)
         self.block_table[row, :] = _SCRATCH_PAGE
         # pos stays for inspection; scratch-page writes are masked
+        if self._monitor is not None:
+            self._monitor.on_done(
+                req, reason, tokens=len(out), error=self.errors.get(req)
+            )
 
     # -------------------------------------------------------------- results
     @property
     def stats(self) -> dict:
+        """Operator counters (JAX serving.py:1969): occupancy, page
+        accounting, lifetime totals and the prefix cache's counters; host
+        bookkeeping only, cheap on every scrape (``ServingMonitor.snapshot``
+        reads it)."""
         return {
             "active_rows": int(self.active.sum()),
             "prefilling_rows": len(self.prefill_state),
@@ -1345,6 +1652,8 @@ class ContinuousBatcher:
             self.finish[request_id] = "cancelled"
             if rec["sampling"] is not None and rec["sampling"].logprobs:
                 self.results_logprobs[request_id] = []
+            if self._monitor is not None:
+                self._monitor.on_done(request_id, "cancelled", tokens=0)
             return
         if request_id not in self.done:
             raise KeyError(f"unknown request {request_id}")
@@ -1359,6 +1668,8 @@ class ContinuousBatcher:
             return False
         self.results.pop(request_id, None)
         self.done.pop(request_id, None)
+        if self._monitor is not None:
+            self._monitor.on_preempt(request_id)
         return True
 
     def _drop_prefill(self, request_id: int) -> dict | None:

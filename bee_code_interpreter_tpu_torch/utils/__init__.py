@@ -1,1 +1,2 @@
-"""Utilities of the PyTorch port (training-state checkpoints)."""
+"""Utilities of the PyTorch port: training-state checkpoints, the metrics
+registry and the first-call wrappers of the batcher's programs."""

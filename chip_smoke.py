@@ -30,7 +30,21 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    64-1024 tokens on 8 rows, 32 new tokens each, greedy and seeded sampled;
    the launch counts of K1 and K2 must match the admissions and decode
    steps; a second identical run must give identical tokens.
-6. admission and KV caches, on the same weights, each with its own launch
+6. serving observability, on the same weights: ``serving_bench``
+   (``run_serving_bench`` of the port: 8 requests of 128-130 tokens, 64 new
+   tokens each, greedy, 8 rows, pages of 16, a warm-up pass per arm then 3
+   alternating rounds of the instrumented arm (registry, ServingMonitor,
+   DeviceMonitor) against the bare one: the arms token-identical, K1 once
+   per layer and admission and K2 once per layer and decode step over every
+   pass, the memory row from ``torch.cuda.memory_stats`` with live bytes at
+   least the weights and one pool and the limit ``mem_get_info``'s total;
+   prints the bench's dict, the step histogram's count, the first calls by
+   trigger with their times and the HBM gauges; ``overhead_ok`` printed, not
+   enforced) and ``serving_profile`` (a ``ServingProfiler`` over a monitored
+   engine in main_path's geometry: 4 decode steps at 8 rows captured with
+   CUDA activity; the Chrome trace must hold K2's split and merge kernels
+   once per layer and captured step).
+7. admission and KV caches, on the same weights, each with its own launch
    counts: ``admission_prefix`` (8 requests sharing a 512-token system
    prompt, prefix cache on: 7 hits reusing 224 pages, K1 only for the miss,
    consistent page totals, each hit's first-token logits against a one-shot
@@ -60,7 +74,7 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    storage kept); ``beam_search`` (B=1, L=256, beam 4, 16 tokens; beam 1
    equals ``generate_cached``) and ``speculative_generate`` (the same
    prompt, gamma 4, 32 tokens).
-7. Mixture-of-Experts serving, the Llama weights freed first, at
+8. Mixture-of-Experts serving, the Llama weights freed first, at
    ``TransformerConfig.mixtral_8x7b()`` widths (vocab 32000, d 4096, 32/8
    heads, d_ff 14336, 8 experts, top-2; random weights from a seed):
    ``moe_reference`` (2 layers, bf16 on the card against the f32 plain path
@@ -74,16 +88,16 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    each alone, token agreement reported; a shared-prefix pair with a prefix
    hit; a probe of one prompt alone and beside another, which tells a
    routing change from a GEMM's reduction order).
-8. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
+9. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits.
-9. training reference: one training step of the decoder cut to 2 layers at
+10. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
    gradient; then ``lora_train``, two ``make_lora_train_step`` steps of a
    rank-16 adapter on the same cut: loss and the factors' gradients against
    the CPU's from the same factors, the base unchanged bit for bit.
-10. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut
+11. training path: ``Transformer.make_train_step`` on Llama-3-8B widths cut
    to 8 layers (f32 masters and AdamW state do not fit one card at 32), one
    fixed batch of 2 x 1024 tokens, 4 steps: falling loss, a finite non-zero
    gradient on every leaf after step 1, K1/K3/K4 each launched once per
@@ -91,7 +105,7 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    layers (3.16 B parameters, 50.6 GB of masters, gradients and moments),
    loss and aux per step, after a 1-layer L=128 check of the first step's
    loss, aux and router gradient norm against the f32 CPU path.
-11. ``hf_load``: an HF-named Llama state dict (Llama-3-8B widths, 2 layers)
+12. ``hf_load``: an HF-named Llama state dict (Llama-3-8B widths, 2 layers)
    built on the card from ``init_params``, loaded by ``load_llama_params``:
    every leaf and the logits bitwise equal to the source's.
 
@@ -107,6 +121,7 @@ import dataclasses
 import gc
 import json
 import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -136,6 +151,9 @@ from bee_code_interpreter_tpu_torch.models.serving import (  # noqa: E402
     ContinuousBatcher,
     SamplingParams,
 )
+from bee_code_interpreter_tpu_torch.models.serving_bench import (  # noqa: E402
+    run_serving_bench,
+)
 from bee_code_interpreter_tpu_torch.models.speculative import (  # noqa: E402
     speculative_generate,
 )
@@ -157,6 +175,14 @@ from bee_code_interpreter_tpu_torch.ops.weight_quant import (  # noqa: E402
     quantize_weights,
     quantized_nbytes,
 )
+from bee_code_interpreter_tpu_torch.observability import (  # noqa: E402
+    DeviceMonitor,
+    FlightRecorder,
+    ServingMonitor,
+    ServingProfiler,
+    TraceStore,
+)
+from bee_code_interpreter_tpu_torch.utils.metrics import Registry  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -213,6 +239,14 @@ SPEC_GAMMA = 4
 DRAFT_3B = dict(d_model=3072, n_layers=28, n_heads=24, n_kv_heads=8,
                 d_ff=8192)
 SNAPSHOT_AFTER_STEPS = 8
+# serving_bench: run_serving_bench at Llama-3-8B, 8 requests of 128-130
+# tokens (prompt i: 128 + i % 3 tokens, numpy seed i), 64 new tokens each,
+# greedy, 8 rows, pages of 16; a warm-up pass per arm, then 3 alternating
+# rounds of one pass per arm
+BENCH = dict(n_requests=8, prompt_len=128, max_new_tokens=64, repeats=3,
+             inner=1, max_batch=8, page_size=16)
+# serving_profile: decode steps captured at 8 rows
+PROFILE_STEPS = 4
 # lora_train: Llama-3-8B widths cut to 2 layers, B=1, L=128, 2 steps
 LORA_TRAIN_LAYERS, LORA_TRAIN_STEPS = 2, 2
 # (B, Lq, Lk, causal, window): the largest prefill the serving path runs
@@ -1428,6 +1462,149 @@ def speculative_generate_phase(params, cfg) -> dict:
             "seconds": spec_s, "generate_cached_seconds": greedy_s}
 
 
+# ------------------------------------------------------------ observability
+
+
+def serving_bench(params, cfg) -> dict:
+    """``run_serving_bench`` on main_path's weights (``BENCH``): the
+    instrumented arm (registry, ServingMonitor, DeviceMonitor) against the
+    bare one. The arms must decode the same tokens (the bench raises
+    otherwise); K1 must run once per layer and admission and K2 once per
+    layer and decode step, over both arms' passes; the HBM rows must be the
+    allocator's (live bytes at least the weights and one pool) with the
+    card's total as limit. ``overhead_ok`` is printed, not enforced."""
+    dev = params["embed"].device
+    instruments: dict = {}
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    steps, undo = count_decode_steps()
+    t = time.perf_counter()
+    try:
+        out = run_serving_bench(config=cfg, params=params, device=dev,
+                                instruments=instruments, **BENCH)
+    finally:
+        undo()
+    seconds = time.perf_counter() - t
+    k1, k2, n_steps = fa.FLASH_FWD.launches, pa.PAGED_DECODE.launches, steps[0]
+    passes = 2 + 2 * BENCH["repeats"] * BENCH["inner"]  # warm-ups + rounds
+    admissions = BENCH["n_requests"] * passes
+    check(k1 == cfg.n_layers * admissions,
+          f"serving_bench: flash_fwd launched {k1} times, expected "
+          f"{cfg.n_layers} x {admissions} admissions")
+    check(n_steps > 0 and k2 == cfg.n_layers * n_steps,
+          f"serving_bench: paged_decode launched {k2} times over {n_steps} "
+          "decode steps")
+    registry = instruments["registry"]
+    device = instruments["device_monitor"]
+    rows = device.sample_memory()
+    _, engine = instruments["engines"]
+    pool_bytes = sum(x.numel() * x.element_size()
+                     for x in engine.batcher.cache.values())
+    param_bytes = sum(w.numel() * w.element_size()
+                      for w in transformer.param_leaves(params))
+    total = torch.cuda.mem_get_info(dev)[1]
+    row = next(r for r in rows if r["device"] == f"gpu:{dev.index}")
+    check(not row["estimated"] and row["platform"] == "gpu",
+          f"serving_bench: memory row {row}")
+    check(row["live_bytes"] >= param_bytes + pool_bytes,
+          f"serving_bench: live {row['live_bytes']} B under the weights' "
+          f"{param_bytes} B and the pool's {pool_bytes} B")
+    check(row["limit_bytes"] == total,
+          f"serving_bench: limit {row['limit_bytes']} != mem_get_info {total}")
+    snap = device.snapshot()
+    step_records = instruments["serving_monitor"].snapshot(steps=512)
+    step_ms = [r["duration_ms"] for r in step_records["steps"]["last"]
+               if r["decode_tokens"] and not r["prefill_tokens"]]
+    hbm = registry.metrics["bci_device_hbm_bytes"]
+    return {
+        "phase": "serving_bench", **BENCH, "layers": cfg.n_layers,
+        "result": out,
+        "passes": passes, "admissions": admissions, "decode_steps": n_steps,
+        "k1_launches": k1, "k2_launches": k2,
+        "serving_step_seconds_count":
+            registry.metrics["bci_serving_step_seconds"]._totals[()],
+        "instrumented_step_p50_ms": float(np.median(step_ms)),
+        "compile_total_by_trigger": snap["compile"]["by_trigger"],
+        "first_calls": [(r["function"], r["trigger"], r["duration_ms"])
+                        for r in snap["compile"]["recent"]],
+        "hbm_gauges": {f"{dict(k)['device']}/{dict(k)['kind']}": fn()
+                       for k, fn in hbm._fns.items()},
+        "memory_row": row, "param_bytes": param_bytes,
+        "pool_bytes": pool_bytes, "mem_get_info_total": total,
+        "seconds": seconds,
+    }
+
+
+def serving_profile(params, cfg) -> dict:
+    """A ``ServingProfiler`` over a monitored engine on main_path's weights
+    and batcher geometry: 8 requests (``BENCH``'s prompts, 16 new tokens)
+    admitted and decoding, then ``PROFILE_STEPS`` decode steps captured with
+    CUDA activity. The
+    Chrome trace must hold K2's split kernel (``paged_decode_mma_kernel``,
+    or ``paged_decode_kernel`` off the tensor-core path) once per layer and
+    captured step, and its merge (``paged_merge_kernel``) as often when the
+    table is split."""
+    registry = Registry()
+    recorder = FlightRecorder(metrics=registry)
+    monitor = ServingMonitor(metrics=registry, store=TraceStore(),
+                             recorder=recorder)
+    # main_path's geometry: a table of 128 pages, which K2 splits
+    ps, pages, new = 16, 128, 16
+    batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=ps,
+                                max_pages_per_seq=pages,
+                                n_pages=1 + 8 * pages, metrics=registry,
+                                device=params["embed"].device)
+    engine = Engine(batcher, metrics=registry)
+    monitor.attach(engine)
+    DeviceMonitor(metrics=registry, recorder=recorder).attach(engine)
+    prompts = [np.random.default_rng(i).integers(
+        0, cfg.vocab_size, BENCH["prompt_len"] + i % 3, dtype=np.int32)
+        for i in range(8)]
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    tickets = [engine.submit(p, new) for p in prompts]
+    engine.step()  # admits all 8 (K1) and decodes once
+    engine.step()
+    check(int(batcher.active.sum()) == 8, "serving_profile: rows not active")
+    k2_before = pa.PAGED_DECODE.launches
+    out = ServingProfiler(monitor).capture(PROFILE_STEPS)
+    k2_captured = pa.PAGED_DECODE.launches - k2_before
+    trace = json.loads(Path(out["trace_dir"], "trace.json").read_text())
+    shutil.rmtree(out["trace_dir"], ignore_errors=True)
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+
+    def count(*names):
+        return sum(1 for k in kernels if any(n in k for n in names))
+
+    split = count("paged_decode_mma_kernel", "paged_decode_kernel")
+    merge = count("paged_merge_kernel")
+    want = cfg.n_layers * PROFILE_STEPS
+    n_split = -(-pages // pa.split_pages(
+        8, cfg.kv_heads, pages, ps,
+        torch.cuda.get_device_properties(0).multi_processor_count))
+    seen = sorted({k[:80] for k in kernels})
+    check(split == want and k2_captured == want,
+          f"serving_profile: {split} paged decode kernels in the trace and "
+          f"{k2_captured} launches, expected {want}; kernels seen: "
+          f"{seen[:40]}")
+    check(merge == (want if n_split > 1 else 0),
+          f"serving_profile: {merge} merge kernels, {n_split} splits")
+    engine.run_to_completion()
+    check(all(len(engine.result(t)) == new for t in tickets),
+          "serving_profile: wrong result lengths")
+    return {
+        "phase": "serving_profile", "requests": 8, "new_tokens": new,
+        "steps_captured": out["steps"], "capture_ms": out["duration_ms"],
+        "files": out["files"], "kernel_events": len(kernels),
+        "paged_decode_events": split, "paged_merge_events": merge,
+        "splits": n_split, "expected_per_kernel": want,
+        "k1_launches": fa.FLASH_FWD.launches,
+        "k2_launches": pa.PAGED_DECODE.launches,
+        "step_records": monitor.snapshot()["steps"]["recorded"],
+    }
+
+
 # ------------------------------------------------------- Mixture-of-Experts
 
 
@@ -2032,6 +2209,8 @@ def main() -> int:
         return result
 
     for name, phase in (
+        ("serving_bench", lambda: serving_bench(params, cfg)),
+        ("serving_profile", lambda: serving_profile(params, cfg)),
         ("admission_prefix", lambda: admission_prefix(params, cfg)),
         ("admission_chunked", lambda: admission_chunked(params, cfg)),
         ("admission_interleaved", lambda: admission_interleaved(params, cfg)),

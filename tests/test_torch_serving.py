@@ -190,15 +190,25 @@ def test_engine_queue_priorities_and_cancel(models):
 
 
 def test_unported_features_raise(models):
-    """What later slices port still raises (mesh, the metrics and monitor
-    hooks); the int8 pool, the prefix cache, chunked and interleaved
-    admission, preemption, adapters, a draft model and snapshots no longer
-    do."""
+    """What later slices port still raises (mesh); the int8 pool, the prefix
+    cache, chunked and interleaved admission, preemption, adapters, a draft
+    model, snapshots and the metrics and monitor hooks no longer do."""
+    from bee_code_interpreter_tpu_torch.observability import ServingMonitor
+    from bee_code_interpreter_tpu_torch.utils.metrics import Registry
+
     _, tcfg, _, tparams = models
-    for kw in (dict(mesh=object()), dict(metrics=object()),
-               dict(monitor=object())):
-        with pytest.raises(NotImplementedError):
-            torch_serving.ContinuousBatcher(tparams, tcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        torch_serving.ContinuousBatcher(tparams, tcfg, device="cpu",
+                                        mesh=object())
+    registry = Registry()
+    monitor = ServingMonitor(metrics=registry)
+    hooked = torch_serving.ContinuousBatcher(
+        tparams, tcfg, device="cpu", metrics=registry, monitor=monitor,
+    )
+    assert hooked._metrics is registry and hooked._monitor is monitor
+    hooked_engine = torch_engine.Engine(hooked, metrics=registry)
+    assert hooked_engine._monitor is monitor  # inherited from the batcher
+    assert "bci_serving_queue_depth" in registry.metrics
     torch_serving.ContinuousBatcher(
         tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
         device="cpu", prefix_cache=True,
@@ -213,8 +223,7 @@ def test_unported_features_raise(models):
     eng.load_state_dict(eng.state_dict())
     b.load_state_dict(b.state_dict())
     assert b.preempt(0) is False  # no such interleaved admission
-    with pytest.raises(NotImplementedError):
-        torch_engine.Engine(b, metrics=object())
+    torch_engine.Engine(b, metrics=Registry(), monitor=monitor)
 
 
 def test_validation_matches_jax(models):
