@@ -134,7 +134,8 @@ def make_lora_train_step(
     updates the factors in place."""
     if mesh is not None:
         raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP Queue 1)"
+            "training under meshes is not ported yet (ROADMAP Queue 1, "
+            "item 4)"
         )
     optimizer = optimizer or functools.partial(_lora_adamw, lr=1e-3)
 

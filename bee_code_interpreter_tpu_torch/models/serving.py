@@ -30,8 +30,30 @@ snapshots (``state_dict`` / ``load_state_dict``); the observability hooks
 step histograms and the capacity gauges; ``set_monitor``: a
 ``ServingMonitor``'s lifecycle and step hooks; ``set_device_monitor``: a
 ``DeviceMonitor``'s first-call and step hooks), wired where the JAX batcher
-wires them. ``mesh`` is refused with ``NotImplementedError`` until a later
-slice ports it (ROADMAP Queue 1).
+wires them.
+
+Tensor-parallel serving (``mesh``, a ``parallel.make_mesh`` mesh with a tp
+axis) is SPMD: one process per device, where JAX's one controller drives
+them all under GSPMD. Every rank builds the same ``ContinuousBatcher(params,
+config, mesh=mesh)``, calls ``submit`` / ``step`` / ``cancel`` /
+``state_dict`` / ``load_state_dict`` in the same order with the same
+arguments, and the caller reads rank 0's results; every rank's are the same,
+since each samples on its host from the same all-gathered logits with the
+same seeded generators. A rank holds its Megatron shard of the weights
+(``transformer.shard_params``) and a page pool of its ``kv_heads / tp``
+heads, its own allocation; the model functions make the collectives
+(``transformer``'s module docstring). The host loop is unchanged, so the
+int8 pool, speculative decoding with a draft and prefix-cached admission
+ride along. ``state_dict`` gathers the pool shards (a snapshot is
+topology-free) and ``load_state_dict`` takes this rank's heads of a
+snapshot from any topology. Not ported under a mesh yet (ROADMAP Queue 1,
+item 4; JAX serves them through GSPMD): adapters, Mixture-of-Experts
+configs, and mesh axes other than tp (sequence-parallel admission,
+data-parallel axes: replicas are ``models/replicated.py``); each raises
+``NotImplementedError``. Token streams equal the same batcher's solo
+decode, bit for bit, within a mesh; across meshes the partial sums add in
+another order, so, as JAX says, equality there is pinned by the
+environment, not guaranteed.
 
 Mixture-of-Experts configs serve as in JAX. Under capacity routing the
 tokens of one forward compete for expert slots, so a request routes
@@ -63,6 +85,13 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
     pool_telemetry,
     seed_from_contiguous,
     seed_prefill,
+)
+from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    axis_index,
+    group_size,
+    mesh_shape_key,
+    serving_tp,
 )
 from bee_code_interpreter_tpu_torch.utils.jitwatch import TrackedJit
 
@@ -258,6 +287,12 @@ class ContinuousBatcher:
     pressure). ``device`` defaults to CUDA (raises without it); ``params``
     must already live there.
 
+    ``mesh`` turns on tensor-parallel serving (the module docstring): the
+    device defaults to the mesh's device type (this rank's card, or the
+    CPU for a ``device_type="cpu"`` mesh), ``params`` (and
+    ``draft_params``) are the full weights, anywhere, of which this rank
+    keeps its shard, and ``kv_heads`` (the draft's too) must divide by tp.
+
     ``adapters`` (LoRA trees of ``models/lora.py`` on the attention
     projections) are stacked into one bank; ``submit(adapter=i)`` serves a
     request under adapter i, rows under different adapters decoding in one
@@ -302,13 +337,42 @@ class ContinuousBatcher:
         monitor=None,
         device: torch.device | str | None = None,
     ) -> None:
+        self.mesh = mesh
+        self._tp_group = None
+        tp = 1
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported to the PyTorch "
-                "package yet (ROADMAP Queue 1)"
-            )
+            tp, self._tp_group = serving_tp(mesh)
+            if config.n_experts or (
+                draft_config is not None and draft_config.n_experts
+            ):
+                raise NotImplementedError(
+                    "Mixture-of-Experts serving under a mesh is not ported "
+                    "yet (ROADMAP Queue 1, item 4)"
+                )
+            if adapters:
+                raise NotImplementedError(
+                    "multi-LoRA serving under a mesh is not ported yet "
+                    "(ROADMAP Queue 1, item 4)"
+                )
+            if config.kv_heads % tp:
+                raise ValueError(
+                    f"kv_heads {config.kv_heads} not divisible by tp={tp}"
+                )
+            if draft_config is not None and draft_config.kv_heads % tp:
+                raise ValueError(
+                    f"draft kv_heads {draft_config.kv_heads} not divisible "
+                    f"by tp={tp}"
+                )
+            if device is None:
+                device = mesh.device_type
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
+        if mesh is not None:
+            params = transformer.shard_params(params, config, mesh,
+                                              self.device)
+            if draft_params is not None and draft_config is not None:
+                draft_params = transformer.shard_params(
+                    draft_params, draft_config, mesh, self.device)
+        elif params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the batcher "
                 f"runs on {self.device}"
@@ -371,10 +435,14 @@ class ContinuousBatcher:
                     f"draft params live on {draft_params['embed'].device}, "
                     f"the batcher runs on {self.device}"
                 )
-        self.cache = alloc_paged_cache(config, n_pages, page_size, self.device)
+        # under tp each rank's pool holds its kv_heads / tp heads (axis 2),
+        # its own allocation
+        self.cache = alloc_paged_cache(config, n_pages, page_size, self.device,
+                                       kv_heads=config.kv_heads // tp)
         # the draft's own pool, addressed by the same block tables and pages
         self.draft_cache = (
-            alloc_paged_cache(draft_config, n_pages, page_size, self.device)
+            alloc_paged_cache(draft_config, n_pages, page_size, self.device,
+                              kv_heads=draft_config.kv_heads // tp)
             if draft_config is not None else None
         )
         self.block_table = np.full(
@@ -419,33 +487,38 @@ class ContinuousBatcher:
         # verify pass is a window over the target pool, one program with the
         # suffix-admission windows, as in JAX.
         self._device_monitor = None
-        self._mesh_key = "1"  # the shape key of one card (no mesh)
+        self._mesh_key = mesh_shape_key(mesh)  # "1" on one card
+        # under tp every program makes its collectives over the tp group
+        tp_kw = {} if self._tp_group is None else {"tp_group": self._tp_group}
         self._decode = self._track(
-            _program("decode_step_paged", config=config), "decode_step_paged"
+            _program("decode_step_paged", config=config, **tp_kw),
+            "decode_step_paged",
         )
         self._prefill = self._track(
-            _program("forward", config=config, return_kv=True),
+            _program("forward", config=config, return_kv=True, **tp_kw),
             "prefill_forward",
         )
         self._prefill_chunked = self._track(
-            _program("prefill_chunked", config=config), "prefill_chunked"
+            _program("prefill_chunked", config=config, **tp_kw),
+            "prefill_chunked",
         )
         self._window = self._track(
-            _program("decode_window_paged", config=config),
+            _program("decode_window_paged", config=config, **tp_kw),
             "decode_window_paged",
         )
         self._verify = self._window
         if draft_config is not None:
             self._draft_decode = self._track(
-                _program("decode_step_paged", config=draft_config),
+                _program("decode_step_paged", config=draft_config, **tp_kw),
                 "draft_decode_step_paged",
             )
             self._draft_prefill = self._track(
-                _program("forward", config=draft_config, return_kv=True),
+                _program("forward", config=draft_config, return_kv=True,
+                         **tp_kw),
                 "draft_prefill_forward",
             )
             self._draft_window = self._track(
-                _program("decode_window_paged", config=draft_config),
+                _program("decode_window_paged", config=draft_config, **tp_kw),
                 "draft_decode_window_paged",
             )
         # Instrumentation (JAX serving.py:622-716). ``metrics`` is a
@@ -614,9 +687,13 @@ class ContinuousBatcher:
         batcher built with the same geometry (``load_state_dict`` checks).
         The pools come back as owned CPU tensors (numpy has no bf16), the
         host bookkeeping as deep copies; the dict pickles unless a live
-        request carries a callable ``allowed_tokens``."""
+        request carries a callable ``allowed_tokens``. Under a mesh every
+        rank must call it: the pools' head shards are all-gathered, so the
+        snapshot holds every head and restores on any topology."""
         def snap(pool):
-            return {k: x.to("cpu", copy=True) for k, x in pool.items()}
+            return {k: all_gather_cat(x, self._tp_group, dim=2).to(
+                        "cpu", copy=True)
+                    for k, x in pool.items()}
 
         device = {"cache": snap(self.cache)}
         if self.draft_config is not None:
@@ -631,7 +708,8 @@ class ContinuousBatcher:
     def load_state_dict(self, state: dict) -> None:
         """Adopt a snapshot taken by ``state_dict``: decoding continues
         where it stopped, with the same tokens and logprobs. The pools are
-        copied into this batcher's own tensors, which keep their storage."""
+        copied into this batcher's own tensors, which keep their storage;
+        under a mesh each rank copies its own heads of the snapshot's."""
         meta = state["meta"]
         mine = self._geometry()
         if set(meta) != set(mine):
@@ -646,10 +724,10 @@ class ContinuousBatcher:
                     f"{want}, this batcher has {mine[key]}"
                 )
         for k, x in state["device"]["cache"].items():
-            self.cache[k].copy_(x)
+            self.cache[k].copy_(self._my_heads(x))
         if self.draft_config is not None:
             for k, x in state["device"]["draft_cache"].items():
-                self.draft_cache[k].copy_(x)
+                self.draft_cache[k].copy_(self._my_heads(x))
         for name in self._HOST_STATE:
             setattr(self, name, copy.deepcopy(state["host"][name]))
         self.evictable = OrderedDict(
@@ -671,6 +749,14 @@ class ContinuousBatcher:
         self._pages_allocated = self._pages_released + int(
             (self.page_ref > 0).sum()
         )
+
+    def _my_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's K/V heads (axis 2) of a whole-pool leaf; all of them
+        without tensor parallelism."""
+        if self._tp_group is None:
+            return x
+        n = x.shape[2] // group_size(self._tp_group)
+        return x.narrow(2, axis_index(self.mesh, "tp") * n, n)
 
     # ------------------------------------------------------------- admission
     def _occupied(self) -> np.ndarray:

@@ -32,8 +32,25 @@ and the dK/dV and dQ kernels in the backward), single-token paged decode
 through the paged decode kernel when ``paged_attention_kernel`` is set
 (``ops/paged_attention.py``), all kernels on CUDA tensors and their plain
 versions on CPU tensors. Windows, int8 pools and the contiguous cache take
-the grouped einsums, as in JAX. Still refused with ``NotImplementedError``:
-meshes.
+the grouped einsums, as in JAX.
+
+Tensor parallelism (``param_specs``, ``shard_params``, and the ``tp_group``
+argument of ``forward``, ``decode_window`` / ``decode_step``,
+``decode_window_paged`` / ``decode_step_paged`` and ``prefill_chunked``):
+where JAX shards the params with ``NamedSharding`` and GSPMD inserts the
+collectives, each rank here holds its Megatron shard (``shard_params``) and
+the model functions make the collectives themselves, over the process group
+of the mesh's tp axis. A rank runs ``n_heads / tp`` query heads and
+``kv_heads / tp`` K/V heads (its caches and pools hold only those), so the
+attention ops see the local head counts and nothing else changes in them;
+the row-parallel ``wo`` and ``w_down`` each end in one ``all_reduce`` of
+their partial sums, the vocab-sharded embedding is a masked lookup of the
+rank's rows plus one ``all_reduce`` (exact: one rank holds each row), and
+the column-parallel lm_head's local logits are ``all_gather``-ed into the
+full vocabulary before they leave the function, so every rank returns the
+same logits. Mixture-of-Experts layers, LoRA banks and training under a
+mesh are not ported yet (ROADMAP Queue 1, item 4) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,6 +79,14 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
     paged_read,
 )
 from bee_code_interpreter_tpu_torch.ops.weight_quant import is_quantized
+from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    all_reduce_partial,
+    group_rank,
+    group_size,
+    serving_tp,
+    shard_tensor,
+)
 
 Params = dict[str, Any]
 
@@ -279,14 +304,115 @@ def n_params(params: Params) -> int:
     return sum(w.numel() for w in param_leaves(params))
 
 
+def param_specs(config: TransformerConfig, mesh) -> Params:
+    """JAX's Megatron specs over whichever of (fsdp, tp) the mesh has, as
+    tuples of axis names (None: that dim whole): column-parallel
+    ``wq``/``wk``/``wv``/``w_gate``/``w_up`` ``(fsdp, tp)``, row-parallel
+    ``wo``/``w_down`` ``(tp, fsdp)``, the vocab-sharded ``embed``
+    ``(tp, None)``, the column-parallel ``lm_head`` ``(None, tp)``, the
+    norms replicated ``()``. ``layers`` holds one layer's specs, for every
+    layer (JAX's stacked specs add a leading None for the layer axis).
+    Mixture-of-Experts specs (JAX's ``ep`` axis) are not ported yet
+    (ROADMAP Queue 1, item 4)."""
+    if config.n_experts:
+        raise NotImplementedError(
+            "Mixture-of-Experts under a mesh is not ported yet (ROADMAP "
+            "Queue 1, item 4)"
+        )
+    names = tuple(mesh.mesh_dim_names)
+    tp = "tp" if "tp" in names else None
+    fsdp = "fsdp" if "fsdp" in names else None
+    col, row, rep = (fsdp, tp), (tp, fsdp), ()
+    layer = {"ln1": rep, "ln2": rep, "wq": col, "wk": col, "wv": col,
+             "wo": row, "w_gate": col, "w_up": col, "w_down": row}
+    return {"embed": (tp, None), "layers": layer, "ln_f": rep,
+            "lm_head": (None, tp)}
+
+
+def shard_params(params: Params, config: TransformerConfig, mesh,
+                 device: torch.device | str | None = None) -> Params:
+    """This rank's shard of every leaf under ``param_specs``, each a
+    contiguous tensor of its own on ``device`` (default: the mesh's device
+    type, CUDA raising without it); ``params`` (full, anywhere) is only
+    read. A weight-only-int8 leaf ``{q, s}`` shards as in JAX: ``q`` takes
+    the weight's spec and ``s`` (one scale per out column) the spec without
+    the contracted dim, so a column-parallel leaf's scales follow its
+    columns and a row-parallel leaf's stay whole. Mixture-of-Experts
+    layers raise ``NotImplementedError`` (``param_specs``)."""
+    specs = param_specs(config, mesh)
+    device = resolve_device(device if device is not None
+                            else mesh.device_type)
+
+    def place(x, spec):
+        if is_quantized(x):
+            return {"q": shard_tensor(x["q"], spec, mesh, device),
+                    "s": shard_tensor(x["s"], spec[1:], mesh, device)}
+        return shard_tensor(x, spec, mesh, device)
+
+    return {
+        "embed": place(params["embed"], specs["embed"]),
+        "layers": [{name: place(leaf, specs["layers"][name])
+                    for name, leaf in layer.items()}
+                   for layer in params["layers"]],
+        "ln_f": place(params["ln_f"], specs["ln_f"]),
+        "lm_head": place(params["lm_head"], specs["lm_head"]),
+    }
+
+
 # ------------------------------------------------------------------- forward
 
 
-def _mlp_block(y: torch.Tensor, layer: Params, config: TransformerConfig):
+def _local_heads(config: TransformerConfig, tp_group) -> tuple[int, int]:
+    """(query heads, K/V heads) of one rank: all of them without a group,
+    ``1/tp`` of each under tensor parallelism."""
+    tp = group_size(tp_group)
+    if tp > 1 and config.n_experts:
+        raise NotImplementedError(
+            "Mixture-of-Experts under a mesh is not ported yet (ROADMAP "
+            "Queue 1, item 4)"
+        )
+    if config.kv_heads % tp:
+        raise ValueError(
+            f"kv_heads {config.kv_heads} not divisible by tp={tp}"
+        )
+    return config.n_heads // tp, config.kv_heads // tp
+
+
+def _embed(params: Params, tokens: torch.Tensor, config: TransformerConfig,
+           tp_group) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in the compute dtype. Under tensor
+    parallelism a rank holds the vocabulary rows ``[rank * V/tp, (rank + 1)
+    * V/tp)``: it looks up the tokens that fall there, zeroes the others,
+    and the ``all_reduce`` adds the one non-zero row of each token to
+    zeros, exactly."""
+    table = params["embed"].to(config.dtype)
+    if tp_group is None:
+        return table[tokens.long()]
+    rows = table.shape[0]
+    local = tokens.long() - group_rank(tp_group) * rows
+    mine = (local >= 0) & (local < rows)
+    h = table[local.clamp(0, rows - 1)].masked_fill(~mine[..., None], 0)
+    return all_reduce_partial(h, tp_group)
+
+
+def _logits(h: torch.Tensor, params: Params, config: TransformerConfig,
+            tp_group) -> torch.Tensor:
+    """The final norm and the lm_head: f32 logits over the whole
+    vocabulary (a rank's column shard all-gathered under tensor
+    parallelism)."""
+    h = rms_norm(h, params["ln_f"])
+    logits = qeinsum("bld,dv->blv", h, params["lm_head"], config.dtype)
+    return all_gather_cat(logits.float(), tp_group, dim=-1)
+
+
+def _mlp_block(y: torch.Tensor, layer: Params, config: TransformerConfig,
+               tp_group=None):
     """The post-attention MLP, dense SwiGLU or MoE, shared by the forward
     and every decode path. Returns ``(mlp, aux)``: the layer's MoE
     load-balancing loss (an f32 scalar), or 0.0 for dense configs (the
-    decode paths drop it)."""
+    decode paths drop it). Under tensor parallelism ``w_gate``/``w_up``
+    hold the rank's columns and ``w_down`` its rows, and the partial sums
+    are all-reduced."""
     c = config
     if c.n_experts:
         return moe_mlp(
@@ -297,17 +423,20 @@ def _mlp_block(y: torch.Tensor, layer: Params, config: TransformerConfig):
     gate = qeinsum("bld,df->blf", y, layer["w_gate"], c.dtype)
     up = qeinsum("bld,df->blf", y, layer["w_up"], c.dtype)
     mlp = qeinsum("blf,fd->bld", F.silu(gate) * up, layer["w_down"], c.dtype)
-    return mlp, 0.0
+    return all_reduce_partial(mlp, tp_group), 0.0
 
 
 def _layer_apply(h, layer, config: TransformerConfig, positions,
-                 return_kv: bool = False):
-    """One decoder layer (the mesh-free JAX ``_layer_apply``). Returns
-    ``(h, (k, v) | None, aux)``, K/V post-RoPE ``[B, kvh, L, dh]``."""
+                 return_kv: bool = False, tp_group=None):
+    """One decoder layer (JAX's ``_layer_apply``; with ``tp_group``, the
+    rank's heads and its shard of the projections). Returns ``(h, (k, v) |
+    None, aux)``, K/V post-RoPE ``[B, kvh, L, dh]`` (the rank's
+    ``kv_heads / tp`` under tensor parallelism)."""
     c = config
     B, L = h.shape[0], h.shape[1]
     x = rms_norm(h, layer["ln1"])
-    dh, nh, kvh = c.head_dim, c.n_heads, c.kv_heads
+    dh = c.head_dim
+    nh, kvh = _local_heads(c, tp_group)
 
     def proj(w, heads):
         out = qeinsum("bld,dk->blk", x, w, c.dtype)
@@ -319,31 +448,35 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     attn = local_attention(q, k, v, causal=True, window=c.sliding_window)
     attn = attn.transpose(1, 2).reshape(B, L, nh * dh)
-    h = h + qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
-    mlp, aux = _mlp_block(rms_norm(h, layer["ln2"]), layer, c)
+    o = qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
+    h = h + all_reduce_partial(o, tp_group)
+    mlp, aux = _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group)
     return h + mlp, ((k, v) if return_kv else None), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
-            return_kv: bool = False, return_aux: bool = False):
+            return_kv: bool = False, return_aux: bool = False,
+            tp_group=None):
     """Logits ``[B, L, vocab]`` in f32; with ``return_kv`` also the
     per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``; with
     ``return_aux`` also the MoE load-balancing loss summed over layers, an
-    f32 scalar (0.0 for dense configs)."""
+    f32 scalar (0.0 for dense configs). With ``tp_group`` the params are
+    this rank's shard (``shard_params``), the K/V its ``kv_heads / tp``
+    heads, and the logits the whole vocabulary on every rank."""
     c = config
     B, L = tokens.shape
     positions = torch.arange(L, device=tokens.device).expand(B, L)
-    h = params["embed"].to(c.dtype)[tokens.long()]
+    h = _embed(params, tokens, c, tp_group)
     ks, vs = [], []
     aux = 0.0
     for layer in params["layers"]:
-        h, kv, layer_aux = _layer_apply(h, layer, c, positions, return_kv)
+        h, kv, layer_aux = _layer_apply(h, layer, c, positions, return_kv,
+                                        tp_group)
         aux = aux + layer_aux
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
-    h = rms_norm(h, params["ln_f"])
-    logits = qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype).float()
+    logits = _logits(h, params, c, tp_group)
     extras = []
     if return_kv:
         extras.append((torch.stack(ks), torch.stack(vs)))
@@ -379,17 +512,20 @@ def _grouped_attention(q, kf, vf, positions, config: TransformerConfig):
 
 
 def _decode_layers(params, tokens, positions, cache, config, attend,
-                   lora_delta=None):
+                   lora_delta=None, tp_group=None):
     """The layer loop both decode families share: ``attend(c_layer, q,
     k_new, v_new)`` writes the new K/V ``[B, kvh, W, dh]`` into one layer's
     cache views and returns the attention ``[B, W, nh * dh]``;
     ``lora_delta(li, x, name)``, when given, returns the adapter delta
     added to projection ``name`` of layer ``li`` (None for a projection
-    without one). Returns f32 logits ``[B, W, vocab]``."""
+    without one). With ``tp_group``, nh and kvh are the rank's heads and
+    ``wo``/``w_down`` end in an all-reduce. Returns f32 logits ``[B, W,
+    vocab]``."""
     c = config
     B, W = tokens.shape
-    dh, nh, kvh = c.head_dim, c.n_heads, c.kv_heads
-    h = params["embed"].to(c.dtype)[tokens.long()]  # [B, W, D]
+    dh = c.head_dim
+    nh, kvh = _local_heads(c, tp_group)
+    h = _embed(params, tokens, c, tp_group)  # [B, W, D]
     for li, layer in enumerate(params["layers"]):
         c_layer = {name: x[li] for name, x in cache.items()}  # views
 
@@ -408,21 +544,23 @@ def _decode_layers(params, tokens, positions, cache, config, attend,
         k_new = rope(proj("wk", kvh), positions, c.rope_theta, c.rope_scaling)
         v_new = proj("wv", kvh)
         attn = attend(c_layer, q, k_new, v_new)
-        h = h + project(attn, "wo", "blk,kd->bld")
-        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c)[0]
-    h = rms_norm(h, params["ln_f"])
-    return qeinsum("bld,dv->blv", h, params["lm_head"], c.dtype).float()
+        h = h + all_reduce_partial(project(attn, "wo", "blk,kd->bld"),
+                                   tp_group)
+        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group)[0]
+    return _logits(h, params, c, tp_group)
 
 
 def alloc_decode_cache(config: TransformerConfig, B: int, total_len: int,
-                       device: torch.device | str | None = None) -> dict:
+                       device: torch.device | str | None = None,
+                       kv_heads: int | None = None) -> dict:
     """Zeroed contiguous decode cache, k/v ``[n_layers, B, kvh, total_len,
     dh]`` in the compute dtype, or int8 with f32 scale leaves ``k_s``/``v_s``
-    (last axis 1) for ``kv_cache_dtype="int8"``. ``device`` defaults to
-    CUDA (raises without it)."""
+    (last axis 1) for ``kv_cache_dtype="int8"``; ``kvh`` is ``kv_heads``
+    (default ``config.kv_heads``; a tensor-parallel rank's share).
+    ``device`` defaults to CUDA (raises without it)."""
     c = config
     device = resolve_device(device)
-    shape = (c.n_layers, B, c.kv_heads, total_len, c.head_dim)
+    shape = (c.n_layers, B, kv_heads or c.kv_heads, total_len, c.head_dim)
     if c.kv_cache_dtype == "int8":
         scales = shape[:-1] + (1,)
         return {
@@ -438,14 +576,17 @@ def alloc_decode_cache(config: TransformerConfig, B: int, total_len: int,
 def init_decode_cache(config: TransformerConfig, B: int, total_len: int,
                       k_pre: torch.Tensor, v_pre: torch.Tensor) -> dict:
     """The full-length decode cache seeded with the prefill K/V
-    ``[n_layers, B, kvh, L, dh]`` through the append the decode uses."""
-    cache = alloc_decode_cache(config, B, total_len, k_pre.device)
+    ``[n_layers, B, kvh, L, dh]`` through the append the decode uses (kvh:
+    a tensor-parallel rank's share, as ``k_pre`` holds)."""
+    cache = alloc_decode_cache(config, B, total_len, k_pre.device,
+                               kv_heads=k_pre.shape[2])
     return cache_append(cache, k_pre, v_pre, 0)
 
 
-def decode_step(params, token, pos, cache, config: TransformerConfig):
+def decode_step(params, token, pos, cache, config: TransformerConfig,
+                tp_group=None):
     """One incremental decode step: ``decode_window`` with W = 1."""
-    return decode_window(params, token, pos, cache, config)
+    return decode_window(params, token, pos, cache, config, tp_group)
 
 
 def decode_window(
@@ -454,10 +595,12 @@ def decode_window(
     pos0: int,  # position of tokens[:, 0], the same for every row
     cache: dict,  # alloc_decode_cache layout (updated in place)
     config: TransformerConfig,
+    tp_group=None,
 ):
     """Multi-token cached decode at positions ``pos0 .. pos0 + W - 1``
     against the contiguous cache, bf16 or int8. Returns ``(logits [B, W,
-    vocab] f32, cache)``; the cache is written in place."""
+    vocab] f32, cache)``; the cache is written in place. With
+    ``tp_group`` the cache holds the rank's K/V heads."""
     B, W = tokens.shape
     pos0 = int(pos0)
     positions = (pos0 + torch.arange(W, device=tokens.device)).expand(B, W)
@@ -467,16 +610,18 @@ def decode_window(
         kf, vf = cache_read(c_layer, config.dtype)
         return _grouped_attention(q, kf, vf, positions, config)
 
-    return _decode_layers(params, tokens, positions, cache, config, attend), cache
+    return _decode_layers(params, tokens, positions, cache, config, attend,
+                          tp_group=tp_group), cache
 
 
 def decode_step_paged(params, token, pos, cache, block_table,
                       config: TransformerConfig, lora_bank=None,
-                      adapter_idx=None, lora_scale: float = 1.0):
+                      adapter_idx=None, lora_scale: float = 1.0,
+                      tp_group=None):
     """One decode step over the paged pool: ``decode_window_paged`` with
     W = 1, as in the JAX package."""
     return decode_window_paged(params, token, pos, cache, block_table, config,
-                               lora_bank, adapter_idx, lora_scale)
+                               lora_bank, adapter_idx, lora_scale, tp_group)
 
 
 def decode_window_paged(
@@ -489,6 +634,7 @@ def decode_window_paged(
     lora_bank: dict | None = None,  # {target: {A: [n_layers, n_adapters, d, r], B: ...}}
     adapter_idx: torch.Tensor | None = None,  # [B] per-row adapter
     lora_scale: float = 1.0,
+    tp_group=None,
 ):
     """Multi-token decode over the paged pool (bf16 or int8) with per-row
     positions. Returns ``(logits [B, W, vocab] f32, cache)``; the pool is
@@ -503,11 +649,20 @@ def decode_window_paged(
     ``lora_bank`` is multi-LoRA serving (``models/lora.py::stack_lora_bank``):
     row b adds ``x @ A[adapter_idx[b]] @ B[adapter_idx[b]] * lora_scale`` to
     each targeted attention projection, unmerged, so rows under different
-    adapters share one pass over the base weights."""
+    adapters share one pass over the base weights.
+
+    With ``tp_group`` the pool holds the rank's K/V heads (axis 2 of each
+    leaf), and the kernel runs over the rank's query heads; a bank under
+    tensor parallelism is not ported yet (ROADMAP Queue 1, item 4)."""
     c = config
     B, W = tokens.shape
     dev = tokens.device
     lora_delta = None
+    if lora_bank is not None and tp_group is not None:
+        raise NotImplementedError(
+            "LoRA banks under a mesh are not ported yet (ROADMAP Queue 1, "
+            "item 4)"
+        )
     if lora_bank is not None:
         if adapter_idx is None:
             raise ValueError("lora_bank needs adapter_idx")
@@ -550,22 +705,23 @@ def decode_window_paged(
                 q[:, :, 0, :].contiguous(), c_layer["k"], c_layer["v"],
                 bt32, lengths,
             )
-            return attn.reshape(B, 1, c.n_heads * c.head_dim).to(c.dtype)
+            return attn.reshape(B, 1, -1).to(c.dtype)
         kf, vf = paged_read(c_layer, block_table, c.dtype)
         return _grouped_attention(q, kf, vf, positions, c)
 
     logits = _decode_layers(params, tokens, positions, cache, c, attend,
-                            lora_delta)
+                            lora_delta, tp_group)
     return logits, cache
 
 
 def prefill_chunked(params: Params, prompt: torch.Tensor,
                     config: TransformerConfig, total_len: int,
-                    chunk: int = 512):
+                    chunk: int = 512, tp_group=None):
     """The decode cache built by streaming the prompt ``[B, L]`` through
     ``decode_window`` in chunks of ``chunk`` tokens (activation memory
     bounded by the chunk), then a remainder chunk of ``L % chunk``.
-    Returns ``(last-position logits [B, vocab], cache)``."""
+    Returns ``(last-position logits [B, vocab], cache)``; with ``tp_group``
+    the cache holds the rank's K/V heads."""
     B, L = prompt.shape
     if L == 0:
         raise ValueError("prompt must be non-empty (L >= 1)")
@@ -575,11 +731,12 @@ def prefill_chunked(params: Params, prompt: torch.Tensor,
         )
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    cache = alloc_decode_cache(config, B, total_len, prompt.device)
+    cache = alloc_decode_cache(config, B, total_len, prompt.device,
+                               kv_heads=_local_heads(config, tp_group)[1])
     last_logits = None
     for start in range(0, L, chunk):
         logits, cache = decode_window(params, prompt[:, start:start + chunk],
-                                      start, cache, config)
+                                      start, cache, config, tp_group)
         last_logits = logits[:, -1, :]
     return last_logits, cache
 
@@ -654,25 +811,37 @@ def _adamw(params: Params, *, lr: float) -> torch.optim.AdamW:
 
 class Transformer:
     """Config bundle with the training and generation entry points of the
-    JAX ``Transformer`` (mesh-free; meshes are the parallel layer's
-    slice)."""
+    JAX ``Transformer``.
+
+    Under a ``mesh`` (``parallel.make_mesh``, a tp axis only) the
+    inference entry points (``apply``, ``generate``, ``generate_cached``)
+    run tensor-parallel on this rank's shard of the params
+    (``shard_params``), every rank calling them alike; ``init`` and
+    ``make_train_step``, the training half, are not ported under a mesh yet
+    (ROADMAP Queue 1, item 4)."""
 
     def __init__(self, config: TransformerConfig, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP Queue 1, the parallel layer)"
-            )
         self.config = config
+        self.mesh = mesh
+        self.tp_group = serving_tp(mesh)[1] if mesh is not None else None
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under meshes is not ported yet (ROADMAP Queue 1, "
+                "item 4: training under dp/fsdp/tp)"
+            )
 
     def init(self, generator: torch.Generator,
              device: torch.device | str | None = None) -> Params:
         """f32 master weights that require grad, on ``device`` (default
         CUDA; raises without it); compute runs in ``config.dtype``."""
+        self._refuse_mesh("Transformer.init (training masters)")
         return init_params(self.config, generator, device,
                            dtype=torch.float32, requires_grad=True)
 
     def apply(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(params, tokens, self.config)
+        return forward(params, tokens, self.config, tp_group=self.tp_group)
 
     def make_optimizer(self, learning_rate: float = 3e-4):
         """The JAX ``optax.adamw`` as a factory: called on the params it
@@ -686,6 +855,7 @@ class Transformer:
         (None makes it on the first step). The update is in place, where
         JAX donates params and state; the gradients stay on the leaves
         (``.grad``) until the next step."""
+        self._refuse_mesh("make_train_step")
         optimizer = optimizer or self.make_optimizer()
 
         def train_step(params, opt_state, batch):
@@ -712,7 +882,8 @@ class Transformer:
                              device=prompt.device)
         tokens[:, :L] = prompt
         for idx in range(L, L + max_new_tokens):
-            logits = forward(params, tokens, self.config)
+            logits = forward(params, tokens, self.config,
+                             tp_group=self.tp_group)
             tokens[:, idx] = torch.argmax(logits[:, idx - 1], dim=-1)
         return tokens
 
@@ -736,8 +907,10 @@ class Transformer:
         through ``sample_logits`` from ``generator`` (default: seed 0 on the
         prompt's device), so a fixed generator is deterministic. ``eos_id``
         freezes a row once it emits that token: every later position
-        repeats it. The cache layout follows ``config.kv_cache_dtype``."""
-        c = self.config
+        repeats it. The cache layout follows ``config.kv_cache_dtype``.
+        Under a mesh every rank gets the same tokens (the same logits and,
+        sampling, the same generator seed)."""
+        c, g = self.config, self.tp_group
         prompt = torch.as_tensor(prompt, device=params["embed"].device)
         B, L = prompt.shape
         total = L + max_new_tokens
@@ -745,9 +918,11 @@ class Transformer:
             generator = torch.Generator(device=prompt.device).manual_seed(0)
         if prefill_chunk is not None:
             last_logits, cache = prefill_chunked(params, prompt, c, total,
-                                                 chunk=prefill_chunk)
+                                                 chunk=prefill_chunk,
+                                                 tp_group=g)
         else:
-            logits, (k_pre, v_pre) = forward(params, prompt, c, return_kv=True)
+            logits, (k_pre, v_pre) = forward(params, prompt, c, return_kv=True,
+                                             tp_group=g)
             cache = init_decode_cache(c, B, total, k_pre, v_pre)
             last_logits = logits[:, L - 1, :]
         current = sample_logits(last_logits, generator, temperature, top_k,
@@ -757,7 +932,7 @@ class Transformer:
         tokens[:, L:L + 1] = current
         done = current == eos_id if eos_id is not None else None
         for pos in range(L, total - 1):
-            step_logits, cache = decode_step(params, current, pos, cache, c)
+            step_logits, cache = decode_step(params, current, pos, cache, c, g)
             current = sample_logits(step_logits[:, -1, :], generator,
                                     temperature, top_k, top_p)
             if eos_id is not None:

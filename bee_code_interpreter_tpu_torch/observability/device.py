@@ -27,8 +27,8 @@ with the JAX monitor's three signals and its snapshot:
   kind=live|peak|limit}``; the snapshot joins the attached batcher's
   ``kv_telemetry()``.
 - **Step telemetry per mesh shape**: the batcher reports each step's wall
-  time under its mesh's shape key (``"1"``: the port serves on one card;
-  its mesh is not ported).
+  time under its mesh's shape key (``"1"`` on one card, ``"tp=2"`` for a
+  tensor-parallel batcher, JAX's keys; ``parallel/mesh.py``).
 
 The monitor is duck-typed from the ``models/`` side: the batcher calls the
 hooks when one is attached and pays one ``None`` check otherwise.
@@ -45,6 +45,7 @@ from collections import deque
 import torch
 
 from bee_code_interpreter_tpu_torch.observability.tracing import current_trace
+from bee_code_interpreter_tpu_torch.parallel import mesh as _mesh
 
 # histogram buckets for the stall of a first call: 10 ms (a small program)
 # to minutes (a cold process building its kernels); the serving-latency
@@ -63,36 +64,21 @@ def _platform(device: torch.device | None) -> str:
 
 
 def mesh_shape_key(mesh) -> str:
-    """Stable key for a mesh's axis sizes; ``"1"`` with no mesh (one card),
-    the only case the port serves."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported to the PyTorch package yet (ROADMAP "
-            "Queue 1)"
-        )
-    return "1"
+    """Stable key for a mesh's axis sizes (``"tp=2"``); ``"1"`` with no
+    mesh (one card)."""
+    return _mesh.mesh_shape_key(mesh)
 
 
 def mesh_descriptor(mesh, device: torch.device | None = None) -> dict:
-    """JAX's ``parallel.mesh.mesh_descriptor`` for ``mesh=None``: the
-    single-device degradation (axes ``{}``, shape ``"1"``), with the
-    platform of ``device`` (or of this process's default device)."""
-    shape = mesh_shape_key(mesh)
-    process_index = (
-        torch.distributed.get_rank()
-        if torch.distributed.is_available()
-        and torch.distributed.is_initialized()
-        else 0
-    )
-    return {
-        "axes": {},
-        "shape": shape,
-        "n_devices": 1,
-        "n_local_devices": 1,
-        "process_index": process_index,
-        "coords": {},
-        "platform": _platform(device),
-    }
+    """JAX's ``parallel.mesh.mesh_descriptor`` (``parallel/mesh.py``): axes,
+    shape key, device counts, this rank and its coordinates, platform.
+    Without a mesh, the single-device degradation (axes ``{}``, shape
+    ``"1"``) with the platform of ``device`` (or of this process's default
+    device)."""
+    out = _mesh.mesh_descriptor(mesh)
+    if mesh is None:
+        out["platform"] = _platform(device)
+    return out
 
 
 def _live_tensor_bytes() -> int:

@@ -65,13 +65,16 @@ def pool_telemetry(
 
 
 def alloc_paged_cache(config, n_pages: int, page_size: int,
-                      device: torch.device | str) -> dict:
+                      device: torch.device | str,
+                      kv_heads: int | None = None) -> dict:
     """Zeroed page pool on ``device``: k/v ``[n_layers, n_pages, kvh,
     page_size, dh]`` in the compute dtype, or int8 with f32 scale planes
-    ``k_s``/``v_s`` (last axis 1) for ``kv_cache_dtype="int8"``."""
+    ``k_s``/``v_s`` (last axis 1) for ``kv_cache_dtype="int8"``; ``kvh`` is
+    ``kv_heads`` (default ``config.kv_heads``; a tensor-parallel rank holds
+    its share, each leaf its own allocation)."""
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
-    shape = (config.n_layers, n_pages, config.kv_heads, page_size,
+    shape = (config.n_layers, n_pages, kv_heads or config.kv_heads, page_size,
              config.head_dim)
     if config.kv_cache_dtype == "int8":
         def zeros(sh, dt):

@@ -1,0 +1,493 @@
+"""Device meshes, the launcher's environment and the tensor-parallel
+collectives of the port: the counterpart of
+``bee_code_interpreter_tpu/parallel/mesh.py``.
+
+The JAX package is single-controller: one process drives every device of a
+``jax.sharding.Mesh`` and GSPMD inserts the collectives. The port is SPMD
+over ``torch.distributed``: one process (rank) per device, a
+``torch.distributed.device_mesh.DeviceMesh`` naming the axes, and the
+collectives written out in the model functions (``all_reduce_partial``,
+``all_gather_cat``). A rank's "sharding" is its slice of a tensor plus the
+spec that says which slice (``shard_tensor``), never a DTensor that
+redistributes behind the code's back.
+
+The contract of serving under a mesh (``models/serving.py``): every rank
+builds the same ``ContinuousBatcher(mesh=...)``, calls ``submit`` /
+``step`` / ``cancel`` / ``state_dict`` in the same order with the same
+arguments, and the caller reads rank 0's results (every rank's are the
+same: each samples on the host from the same all-gathered logits).
+
+Ranks come from a launcher (``torchrun``, or a pod group that bakes the JAX
+names ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID``), read by ``initialize_distributed``, or from ``spawn``,
+the test and smoke harness's launcher (``spawn`` start method, ``file://``
+rendezvous in a temporary directory). The device type is CUDA unless the
+caller names the CPU; the backend is NCCL for CUDA and gloo for the CPU
+unless the caller names one (gloo also carries CUDA tensors, staged through
+host memory: how two ranks share one card, where NCCL refuses).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import math
+import multiprocessing.connection
+import os
+import pickle
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+
+def _check_device_type(device_type: str) -> None:
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device_type must be 'cuda' or 'cpu', got "
+                         f"{device_type!r}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device_type='cpu' to run the ranks "
+            "on the CPU (gloo)"
+        )
+
+
+def default_backend(device_type: str) -> str:
+    """NCCL for CUDA, gloo for the CPU."""
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def _set_local_device(rank: int) -> None:
+    """Make this rank's card the current CUDA device: ``LOCAL_RANK`` (or
+    the rank) modulo the visible cards, so ranks beyond the card count
+    share cards in turn."""
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    torch.cuda.set_device(local % torch.cuda.device_count())
+
+
+def distributed_env() -> tuple[int, int, str | None]:
+    """(world size, rank, ``host:port`` of the rendezvous) from the
+    launcher's environment: torchrun's ``WORLD_SIZE`` / ``RANK`` /
+    ``MASTER_ADDR`` (+ ``MASTER_PORT``, default 29500), else the pod
+    group's ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` /
+    ``JAX_COORDINATOR_ADDRESS``; one process with no address when neither
+    is set."""
+    env = os.environ
+    world = int(env.get("WORLD_SIZE") or env.get("JAX_NUM_PROCESSES") or 1)
+    rank = int(env.get("RANK") or env.get("JAX_PROCESS_ID") or 0)
+    if env.get("MASTER_ADDR"):
+        addr = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
+    else:
+        addr = env.get("JAX_COORDINATOR_ADDRESS")
+    return world, rank, addr
+
+
+def initialize_distributed(backend: str | None = None, *,
+                           device_type: str = "cuda") -> bool:
+    """Join the process group the launcher's environment describes
+    (``distributed_env``). Idempotent; a no-op returning False for one
+    process. On CUDA the rank's card becomes the current device first."""
+    world, rank, addr = distributed_env()
+    if world <= 1:
+        return False
+    if dist.is_initialized():
+        return True
+    _check_device_type(device_type)
+    if addr is None:
+        raise ValueError(
+            f"WORLD_SIZE/JAX_NUM_PROCESSES is {world} but no rendezvous "
+            "address is set (MASTER_ADDR or JAX_COORDINATOR_ADDRESS)"
+        )
+    if device_type == "cuda":
+        _set_local_device(rank)
+    dist.init_process_group(backend or default_backend(device_type),
+                            init_method=f"tcp://{addr}", rank=rank,
+                            world_size=world)
+    return True
+
+
+def local_device_count(device_type: str = "cuda") -> int:
+    """Devices this host gives the port: the visible cards (raises without
+    CUDA), or one for the CPU (one device per rank process)."""
+    _check_device_type(device_type)
+    return torch.cuda.device_count() if device_type == "cuda" else 1
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 when there is none): under
+    SPMD each rank is one device, so this is the mesh's device count."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A named assignment of the device grid: axis name -> size."""
+
+    axes: dict[str, int]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.axes.values())
+
+    def names(self) -> tuple[str, ...]:
+        return tuple(self.axes.keys())
+
+
+def make_mesh(axes: dict[str, int], *, device_type: str = "cuda",
+              backend: str | None = None):
+    """A ``DeviceMesh`` with the given axis sizes over the ranks, in dict
+    order (the last axis varies fastest: put tp last so a tp group is
+    adjacent ranks, which are a host's adjacent cards under torchrun).
+
+    Joins the launcher's process group when there is none
+    (``initialize_distributed``, with ``backend`` or the device type's
+    default); a lone process gets a group of one. An existing group is
+    used as it is (its backend must be ``backend`` when one is named). Raises
+    ValueError when the plan needs more devices than there are ranks, and
+    without CUDA unless ``device_type="cpu"``."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    _check_device_type(device_type)
+    if dist.is_initialized():
+        if backend is not None and dist.get_backend() != backend:
+            raise ValueError(
+                f"the process group runs {dist.get_backend()}, the mesh "
+                f"asked for {backend}"
+            )
+    elif not initialize_distributed(backend, device_type=device_type):
+        if device_type == "cuda":
+            _set_local_device(0)
+        dist.init_process_group(backend or default_backend(device_type),
+                                store=dist.HashStore(), rank=0, world_size=1)
+    plan = MeshPlan(dict(axes))
+    world = dist.get_world_size()
+    if plan.n_devices > world:
+        raise ValueError(
+            f"mesh plan {axes} needs {plan.n_devices} devices, have {world}"
+        )
+    shape = tuple(plan.axes.values())
+    if plan.n_devices == world:
+        return init_device_mesh(device_type, shape,
+                                mesh_dim_names=plan.names())
+    # the first n ranks, as JAX takes the first n devices; every rank must
+    # still build it (the others get no coordinate)
+    grid = torch.arange(plan.n_devices).reshape(shape)
+    return DeviceMesh(device_type, grid, mesh_dim_names=plan.names())
+
+
+def auto_mesh(n_devices: int | None = None, *, sp: int = 1,
+              device_type: str = "cuda", backend: str | None = None):
+    """JAX's default mesh: tp over adjacent ranks (the largest of 8, 4, 2
+    that divides the rest), dp over the rest, ``sp`` > 1 carving a
+    sequence axis; ``n_devices`` defaults to the ranks there are."""
+    total = n_devices or world_size()
+    if total % sp != 0:
+        raise ValueError(f"{total} devices not divisible by sp={sp}")
+    rest = total // sp
+    tp = 1
+    for candidate in (8, 4, 2):
+        if rest % candidate == 0:
+            tp = candidate
+            break
+    return make_mesh({"dp": rest // tp, "sp": sp, "tp": tp},
+                     device_type=device_type, backend=backend)
+
+
+# ----------------------------------------------------------- mesh queries
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size, in the mesh's order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        raise ValueError(f"{mesh!r} is not a DeviceMesh with axis names "
+                         "(build it with make_mesh)")
+    return {name: int(size) for name, size in zip(names, mesh.mesh.shape)}
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``axis`` (1 when the mesh has no such axis or no mesh)."""
+    return 1 if mesh is None else axis_sizes(mesh).get(axis, 1)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 without the axis)."""
+    sizes = axis_sizes(mesh)
+    if axis not in sizes:
+        return 0
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+    return int(coord[list(sizes).index(axis)])
+
+
+def tp_group(mesh):
+    """The process group of this rank's tp axis, or None when the mesh has
+    no tp axis of size > 1 (no collective to make)."""
+    if axis_size(mesh, "tp") <= 1:
+        return None
+    return mesh.get_group("tp")
+
+
+def batch_axes(mesh) -> tuple[str, ...] | None:
+    """The data-parallel-ish axes an activation batch dim shards over."""
+    if mesh is None:
+        return None
+    axes = tuple(a for a in ("dp", "fsdp") if a in axis_sizes(mesh))
+    return axes or None
+
+
+def mesh_shape_key(mesh) -> str:
+    """Stable string key for a mesh's axis sizes (``"dp=2,tp=4"``), the
+    bucket step telemetry aggregates under; ``"1"`` with no mesh."""
+    if mesh is None:
+        return "1"
+    key = ",".join(f"{name}={size}" for name, size in axis_sizes(mesh).items())
+    return key or "1"
+
+
+def _platform(device_type: str) -> str:
+    """A device type as JAX names its platform (``gpu`` for CUDA)."""
+    return "gpu" if device_type == "cuda" else device_type
+
+
+def mesh_descriptor(mesh) -> dict:
+    """JSON-able description of a mesh, JAX's keys: axis names and sizes,
+    the shape key, the device counts, this process's rank and its
+    coordinates in the grid (``DeviceMesh.get_coordinate``), and the
+    platform. Under SPMD a rank holds one device of the mesh, where JAX's
+    single controller holds all of them (``n_local_devices``). With no
+    mesh, the single-device degradation: axes ``{}``, shape ``"1"``."""
+    process_index = dist.get_rank() if dist.is_initialized() else 0
+    if mesh is None:
+        return {
+            "axes": {}, "shape": "1", "n_devices": 1, "n_local_devices": 1,
+            "process_index": process_index, "coords": {},
+            "platform": _platform(
+                "cuda" if torch.cuda.is_available() else "cpu"),
+        }
+    sizes = axis_sizes(mesh)
+    coord = mesh.get_coordinate()
+    return {
+        "axes": sizes,
+        "shape": mesh_shape_key(mesh),
+        "n_devices": int(mesh.mesh.numel()),
+        "n_local_devices": 0 if coord is None else 1,
+        "process_index": process_index,
+        "coords": ({} if coord is None
+                   else {name: int(i) for name, i in zip(sizes, coord)}),
+        "platform": _platform(mesh.device_type),
+    }
+
+
+def serving_tp(mesh) -> tuple[int, object]:
+    """(tp size, tp group) of a mesh the port serves on. Only the tp axis
+    may exceed size 1: sequence parallelism, data-parallel axes inside one
+    batcher, experts and pipelines over a mesh are not ported yet (ROADMAP
+    Queue 1, item 4); replicas behind a router are ``ReplicatedEngine``."""
+    for axis, size in axis_sizes(mesh).items():
+        if axis != "tp" and size > 1:
+            raise NotImplementedError(
+                f"serving over mesh axis {axis}={size} is not ported yet "
+                "(ROADMAP Queue 1, item 4); the port serves tensor-parallel "
+                "meshes (tp) and data-parallel replicas (ReplicatedEngine)"
+            )
+    return axis_size(mesh, "tp"), tp_group(mesh)
+
+
+# ------------------------------------------------------------- shardings
+
+
+def local_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of ``shape`` under
+    ``spec`` (a tuple of axis names or None, one per dim; shorter specs
+    leave the trailing dims whole)."""
+    out = list(shape)
+    for dim, axis in enumerate(spec):
+        n = axis_size(mesh, axis) if axis is not None else 1
+        if out[dim] % n:
+            raise ValueError(
+                f"dim {dim} of {tuple(shape)} does not divide over "
+                f"{axis}={n}"
+            )
+        out[dim] //= n
+    return tuple(out)
+
+
+def shard_tensor(x: torch.Tensor, spec, mesh, device) -> torch.Tensor:
+    """This rank's slice of ``x`` under ``spec``, as a contiguous tensor of
+    its own on ``device`` (a fresh allocation even where ``x`` already
+    lives there). Only the tp axis slices; a spec naming another axis of
+    size > 1 raises NotImplementedError."""
+    shape = local_shape(x.shape, spec, mesh)
+    out = x
+    for dim, axis in enumerate(spec):
+        if axis is None or axis_size(mesh, axis) == 1:
+            continue
+        if axis != "tp":
+            raise NotImplementedError(
+                f"sharding over {axis} is not ported yet (ROADMAP Queue 1, "
+                "item 4)"
+            )
+        n = shape[dim]
+        out = out.narrow(dim, axis_index(mesh, axis) * n, n)
+    return out.detach().to(device, copy=True).contiguous()
+
+
+# --------------------------------------------------- tensor-parallel ops
+
+
+def group_size(group) -> int:
+    """Ranks in ``group``; 1 for None (no tensor parallelism)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group``; 0 for None."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def all_reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum the ranks' partial results of a row-parallel product (or of the
+    vocab-sharded embedding lookup) into the full one, in ``x``'s dtype:
+    the partials are added in f32 and rounded once, so the sum does not
+    depend on the backend (gloo's or NCCL's bf16 arithmetic) and, at tp=2,
+    equals a bf16 add. Identity without a group. ``x`` is a temporary:
+    an f32 ``x`` is reduced in place."""
+    if group is None:
+        return x
+    acc = x.float()
+    dist.all_reduce(acc, group=group)
+    return acc.to(x.dtype)
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (the
+    column-parallel lm_head's vocabulary, a head-sharded pool's heads).
+    Identity without a group."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    dim = dim % x.dim()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _ALL_GATHER(out, x.contiguous(), group=group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.view(n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+# the one-tensor all-gather into a rank-major concatenation along dim 0;
+# newer PyTorch renames all_gather_into_tensor and deprecates the old name
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or (
+    dist.all_gather_into_tensor)
+
+
+# ---------------------------------------------------------------- launcher
+
+
+def _rank_main(fn, rank, world, init_method, device_type, backend, timeout_s,
+               args, conn) -> None:
+    """One spawned rank: join the group, run ``fn(rank, *args)``, send
+    back ``("ok", pickled result)`` or ``("error", traceback)``. A barrier
+    on each side of ``fn`` keeps a fast rank from tearing the group down
+    while another still connects to it or still exchanges with it (gloo
+    reports that as the other rank's failure); after a failure the parent
+    stops the ranks left waiting."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    try:
+        if device_type == "cuda":
+            _set_local_device(rank)
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+        dist.barrier()
+        result = fn(rank, *args)
+        dist.barrier()
+        # plain pickle: a tensor travels as its bytes, not as a shared-memory
+        # handle that dies with this process
+        conn.send(("ok", pickle.dumps(result)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        conn.close()
+
+
+def spawn(fn, world: int, *, device_type: str = "cuda",
+          backend: str | None = None, args: tuple = (),
+          timeout: float = 600.0) -> list:
+    """Run ``fn(rank, *args)`` on ``world`` fresh ranks and return their
+    results, in rank order. Each rank is a process of the ``spawn`` start
+    method (CUDA may already be initialised here) that joins a group over
+    a ``file://`` rendezvous in a temporary directory (no port to pick);
+    on CUDA rank r takes card r modulo the visible cards. ``fn`` must be
+    importable by name and its result picklable (CPU tensors, numpy).
+
+    A rank that raises, or the whole run passing ``timeout`` seconds,
+    stops every rank and raises RuntimeError with the first traceback. Not
+    needed to use the API: under ``torchrun`` the ranks join through
+    ``initialize_distributed``."""
+    import torch.multiprocessing as mp
+
+    _check_device_type(device_type)
+    backend = backend or default_backend(device_type)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="bci-spawn-") as tmp:
+        init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
+        procs, conns = [], []
+        for rank in range(world):
+            parent, child = ctx.Pipe(duplex=False)
+            proc = ctx.Process(
+                target=_rank_main,
+                args=(fn, rank, world, init_method, device_type, backend,
+                      timeout, args, child),
+                daemon=True,
+            )
+            proc.start()
+            child.close()
+            procs.append(proc)
+            conns.append(parent)
+        results: dict[int, object] = {}
+        error = None
+        try:
+            deadline = time.monotonic() + timeout
+            waiting = dict(enumerate(conns))
+            while waiting and error is None:
+                ready = multiprocessing.connection.wait(
+                    list(waiting.values()), timeout=max(0.0, deadline - time.monotonic())
+                )
+                if not ready:
+                    error = f"ranks {sorted(waiting)} passed {timeout} s"
+                    break
+                for conn in ready:
+                    rank = next(r for r, c in waiting.items() if c is conn)
+                    del waiting[rank]
+                    try:
+                        status, payload = conn.recv()
+                    except EOFError:
+                        status, payload = "error", (
+                            f"rank {rank} exited with code "
+                            f"{procs[rank].exitcode} before it reported")
+                    if status != "ok":
+                        error = f"rank {rank} failed:\n{payload}"
+                        break
+                    results[rank] = pickle.loads(payload)
+        finally:
+            for proc in procs:
+                proc.join(timeout=0 if error else 30)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=10)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+            for conn in conns:
+                conn.close()
+    if error is not None:
+        raise RuntimeError(error)
+    return [results[r] for r in range(world)]

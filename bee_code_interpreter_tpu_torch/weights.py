@@ -17,6 +17,10 @@ split per layer like every other leaf. A Mixture-of-Experts tree's
 stacked ``[n_layers, ...]``) becomes each layer's ``moe`` dict, cast like
 the dense leaves.
 
+Under a mesh (``mesh=``) the tree feeds ``transformer.shard_params``: the
+rank keeps its Megatron shard on its device, the slice of each leaf that
+JAX's ``shard_params`` puts on the device at the rank's mesh coordinates.
+
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.
 """
@@ -35,11 +39,26 @@ MOE_LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "moe")
 
 def params_from_jax(params_np: dict, config, device=None,
                     dtype: torch.dtype | None = None,
-                    requires_grad: bool = False) -> dict:
+                    requires_grad: bool = False, mesh=None) -> dict:
     """``params_np`` is the JAX pytree with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``). ``device`` defaults to CUDA and
     raises without it; ``requires_grad`` makes every leaf a trainable
-    master."""
+    master. With ``mesh`` the result is this rank's shard
+    (``transformer.shard_params``; serving, so no ``requires_grad``), the
+    whole tree crossing on the CPU first; ``device`` then defaults to the
+    mesh's device type."""
+    if mesh is not None:
+        from bee_code_interpreter_tpu_torch.models.transformer import (
+            shard_params,
+        )
+
+        if requires_grad:
+            raise NotImplementedError(
+                "trainable masters under meshes are not ported yet (ROADMAP "
+                "Queue 1, item 4)"
+            )
+        full = params_from_jax(params_np, config, device="cpu", dtype=dtype)
+        return shard_params(full, config, mesh, device)
     device = resolve_device(device)
     dtype = dtype or config.dtype
 

@@ -21,7 +21,9 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    serving decode's lengths, one long row, one in a table of 32 splits, a
    wide batch, lengths on page and split boundaries and past the table, an
    f32 pool), each with the split the wrapper chose and each row held to a
-   limit of its dtype; two K2 calls must give the same bits.
+   limit of its dtype; two K2 calls must give the same bits. Then K1 and
+   K2 again at a tp=2 rank's heads (H=16, KVH=4: the main and serving
+   cases), the shapes ``serving_tp`` runs.
 4. serving reference: the decoder cut to 2 layers at Llama-3-8B widths,
    prefill + paged decode teacher-forced, bf16 kernels on the card against
    the f32 plain path on the CPU on the same weights.
@@ -57,7 +59,9 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    an int8 pool: K2 never launched, the pool 0.516x the bf16 one);
    ``contiguous_decode`` (``Transformer.generate_cached`` at B=2, L=512,
    one-shot, chunked and int8, each step's logits against one
-   teacher-forced forward; K1 only for the one-shot prefills).
+   teacher-forced forward; K1 only for the one-shot prefills; on the first
+   ``BREADTH_CUT_LAYERS`` = 8 layers, as are ``serving_speculative`` and
+   ``serving_snapshot`` below, to keep the run's time).
    Then the model breadth of serving, on the same weights:
    ``serving_weight_int8`` (phase 5's traffic on ``quantize_weights``: K1
    and K2 as in phase 5, the tree's bytes from its shapes, first-token
@@ -88,6 +92,27 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    each alone, token agreement reported; a shared-prefix pair with a prefix
    hit; a probe of one prompt alone and beside another, which tells a
    routing change from a GEMM's reduction order).
+   Then tensor-parallel and replicated serving, no other weights resident,
+   at ``llama3_8b()`` widths with the seed-0 weights of phase 5. The
+   transport is printed (``world``, ``backend``, ``cards``): with two cards
+   or more, tp=2 runs one rank per card over NCCL and the replicas on
+   cards 0 and 1; with one card, both ranks on card 0 over gloo (CUDA
+   tensors staged through host memory) and both replicas on card 0. The
+   ranks are spawned processes (``parallel.spawn``) that load the kernels
+   this process built and report their own launch counts; a rank that fails
+   fails the run. ``tp_reference`` (2 layers, tp=2: each rank's shard shapes
+   those of ``param_specs``, its prefill logits and 4 teacher-forced paged
+   decode steps against the unsharded bf16 path and the f32 CPU path, ranks
+   bitwise equal, K1/K2 counts per rank); ``serving_tp`` (32 layers, tp=2,
+   phase 5's 12 requests and geometry, the ranks building their batchers in
+   turn: per rank K1 = 32 x admissions and K2 = 32 x decode steps at the
+   rank-local heads, every rank's streams and first-token logits identical,
+   two runs identical, first-token logits within PATH_LOGIT_TOL of phase
+   5's; tokens/s, decode step p50, TTFT p50, each rank's live, weight and
+   pool bytes, the greedy agreement with phase 5); ``serving_replicated``
+   (``ReplicatedEngine.build(n_replicas=2)`` over phase 5's traffic: every
+   stream equal to phase 5's, K1/K2 over both replicas, the split of the
+   requests).
 9. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits.
@@ -130,6 +155,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -140,6 +166,9 @@ from bee_code_interpreter_tpu_torch.models.beam import beam_search  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.engine import Engine  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.hf_loader import (  # noqa: E402
     load_llama_params,
+)
+from bee_code_interpreter_tpu_torch.models.replicated import (  # noqa: E402
+    ReplicatedEngine,
 )
 from bee_code_interpreter_tpu_torch.models.lora import (  # noqa: E402
     init_lora,
@@ -160,6 +189,8 @@ from bee_code_interpreter_tpu_torch.models.speculative import (  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     init_params,
+    param_specs,
+    shard_params,
 )
 from bee_code_interpreter_tpu_torch.ops import (  # noqa: E402
     flash_attention as fa,
@@ -181,6 +212,13 @@ from bee_code_interpreter_tpu_torch.observability import (  # noqa: E402
     ServingMonitor,
     ServingProfiler,
     TraceStore,
+)
+from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: E402
+    group_size,
+    local_shape,
+    make_mesh,
+    spawn,
+    tp_group,
 )
 from bee_code_interpreter_tpu_torch.utils.metrics import Registry  # noqa: E402
 
@@ -239,6 +277,11 @@ SPEC_GAMMA = 4
 DRAFT_3B = dict(d_model=3072, n_layers=28, n_heads=24, n_kv_heads=8,
                 d_ff=8192)
 SNAPSHOT_AFTER_STEPS = 8
+# the tensor-parallel phases added ~100 s to the run: contiguous_decode,
+# serving_speculative (its Llama-3.2-3B-shaped draft cut in proportion, 28
+# -> 7 layers) and serving_snapshot run on the first 8 of main_path's 32
+# layers, so the whole command stays near its earlier time
+BREADTH_CUT_LAYERS = 8
 # serving_bench: run_serving_bench at Llama-3-8B, 8 requests of 128-130
 # tokens (prompt i: 128 + i % 3 tokens, numpy seed i), 64 new tokens each,
 # greedy, 8 rows, pages of 16; a warm-up pass per arm, then 3 alternating
@@ -273,6 +316,11 @@ BWD_MAIN_CASE = (TRAIN_B, TRAIN_L, TRAIN_L, True, None, False)
 # parameters, 50.6 GB of f32 masters, gradients and AdamW moments.
 MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_REFERENCE_LAYERS = 16, 2, 2
 MOE_EXACT_REQUESTS = 4
+# tensor-parallel and replicated serving: tp=2 ranks (one per card with two
+# cards or more, over NCCL; both on card 0 over gloo with one card) and two
+# replicas; K1 and K2 then run at the rank-local head counts below
+TP = 2
+TP_HEADS = (32 // TP, 8 // TP)
 # the MoE aux loss, bf16 on the card against f32 on the CPU: relative error
 # (a top-1 flip moves it by ~E/tokens x a probability gap; bf16 rounding of
 # the mean probabilities by ~1e-3)
@@ -350,11 +398,13 @@ K1_CASES = [
 ]
 
 
-def check_flash(timer, dev) -> list[dict]:
-    H, KVH, D = 32, 8, 128
+def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES) -> list[dict]:
+    """K1 on ``cases`` at ``heads`` = (H, KVH), D=128: against its plain
+    version, timed, with SDPA as the library call and the card's bound."""
+    (H, KVH), D = heads, 128
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for B, L, Lk, causal, window in K1_CASES:
+    for B, L, Lk, causal, window in cases:
         q = torch.randn(B, H, L, D, generator=gen, device=dev, dtype=torch.bfloat16)
         k = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=torch.bfloat16)
         v = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=torch.bfloat16)
@@ -383,8 +433,8 @@ def check_flash(timer, dev) -> list[dict]:
         nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * lse.numel()
         b_ms, b_by = bound(flops, nbytes)
         rows.append({
-            "B": B, "L": L, "Lk": Lk, "causal": causal, "window": window,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "B": B, "H": H, "KVH": KVH, "L": L, "Lk": Lk, "causal": causal,
+            "window": window, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "tflops": flops / ms / 1e9,
         })
@@ -510,16 +560,21 @@ K2_CASES = {
     "b8_seed2_f32": (np.random.default_rng(2).integers(1, 2049, size=8).tolist(), "float32", 128),
 }
 K2_MAIN_CASE = "b8_seed2"
+# K1 and K2 at a tp=2 rank's heads (TP_HEADS): the main and serving cases
+K1_TP_CASES = [K1_MAIN_CASE, (1, 48, 48, True, None), (1, 80, 80, True, None),
+               (1, 1000, 1000, True, None)]
+K2_TP_CASES = {name: K2_CASES[name] for name in (K2_MAIN_CASE, "serving_b8")}
 
 
-def check_paged_decode(timer, dev) -> list[dict]:
-    """K2 on every case against its plain version (f32 math on the same
-    inputs), two calls' bits, its time, the plain version's, the byte bound
-    and the split the wrapper chose."""
-    nh, kvh, dh, ps = 32, 8, 128, 16
+def check_paged_decode(timer, dev, heads=(32, 8),
+                       cases=K2_CASES) -> list[dict]:
+    """K2 on every case at ``heads`` = (nh, kvh) against its plain version
+    (f32 math on the same inputs), two calls' bits, its time, the plain
+    version's, the byte bound and the split the wrapper chose."""
+    (nh, kvh), dh, ps = heads, 128, 16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for name, (lengths, dtype, P) in K2_CASES.items():
+    for name, (lengths, dtype, P) in cases.items():
         B = len(lengths)
         n_pages = 1 + B * P
         rng = np.random.default_rng(2)
@@ -568,12 +623,16 @@ def check_paged_decode(timer, dev) -> list[dict]:
 # ---------------------------------------------------------------- reference
 
 
-def teacher_forced_logits(params, cfg, device, prompts, feed) -> torch.Tensor:
+def teacher_forced_logits(params, cfg, device, prompts, feed,
+                          tp_group=None) -> torch.Tensor:
     """Prefill each prompt as the batcher does (padded to whole pages,
     seeded into its pages), then decode ``feed`` [B, n] token by token.
-    Returns [B, 1 + n, vocab] f32 logits (prefill last row, then steps)."""
+    Returns [B, 1 + n, vocab] f32 logits (prefill last row, then steps).
+    With ``tp_group``, ``params`` is this rank's shard and the pool holds
+    its K/V heads."""
     ps, P = 16, 8
-    cache = alloc_paged_cache(cfg, 1 + len(prompts) * P, ps, device)
+    cache = alloc_paged_cache(cfg, 1 + len(prompts) * P, ps, device,
+                              kv_heads=cfg.kv_heads // group_size(tp_group))
     table = np.zeros((len(prompts), P), dtype=np.int32)
     rows = []
     for b, prompt in enumerate(prompts):
@@ -584,7 +643,7 @@ def teacher_forced_logits(params, cfg, device, prompts, feed) -> torch.Tensor:
         padded[:L] = prompt
         logits, (k_pre, v_pre) = transformer.forward(
             params, torch.as_tensor(padded[None], device=device), cfg,
-            return_kv=True,
+            return_kv=True, tp_group=tp_group,
         )
         seed_prefill(cache, torch.as_tensor(table[b, :n_pp], device=device),
                      k_pre[:, 0, :, :L], v_pre[:, 0, :, :L])
@@ -595,7 +654,7 @@ def teacher_forced_logits(params, cfg, device, prompts, feed) -> torch.Tensor:
     for s in range(feed.shape[1]):
         tok = torch.as_tensor(feed[:, s:s + 1], device=device)
         logits, cache = transformer.decode_step_paged(
-            params, tok, pos + s, cache, bt, cfg
+            params, tok, pos + s, cache, bt, cfg, tp_group=tp_group
         )
         out.append(logits[:, 0])
     return torch.stack(out, dim=1).float().cpu()
@@ -663,14 +722,24 @@ def capture_admissions(batcher) -> dict:
     return seen
 
 
+# main_path's batcher geometry: 8 rows, pages of 16, 128 pages a row
+SERVE_GEOMETRY = dict(max_batch=8, page_size=16, max_pages_per_seq=128,
+                      n_pages=1 + 8 * 128)
+
+
 def serve(params, cfg, requests, setup=None, **batcher_kw) -> dict:
     """One Engine run over ``requests`` ((prompt, new tokens, sampling,
-    submit kwargs) each, all submitted at t=0); counts kernel launches and
-    decode steps from zero. ``setup(batcher)``, when given, runs before the
-    requests and its result comes back under ``"setup"``."""
-    batcher = ContinuousBatcher(params, cfg, max_batch=8, page_size=16,
-                                max_pages_per_seq=128, n_pages=1 + 8 * 128,
-                                **batcher_kw)
+    submit kwargs) each, all submitted at t=0) on a fresh batcher in
+    main_path's geometry: ``drive``."""
+    batcher = ContinuousBatcher(params, cfg, **SERVE_GEOMETRY, **batcher_kw)
+    return drive(batcher, requests, setup)
+
+
+def drive(batcher, requests, setup=None) -> dict:
+    """One Engine run over ``requests`` on ``batcher``; counts kernel
+    launches and decode steps from zero. ``setup(batcher)``, when given,
+    runs before the requests and its result comes back under
+    ``"setup"``."""
     engine = Engine(batcher)
     admissions = capture_admissions(batcher)
     hooks = setup(batcher) if setup is not None else None
@@ -1011,7 +1080,8 @@ def contiguous_decode(params, cfg) -> dict:
     B, L, new = 2, 512, 32
     prompt = torch.as_tensor(
         np.random.default_rng(14).integers(0, cfg.vocab_size, (B, L)), device=dev)
-    out = {"phase": "contiguous_decode", "B": B, "L": L, "new_tokens": new}
+    out = {"phase": "contiguous_decode", "layers": cfg.n_layers, "B": B,
+           "L": L, "new_tokens": new}
     one_shot = None
     for way, kv, chunk in (("one_shot", "bf16", None), ("chunked", "bf16", 128),
                            ("int8", "int8", None)):
@@ -1280,11 +1350,14 @@ def serving_speculative(params, cfg) -> dict:
                for n in rng.integers(64, 513, size=8)]
     greedy = [(p, 32, SamplingParams(), {}) for p in prompts]
     plain = serve(params, cfg, greedy)
-    out = {"phase": "serving_speculative", "gamma": gamma, "requests": 8,
+    out = {"phase": "serving_speculative", "layers": n_layers,
+           "gamma": gamma, "requests": 8,
            "prompt_lens": [len(p) for p in prompts], "new_tokens": 32,
            "plain": {"tokens_per_s": sum(map(len, plain["tokens"])) / plain["wall_s"],
                      "decode_steps": plain["decode_steps"]}}
-    dcfg3 = dataclasses.replace(cfg, **DRAFT_3B)  # the paged decode kernel on
+    # the paged decode kernel on; the draft cut as deep as the target is
+    dcfg3 = dataclasses.replace(cfg, **{
+        **DRAFT_3B, "n_layers": DRAFT_3B["n_layers"] * cfg.n_layers // 32})
     draft3 = init_params(dcfg3, torch.Generator(device=dev).manual_seed(18), dev)
     cases = (("self_draft", params, cfg, greedy),
              ("llama3_2_3b_draft", draft3, dcfg3, greedy),
@@ -1385,7 +1458,8 @@ def serving_snapshot(params, cfg, requests) -> dict:
     check(all(fresh.finish_reason(tk) == "length" for tk in tickets),
           "serving_snapshot: finish reasons")
     return {
-        "phase": "serving_snapshot", "requests": len(requests),
+        "phase": "serving_snapshot", "layers": cfg.n_layers,
+        "requests": len(requests),
         "snapshot_after_steps": SNAPSHOT_AFTER_STEPS,
         "tokens_bitwise_equal": True, "logprobs_bitwise_equal": True,
         "pool_storage_kept": True, "pickled_mb": len(blob) / 1e6,
@@ -2147,6 +2221,277 @@ def train_path(dev) -> dict:
         "leaves_with_finite_nonzero_grad": len(grad_norms),
     }
 
+# ------------------------------------- tensor-parallel and replicated serving
+
+
+def transport() -> dict:
+    """How this machine runs tp=2 and two replicas: with two cards or more,
+    one rank and one replica per card, the ranks over NCCL; with one card,
+    both ranks on card 0 over gloo (which stages CUDA tensors through host
+    memory: it proves the sharded math, the kernels at the rank-local heads
+    and the head-sharded pool, not NCCL), both replicas on card 0."""
+    cards = torch.cuda.device_count()
+    two = cards >= 2
+    return {"world": TP, "backend": "nccl" if two else "gloo",
+            "cards": cards,
+            "replica_devices": ["cuda:0", "cuda:1"] if two
+            else ["cuda:0", "cuda:0"]}
+
+
+def rank_setup():
+    """A spawned rank's start: TF32 off as in the parent, and the tp mesh
+    over the spawned group. Returns (mesh, this rank's card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh({"tp": TP}, device_type="cuda")
+    return mesh, torch.device("cuda", torch.cuda.current_device())
+
+
+def shard_shapes_ok(shard, full, cfg, mesh) -> bool:
+    """Every leaf of a rank's shard has the shape ``param_specs`` gives it."""
+    specs = param_specs(cfg, mesh)
+    rows = [(shard[n], full[n], specs[n]) for n in ("embed", "ln_f", "lm_head")]
+    rows += [(ls[n], lf[n], specs["layers"][n])
+             for ls, lf in zip(shard["layers"], full["layers"]) for n in lf]
+    return all(tuple(s.shape) == local_shape(f.shape, spec, mesh)
+               for s, f, spec in rows)
+
+
+def tp_reference_rank(rank, cfg, prompts, feed) -> dict:
+    """One rank of ``tp_reference``: the seed-0 weights built in full on
+    the rank's card, sharded, and the teacher-forced logits over the
+    rank's shard and head-sharded pool."""
+    mesh, dev = rank_setup()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    shard = shard_params(full, cfg, mesh)
+    shapes_ok = shard_shapes_ok(shard, full, cfg, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    logits = teacher_forced_logits(shard, cfg, dev, prompts, feed,
+                                   tp_group(mesh))
+    return {"logits": logits, "shapes_ok": shapes_ok,
+            "k1_launches": fa.FLASH_FWD.launches,
+            "k2_launches": pa.PAGED_DECODE.launches}
+
+
+def tp_reference(dev, how) -> dict:
+    """The decoder cut to 2 layers at Llama-3-8B widths, tp=2: each rank's
+    prefill logits and 4 teacher-forced paged decode steps (K1 and K2 at
+    the rank-local heads) against the unsharded bf16 path on the card and
+    the f32 plain path on the CPU, on the same seed-0 weights."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2,
+                              paged_attention_kernel=True)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 23)]
+    feed = rng.integers(0, cfg.vocab_size, (2, 4))
+    ranks = spawn(tp_reference_rank, TP, device_type="cuda",
+                  backend=how["backend"], args=(cfg, prompts, feed),
+                  timeout=600)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    bf16 = teacher_forced_logits(params, cfg, dev, prompts, feed)
+    f32 = teacher_forced_logits(
+        cpu_f32(params), dataclasses.replace(cfg, dtype=torch.float32),
+        torch.device("cpu"), prompts, feed)
+    del params
+    got = ranks[0]["logits"]
+
+    def rel(want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    rel_bf16, rel_f32 = rel(bf16), rel(f32)
+    n_layers, steps = cfg.n_layers, feed.shape[1]
+    for r, rec in enumerate(ranks):
+        check(rec["shapes_ok"], f"tp_reference: rank {r} shard shapes "
+              "differ from param_specs'")
+        check(torch.equal(rec["logits"], got),
+              f"tp_reference: rank {r}'s logits differ from rank 0's")
+        check(rec["k1_launches"] == n_layers * len(prompts)
+              and rec["k2_launches"] == n_layers * steps,
+              f"tp_reference: rank {r} launched K1 {rec['k1_launches']}, "
+              f"K2 {rec['k2_launches']} times")
+    check(bool(torch.isfinite(got).all()), "tp_reference: non-finite logits")
+    check(rel_bf16 <= PATH_LOGIT_TOL,
+          f"tp_reference: {rel_bf16} against the unsharded bf16 path")
+    check(rel_f32 <= REFERENCE_TOL,
+          f"tp_reference: {rel_f32} against the f32 CPU path")
+    return {"phase": "tp_reference", **{k: how[k] for k in
+                                        ("world", "backend", "cards")},
+            "layers": n_layers, "heads_per_rank": list(TP_HEADS),
+            "decode_steps": steps,
+            "rel_max_logit_err_vs_bf16": rel_bf16,
+            "rel_max_logit_err_vs_f32_cpu": rel_f32,
+            "bf16_tolerance": PATH_LOGIT_TOL, "f32_tolerance": REFERENCE_TOL,
+            "argmax_agreement_vs_bf16":
+                (got.argmax(-1) == bf16.argmax(-1)).float().mean().item(),
+            "ranks_identical": True, "shard_shapes_match_specs": True,
+            "k1_launches_per_rank": [r["k1_launches"] for r in ranks],
+            "k2_launches_per_rank": [r["k2_launches"] for r in ranks]}
+
+
+def serving_tp_rank(rank, cfg) -> dict:
+    """One rank of ``serving_tp``: the ranks build their batchers in turn
+    (the full weights on the card, this rank's shard kept, the rest freed,
+    then a barrier), then serve main_path's traffic twice on the same
+    batcher, every rank the same submits and steps."""
+    mesh, dev = rank_setup()
+    requests = main_requests(cfg.vocab_size)
+    batcher = None
+    for turn in range(TP):
+        if turn == rank:
+            full = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+            batcher = ContinuousBatcher(full, cfg, mesh=mesh, **SERVE_GEOMETRY)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    runs = [drive(batcher, requests) for _ in range(2)]
+    keep = ("tokens", "finish", "k1_launches", "k2_launches", "decode_steps",
+            "wall_s", "ttft_s", "decode_only_step_ms")
+    return {
+        "mesh_key": batcher._mesh_key,
+        "live_bytes": live,
+        "weight_bytes": sum(x.numel() * x.element_size()
+                            for x in transformer.param_leaves(batcher.params)),
+        "pool_bytes": sum(x.numel() * x.element_size()
+                          for x in batcher.cache.values()),
+        "runs": [{k: run[k] for k in keep} for run in runs],
+        "first_logits": np.stack(runs[0]["first_logits"]),
+    }
+
+
+def serving_tp(how, main_first, requests) -> dict:
+    """main_path's 12 requests in main_path's geometry on Llama-3-8B at
+    tp=2: on every rank K1 = 32 x admissions and K2 = 32 x decode steps at
+    the rank-local heads, two runs identical, every rank's streams and
+    first-token logits identical; the first-token logits within
+    PATH_LOGIT_TOL of main_path's unsharded ones."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              paged_attention_kernel=True)
+    ranks = spawn(serving_tp_rank, TP, device_type="cuda",
+                  backend=how["backend"], args=(cfg,), timeout=900)
+    n_layers, n_req = cfg.n_layers, len(requests)
+    lead = ranks[0]["runs"][0]
+    for r, rec in enumerate(ranks):
+        check(rec["mesh_key"] == f"tp={TP}", f"rank {r}: {rec['mesh_key']}")
+        for run in rec["runs"]:
+            check(all(f == "length" for f in run["finish"]),
+                  f"serving_tp rank {r}: finish reasons {run['finish']}")
+            check(run["k1_launches"] == n_layers * n_req,
+                  f"serving_tp rank {r}: flash_fwd launched "
+                  f"{run['k1_launches']} times, expected {n_layers} x {n_req}")
+            check(run["decode_steps"] > 0
+                  and run["k2_launches"] == n_layers * run["decode_steps"],
+                  f"serving_tp rank {r}: paged_decode launched "
+                  f"{run['k2_launches']} times over {run['decode_steps']} "
+                  "decode steps")
+        check(rec["runs"][1]["tokens"] == rec["runs"][0]["tokens"],
+              f"serving_tp rank {r}: the second run gave other tokens")
+        check(rec["runs"][0]["tokens"] == lead["tokens"],
+              f"serving_tp: rank {r}'s streams differ from rank 0's")
+        check(np.array_equal(rec["first_logits"], ranks[0]["first_logits"]),
+              f"serving_tp: rank {r}'s first-token logits differ")
+    want = np.stack(main_first["first_logits"])
+    got = ranks[0]["first_logits"]
+    first_err = max(float(np.abs(g - w).max() / np.abs(w).max())
+                    for g, w in zip(got, want))
+    check(first_err <= PATH_LOGIT_TOL,
+          f"serving_tp: first-token logits {first_err} from main_path's")
+    generated = sum(len(t) for t in lead["tokens"])
+    return {
+        "phase": "serving_tp", **{k: how[k] for k in ("world", "backend",
+                                                      "cards")},
+        "config": "llama3_8b", "layers": n_layers, "dtype": "bfloat16",
+        "heads_per_rank": list(TP_HEADS), "requests": n_req,
+        "mesh": ranks[0]["mesh_key"],
+        "tokens_per_s": generated / lead["wall_s"], "wall_s": lead["wall_s"],
+        "second_run_tokens_per_s": generated / ranks[0]["runs"][1]["wall_s"],
+        "decode_step_p50_ms": float(np.median(lead["decode_only_step_ms"])),
+        "ttft_p50_ms": float(np.median(lead["ttft_s"])) * 1e3,
+        "decode_steps": lead["decode_steps"],
+        "k1_launches_per_rank": [r["runs"][0]["k1_launches"] for r in ranks],
+        "k2_launches_per_rank": [r["runs"][0]["k2_launches"] for r in ranks],
+        "live_gb_per_rank": [r["live_bytes"] / 1e9 for r in ranks],
+        "weight_gb_per_rank": [r["weight_bytes"] / 1e9 for r in ranks],
+        "pool_gb_per_rank": [r["pool_bytes"] / 1e9 for r in ranks],
+        "ranks_identical": True, "second_run_identical": True,
+        "first_token_rel_err_vs_main_path": first_err,
+        "first_token_tolerance": PATH_LOGIT_TOL,
+        "greedy_agreement_with_main_path": token_agreement(
+            lead["tokens"], main_first["tokens"], greedy_rows(requests)),
+        # a greedy stream that leaves main_path's at one near-tied token
+        # stays apart: the first tokens show whether the rows start alike
+        "first_token_agreement_with_main_path": float(np.mean(
+            [a[0] == b[0] for a, b in zip(lead["tokens"],
+                                          main_first["tokens"])])),
+        "first_token_argmax_agreement": float(np.mean(
+            got.argmax(-1) == want.argmax(-1))),
+        "streams_equal_main_path": lead["tokens"] == main_first["tokens"],
+    }
+
+
+def serving_replicated(params, cfg, requests, main_first, how) -> dict:
+    """``ReplicatedEngine.build(n_replicas=2)`` over main_path's traffic,
+    in main_path's geometry: every request's stream equal to main_path's
+    (a decode step is the fixed [max_batch] shape and an admission one
+    request a forward, whoever shares the replica), K1 = 32 x admissions
+    and K2 = 32 x decode steps over both replicas, and the split of
+    requests between them."""
+    eng = ReplicatedEngine.build(params, cfg, 2,
+                                 devices=how["replica_devices"],
+                                 **SERVE_GEOMETRY)
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    steps, undo = count_decode_steps()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tickets = [eng.submit(p, n, sampling=s, **kw)
+                   for p, n, s, kw in requests]
+        ttft: dict[int, float] = {}
+        while eng.pending or any(e.batcher.busy for e in eng.engines):
+            eng.step()
+            now = time.perf_counter() - t0
+            for tk in tickets:
+                if tk not in ttft and eng.partial_result(tk):
+                    ttft[tk] = now
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    tokens = [eng.result(t) for t in tickets]
+    split = [eng.replica_of(t) for t in tickets]
+    n_layers, n_req = cfg.n_layers, len(requests)
+    check(fa.FLASH_FWD.launches == n_layers * n_req,
+          f"serving_replicated: flash_fwd launched {fa.FLASH_FWD.launches} "
+          f"times, expected {n_layers} x {n_req}")
+    check(steps[0] > 0 and pa.PAGED_DECODE.launches == n_layers * steps[0],
+          f"serving_replicated: paged_decode launched "
+          f"{pa.PAGED_DECODE.launches} times over {steps[0]} decode steps")
+    check(set(split) == {0, 1}, f"serving_replicated: split {split}")
+    check(tokens == main_first["tokens"],
+          "serving_replicated: streams differ from main_path's (agreement "
+          f"{token_agreement(tokens, main_first['tokens'], range(n_req))})")
+    generated = sum(len(t) for t in tokens)
+    return {
+        "phase": "serving_replicated", "replicas": 2,
+        "devices": how["replica_devices"], "cards": how["cards"],
+        "config": "llama3_8b", "requests": n_req,
+        "requests_per_replica": [split.count(i) for i in range(2)],
+        "replica_of": split,
+        "tokens_per_s": generated / wall, "wall_s": wall,
+        "ttft_p50_ms": float(np.median([ttft[t] for t in tickets])) * 1e3,
+        "decode_steps": steps[0],
+        "k1_launches": fa.FLASH_FWD.launches,
+        "k2_launches": pa.PAGED_DECODE.launches,
+        "streams_equal_main_path": True,
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2178,6 +2523,13 @@ def main() -> int:
     paged_rows = check_paged_decode(timer, dev)
     emit({"phase": "paged_decode", "tolerance": KERNEL_TOL, "cases": paged_rows})
     paged = next(r for r in paged_rows if r["case"] == K2_MAIN_CASE)
+    # the same kernels at a tp=2 rank's heads (serving_tp's shapes)
+    flash_tp_rows = check_flash(timer, dev, TP_HEADS, K1_TP_CASES)
+    emit({"phase": "flash_fwd_rank_local", "heads": list(TP_HEADS),
+          "tolerance": KERNEL_TOL, "cases": flash_tp_rows})
+    paged_tp_rows = check_paged_decode(timer, dev, TP_HEADS, K2_TP_CASES)
+    emit({"phase": "paged_decode_rank_local", "heads": list(TP_HEADS),
+          "tolerance": KERNEL_TOL, "cases": paged_tp_rows})
     del timer
 
     cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
@@ -2208,6 +2560,8 @@ def main() -> int:
                 k2_by_phase[name] = result["k2_launches"]
         return result
 
+    cut_cfg = dataclasses.replace(cfg, n_layers=BREADTH_CUT_LAYERS)
+    cut = {**params, "layers": params["layers"][:BREADTH_CUT_LAYERS]}
     for name, phase in (
         ("serving_bench", lambda: serving_bench(params, cfg)),
         ("serving_profile", lambda: serving_profile(params, cfg)),
@@ -2215,12 +2569,12 @@ def main() -> int:
         ("admission_chunked", lambda: admission_chunked(params, cfg)),
         ("admission_interleaved", lambda: admission_interleaved(params, cfg)),
         ("serving_int8", lambda: serving_int8(params, cfg, requests, first)),
-        ("contiguous_decode", lambda: contiguous_decode(params, cfg)),
+        ("contiguous_decode", lambda: contiguous_decode(cut, cut_cfg)),
         ("serving_weight_int8",
          lambda: serving_weight_int8(params, cfg, requests, first)),
         ("serving_lora", lambda: serving_lora(params, cfg)),
-        ("serving_speculative", lambda: serving_speculative(params, cfg)),
-        ("serving_snapshot", lambda: serving_snapshot(params, cfg, requests)),
+        ("serving_speculative", lambda: serving_speculative(cut, cut_cfg)),
+        ("serving_snapshot", lambda: serving_snapshot(cut, cut_cfg, requests)),
         ("beam_search", lambda: beam_phase(params, cfg)),
         ("speculative_generate", lambda: speculative_generate_phase(params, cfg)),
     ):
@@ -2240,6 +2594,27 @@ def main() -> int:
     del moe_params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # tensor-parallel and replicated serving, no other weights resident;
+    # each rank counts its own launches (its process's counters)
+    how = transport()
+    emit({"phase": "transport", **how})
+    tp_ref = run_phase("tp_reference", lambda: tp_reference(dev, how))
+    tp_run = run_phase("serving_tp",
+                       lambda: serving_tp(how, first, requests))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    run_phase("serving_replicated", lambda: serving_replicated(
+        params, cfg, requests, first, how))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, rec in (("tp_reference", tp_ref), ("serving_tp", tp_run)):
+        k1_by_phase[name] = rec["k1_launches_per_rank"][0]
+        k2_by_phase[name] = rec["k2_launches_per_rank"][0]
+    k1_per_rank = {"tp_reference": tp_ref["k1_launches_per_rank"],
+                   "serving_tp": tp_run["k1_launches_per_rank"]}
+    k2_per_rank = {"tp_reference": tp_ref["k2_launches_per_rank"],
+                   "serving_tp": tp_run["k2_launches_per_rank"]}
 
     timer = Timer(dev)
     bwd_rows = check_flash_bwd(timer, dev)
@@ -2265,6 +2640,17 @@ def main() -> int:
     main_k1 = next(r for r in flash_rows
                    if (r["B"], r["L"], r["Lk"], r["causal"], r["window"])
                    == K1_MAIN_CASE)
+    main_k1_tp = next(r for r in flash_tp_rows
+                      if (r["B"], r["L"], r["Lk"], r["causal"], r["window"])
+                      == K1_MAIN_CASE)
+    paged_tp = next(r for r in paged_tp_rows if r["case"] == K2_MAIN_CASE)
+
+    def rank_local(row, shape) -> dict:
+        return {"shape": shape, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "max_abs_err": row["max_abs_err"]}
+
     main_bwd = next(r for r in bwd_rows
                     if (r["B"], r["Lq"], r["Lk"], r["causal"], r["window"],
                         r["g_lse"]) == BWD_MAIN_CASE)
@@ -2308,6 +2694,10 @@ def main() -> int:
             "bound_by": main_k1["bound_by"],
             "library_ms": main_k1["library_ms"],
             "shape": "B=1 H=32 KVH=8 L=1024 D=128 causal bf16",
+            "launches_per_rank": k1_per_rank,
+            "rank_local": rank_local(
+                main_k1_tp, f"B=1 H={TP_HEADS[0]} KVH={TP_HEADS[1]} L=1024 "
+                "D=128 causal bf16"),
         },
         bwd_entry("flash_bwd_dkdv", "dkdv",
                   "bee_code_interpreter_tpu/ops/flash_attention.py:291"),
@@ -2326,6 +2716,10 @@ def main() -> int:
             "shape": "B=8 nh=32 kvh=8 dh=128 ps=16 P=128 bf16",
             "splits": paged["splits"],
             "cases_ms": {r["case"]: r["ms"] for r in paged_rows},
+            "launches_per_rank": k2_per_rank,
+            "rank_local": {**rank_local(
+                paged_tp, f"B=8 nh={TP_HEADS[0]} kvh={TP_HEADS[1]} dh=128 "
+                "ps=16 P=128 bf16"), "splits": paged_tp["splits"]},
         },
     ]})
     print(nvidia_smi(), flush=True)

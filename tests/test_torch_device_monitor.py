@@ -274,10 +274,27 @@ def test_step_telemetry_under_shape_one_matches_jax():
 
 
 def test_mesh_shape_key_and_descriptor():
+    """No mesh, and a mesh of one CPU rank, keyed and described as JAX
+    keys and describes a one-device mesh (tensor-parallel keys such as
+    ``"tp=2"`` are held to JAX's in tests/test_torch_parallel_mesh.py and
+    tests/test_torch_serving_mesh.py)."""
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from bee_code_interpreter_tpu.parallel.mesh import (
+        mesh_shape_key as jax_mesh_shape_key,
+    )
+    from tests.torch_tp_worker import single_rank_mesh
+
     assert mesh_shape_key(None) == "1"
     assert mesh_descriptor(None) == jax_mesh_descriptor(None)
     assert mesh_descriptor(None, torch.device("cuda", 0))["platform"] == "gpu"
-    with pytest.raises(NotImplementedError):
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "tp"))
+    with single_rank_mesh({"dp": 1, "tp": 1}) as mesh:
+        assert mesh_shape_key(mesh) == jax_mesh_shape_key(jmesh) == "dp=1,tp=1"
+        assert mesh_descriptor(mesh) == jax_mesh_descriptor(jmesh)
+    with pytest.raises(ValueError, match="not a DeviceMesh"):
         mesh_shape_key(object())
 
 

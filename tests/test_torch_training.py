@@ -199,15 +199,22 @@ def test_resume_from_checkpoint_is_bitwise_equal_to_straight_run(tmp_path):
 
 
 def test_moe_and_mesh_still_raise():
-    """Meshes still raise, for MoE configs too; MoE itself no longer does:
+    """Training under meshes still raises, for MoE configs too (a mesh now
+    serves: tests/test_torch_serving_mesh.py); MoE itself no longer does:
     its masters init and train (tests/test_torch_moe.py holds them to
     JAX), and a dense tree is not an MoE tree."""
+    from tests.torch_tp_worker import single_rank_mesh
+
     jcfg, tcfg = configs()
     _, tparams = tiny_params(jcfg, tcfg)
     moe = dataclasses.replace(tcfg, n_experts=4)
-    for cfg in (tcfg, moe):
-        with pytest.raises(NotImplementedError, match="meshes"):
-            torch_t.Transformer(cfg, mesh=object())
+    with single_rank_mesh({"tp": 1}) as mesh:
+        for cfg in (tcfg, moe):
+            model = torch_t.Transformer(cfg, mesh=mesh)
+            with pytest.raises(NotImplementedError, match="meshes"):
+                model.make_train_step()
+            with pytest.raises(NotImplementedError, match="meshes"):
+                model.init(torch.Generator(), device="cpu")
     params = torch_t.Transformer(moe).init(torch.Generator(), device="cpu")
     loss = torch_t.loss_fn(params, torch_batch(make_batch()), moe)
     assert torch.isfinite(loss) and loss.requires_grad

@@ -1,0 +1,385 @@
+"""Rank functions of the tensor-parallel parity tests
+(tests/test_torch_parallel_mesh.py, tests/test_torch_serving_mesh.py).
+
+``parallel.spawn`` starts each rank as a fresh process that imports this
+module by name, so it imports no JAX: the JAX side runs in the test
+process, and the weights and inputs cross as numpy arrays. Each rank runs
+every scenario of its file in one spawn and returns plain records (numpy
+arrays, lists, strings) that the tests hold against the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from bee_code_interpreter_tpu_torch.models import transformer as T
+from bee_code_interpreter_tpu_torch.models.lora import (
+    init_lora,
+    make_lora_train_step,
+)
+from bee_code_interpreter_tpu_torch.models.replicated import ReplicatedEngine
+from bee_code_interpreter_tpu_torch.models.serving import (
+    ContinuousBatcher,
+    SamplingParams,
+)
+from bee_code_interpreter_tpu_torch.observability import (
+    DeviceMonitor,
+    ServingMonitor,
+)
+from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
+    alloc_paged_cache,
+    seed_prefill,
+)
+from bee_code_interpreter_tpu_torch.parallel import mesh as M
+from bee_code_interpreter_tpu_torch.utils.metrics import Registry
+from bee_code_interpreter_tpu_torch.weights import params_from_jax
+
+# several ranks share the CPU with the other test workers
+torch.set_num_threads(1)
+
+PROMPT = [5, 3, 7, 2, 9, 4, 1, 8]
+
+
+def tiny_config(**kw) -> T.TransformerConfig:
+    """The JAX tests' tiny decoder in f32 (4 heads over 2 KV heads)."""
+    return dataclasses.replace(T.TransformerConfig.tiny(),
+                               dtype=torch.float32, **{"n_kv_heads": 2, **kw})
+
+
+@contextlib.contextmanager
+def single_rank_mesh(axes: dict):
+    """A CPU mesh over a group of one (this process), the group destroyed
+    on exit."""
+    try:
+        yield M.make_mesh(axes, device_type="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def to_np(tree):
+    """Tensors of a (nested) record as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_np(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def host_state(b) -> dict:
+    """The batcher bookkeeping ``tests/torch_parity.py::host_state``
+    compares (that module imports JAX)."""
+    return {
+        "prefix_index": dict(b.prefix_index),
+        "page_hash": dict(b.page_hash),
+        "page_ref": b.page_ref.tolist(),
+        "free_pages": list(b.free_pages),
+        "evictable": list(b.evictable),
+        "prefix_stats": dict(b.prefix_stats),
+        "block_table": b.block_table.tolist(),
+        "pos": b.pos.tolist(),
+        "active": b.active.tolist(),
+        "prefilling": sorted(b.prefill_state),
+        "kv_telemetry": b.kv_telemetry(),
+        "stats": b.stats,
+    }
+
+
+def error_of(call) -> tuple[str, str] | None:
+    """(exception type, message) that ``call()`` raised, or None."""
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 - the test reads the type
+        return type(e).__name__, str(e)
+    return None
+
+
+def leaf_shapes(params) -> dict:
+    """Each weight's shape, ``{q, s}`` leaves as two entries."""
+    def flat(prefix, leaf):
+        if isinstance(leaf, dict):
+            return {f"{prefix}.{k}": tuple(v.shape) for k, v in leaf.items()}
+        return {prefix: tuple(leaf.shape)}
+
+    out = {}
+    for name in ("embed", "ln_f", "lm_head"):
+        out.update(flat(name, params[name]))
+    for name, leaf in params["layers"][0].items():
+        out.update(flat(f"layers.{name}", leaf))
+    return out
+
+
+# ------------------------------------------------------- parallel / model
+
+
+def paged_decode_logits(params, cfg, tokens, feed, tp_group=None):
+    """Prefill ``tokens`` [B, L] into a paged pool (pages of 4, rows on
+    their own pages), then decode ``feed`` [B, n] teacher-forced with
+    ``decode_step_paged``: the logits of every step [B, n, V]."""
+    B, L = tokens.shape
+    P = 8
+    kvh = cfg.kv_heads // M.group_size(tp_group)
+    pool = alloc_paged_cache(cfg, 1 + B * P, 4, "cpu", kv_heads=kvh)
+    table = torch.as_tensor(1 + np.arange(B * P).reshape(B, P),
+                            dtype=torch.int32)
+    _, (k, v) = T.forward(params, tokens, cfg, return_kv=True,
+                          tp_group=tp_group)
+    for b in range(B):
+        seed_prefill(pool, table[b, :-(-L // 4)], k[:, b], v[:, b])
+    out = []
+    pos = torch.full((B,), L, dtype=torch.int32)
+    for s in range(feed.shape[1]):
+        logits, pool = T.decode_step_paged(params, feed[:, s:s + 1], pos + s,
+                                           pool, table, cfg,
+                                           tp_group=tp_group)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def parallel_cases(rank: int, world: int, inputs: dict) -> dict:
+    """The mesh helpers, ``shard_params`` and the tp model functions on
+    this rank of a ``world``-rank CPU group."""
+    out = {
+        "initialized_again": M.initialize_distributed(device_type="cpu"),
+        "world_size": M.world_size(),
+        "local_device_count": M.local_device_count("cpu"),
+    }
+    mesh = M.make_mesh({"tp": world}, device_type="cpu")
+    out["tp_key"] = M.mesh_shape_key(mesh)
+    out["tp_descriptor"] = M.mesh_descriptor(mesh)
+    out["batch_axes"] = M.batch_axes(mesh)
+    out["too_big"] = error_of(
+        lambda: M.make_mesh({"dp": 2 * world, "tp": 4}, device_type="cpu"))
+    out["backend_mismatch"] = error_of(
+        lambda: M.make_mesh({"tp": world}, device_type="cpu",
+                            backend="nccl"))
+    auto = M.auto_mesh(device_type="cpu")
+    out["auto"] = (tuple(auto.mesh_dim_names), tuple(auto.mesh.shape))
+    auto_sp = M.auto_mesh(sp=2, device_type="cpu")
+    out["auto_sp"] = (tuple(auto_sp.mesh_dim_names),
+                      tuple(auto_sp.mesh.shape))
+    if world == 4:
+        grid = M.make_mesh({"dp": 2, "tp": 2}, device_type="cpu")
+        out["grid_key"] = M.mesh_shape_key(grid)
+        out["grid_descriptor"] = M.mesh_descriptor(grid)
+        out["grid_batch_axes"] = M.batch_axes(grid)
+        sub = M.make_mesh({"tp": 2}, device_type="cpu")
+        out["sub_descriptor"] = M.mesh_descriptor(sub)
+    # collectives: the rank-major concatenation, and an exact f32 sum
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+    out["gather_last"] = to_np(M.all_gather_cat(x, M.tp_group(mesh)))
+    out["gather_first"] = to_np(M.all_gather_cat(x.to(torch.int8),
+                                                 M.tp_group(mesh), dim=0))
+    out["reduce_bf16"] = to_np(M.all_reduce_partial(
+        torch.full((3,), 0.5 + rank, dtype=torch.bfloat16),
+        M.tp_group(mesh)).float())
+
+    cfg = tiny_config(n_kv_heads=4)
+    g = M.tp_group(mesh)
+    full = params_from_jax(inputs["params"], cfg, device="cpu")
+    shard = T.shard_params(full, cfg, mesh)
+    out["specs"] = T.param_specs(cfg, mesh)
+    out["shard"] = to_np(shard)
+    out["shard_shapes"] = leaf_shapes(shard)
+    out["spec_shapes"] = {
+        name: M.local_shape(shape, spec, mesh)
+        for name, shape, spec in _spec_rows(full, out["specs"])
+    }
+    out["shard_via_loader"] = to_np(params_from_jax(inputs["params"], cfg,
+                                                    mesh=mesh))
+    q_full = params_from_jax(inputs["params_int8"], cfg, device="cpu")
+    out["shard_int8"] = to_np(T.shard_params(q_full, cfg, mesh))
+    out["own_storage"] = all(
+        shard["layers"][0][k].untyped_storage().data_ptr()
+        != full["layers"][0][k].untyped_storage().data_ptr()
+        for k in ("wq", "ln1"))
+
+    tokens = torch.as_tensor(inputs["tokens"])
+    logits, (k, v) = T.forward(shard, tokens, cfg, return_kv=True,
+                               tp_group=g)
+    out["forward"] = to_np({"logits": logits, "k": k, "v": v})
+    out["forward_int8"] = to_np(T.forward(T.shard_params(q_full, cfg, mesh),
+                                          tokens, cfg, tp_group=g))
+    feed = torch.as_tensor(inputs["feed"])
+    out["paged"] = to_np(paged_decode_logits(shard, cfg, tokens, feed, g))
+    out["paged_kernel_gate"] = to_np(paged_decode_logits(
+        shard, dataclasses.replace(cfg, paged_attention_kernel=True), tokens,
+        feed, g))
+    last, cache = T.prefill_chunked(shard, tokens, cfg, tokens.shape[1] + 4,
+                                    chunk=3, tp_group=g)
+    out["chunked"] = to_np({"last": last, "k": cache["k"]})
+    model = T.Transformer(cfg, mesh)
+    out["generate_cached"] = to_np(model.generate_cached(
+        shard, tokens, max_new_tokens=5))
+    out["generate_cached_chunked"] = to_np(model.generate_cached(
+        shard, tokens, max_new_tokens=5, prefill_chunk=3))
+    out["generate_cached_int8_cache"] = to_np(T.Transformer(
+        dataclasses.replace(cfg, kv_cache_dtype="int8"), mesh
+    ).generate_cached(shard, tokens, max_new_tokens=5))
+    out["generate"] = to_np(model.generate(shard, tokens, max_new_tokens=3))
+    return out
+
+
+def _spec_rows(params, specs):
+    """(name, full shape, spec) of the leaves ``leaf_shapes`` names."""
+    rows = [(n, tuple(params[n].shape), specs[n])
+            for n in ("embed", "ln_f", "lm_head")]
+    rows += [(f"layers.{n}", tuple(leaf.shape), specs["layers"][n])
+             for n, leaf in params["layers"][0].items()]
+    return rows
+
+
+def failing_rank(rank: int) -> int:
+    """Raises on rank 1: ``spawn`` must fail the whole run."""
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return rank
+
+
+# ---------------------------------------------------------------- serving
+
+
+def _batcher(params, cfg, mesh, **kw):
+    return ContinuousBatcher(params, cfg, mesh=mesh, **kw)
+
+
+def serving_cases(rank: int, inputs: dict) -> dict:
+    """Every tp case of the JAX package's tests/test_serving_mesh.py (its
+    batchers at tp=2), the snapshot in both directions, a logprobs and a
+    sampled request, the mesh key of the step records and the refusals."""
+    mesh = M.make_mesh({"tp": 2}, device_type="cpu")
+    cfg = tiny_config()
+    full = params_from_jax(inputs["params"], cfg, device="cpu")
+    out: dict = {}
+
+    # :43, unsharded solo decode of two requests at once
+    b = _batcher(full, cfg, mesh, max_batch=2, n_pages=16, page_size=4,
+                 max_pages_per_seq=4)
+    registry = Registry()
+    device_monitor = DeviceMonitor(metrics=registry)
+    device_monitor.attach(b)
+    serving_monitor = ServingMonitor(metrics=registry)
+    serving_monitor.attach(b)
+    r1 = b.submit(PROMPT, 6)
+    r2 = b.submit([1, 2, 3], 6)
+    b.run_to_completion()
+    out["two_requests"] = {
+        "results": [b.result(r1), b.result(r2)],
+        "host": host_state(b),
+        "param_shapes": leaf_shapes(b.params),
+        "pool_shape": tuple(b.cache["k"].shape),
+        "mesh_key": b._mesh_key,
+        "device_steps": device_monitor.snapshot()["steps"],
+        "device_mesh": device_monitor.snapshot()["mesh"],
+        "step_meshes": sorted({
+            s["mesh"]
+            for s in serving_monitor.snapshot(steps=256)["steps"]["last"]}),
+    }
+
+    # :63, the int8 pool and its scale planes
+    cfg8 = tiny_config(kv_cache_dtype="int8")
+    b = _batcher(full, cfg8, mesh, max_batch=2, n_pages=16, page_size=4,
+                 max_pages_per_seq=4)
+    r = b.submit(PROMPT, 5)
+    b.run_to_completion()
+    out["int8_pool"] = {"results": [b.result(r)], "host": host_state(b),
+                        "pool_shapes": {k: tuple(x.shape)
+                                        for k, x in b.cache.items()}}
+
+    # :77, speculative decoding with a one-layer draft
+    dcfg = tiny_config(n_layers=1)
+    draft = params_from_jax(inputs["draft_params"], dcfg, device="cpu")
+    b = _batcher(full, cfg, mesh, max_batch=2, n_pages=32, page_size=4,
+                 max_pages_per_seq=6, draft_params=draft, draft_config=dcfg,
+                 gamma=3)
+    r = b.submit(PROMPT, 6)
+    b.run_to_completion()
+    out["speculative"] = {"results": [b.result(r)], "host": host_state(b),
+                          "draft_pool_shape": tuple(b.draft_cache["k"].shape),
+                          "draft_shapes": leaf_shapes(b.draft_params)}
+
+    # :93, prefix-cached suffix admission on shared pages
+    b = _batcher(full, cfg, mesh, max_batch=2, n_pages=32, page_size=4,
+                 max_pages_per_seq=8, prefix_cache=True)
+    p1, p2 = PROMPT + [1, 2], PROMPT + [3]
+    r1 = b.submit(p1, 4)
+    b.run_to_completion()
+    r2 = b.submit(p2, 4)
+    b.run_to_completion()
+    out["prefix"] = {"results": [b.result(r1), b.result(r2)],
+                     "host": host_state(b)}
+
+    # :113, kv_heads that do not divide over tp
+    cfg1 = tiny_config(n_kv_heads=1)
+    out["kv_heads_error"] = error_of(lambda: _batcher(
+        full, cfg1, mesh, max_batch=2, n_pages=16, page_size=4,
+        max_pages_per_seq=4))
+
+    # :125 and its reverse: a snapshot moves between topologies
+    geometry = dict(max_batch=2, n_pages=16, page_size=4, max_pages_per_seq=4)
+    a = ContinuousBatcher(full, cfg, device="cpu", **geometry)
+    r = a.submit(PROMPT, 6)
+    for _ in range(2):
+        a.step()
+    snap_one = a.state_dict()
+    b = _batcher(full, cfg, mesh, **geometry)
+    ptrs = {k: x.data_ptr() for k, x in b.cache.items()}
+    b.load_state_dict(snap_one)
+    b.run_to_completion()
+    out["snapshot_to_tp"] = {
+        "results": [b.result(r)], "host": host_state(b),
+        "kept_storage": ptrs == {k: x.data_ptr() for k, x in b.cache.items()},
+    }
+    a = _batcher(full, cfg, mesh, **geometry)
+    r = a.submit(PROMPT, 6)
+    for _ in range(2):
+        a.step()
+    snap_tp = a.state_dict()
+    b = ContinuousBatcher(full, cfg, device="cpu", **geometry)
+    b.load_state_dict(snap_tp)
+    b.run_to_completion()
+    out["snapshot_from_tp"] = {"results": [b.result(r)], "host": host_state(b)}
+    out["snapshot_pools"] = to_np({"one": snap_one["device"]["cache"],
+                                   "tp": snap_tp["device"]["cache"]})
+
+    # logprobs on a greedy row and a seeded sampled row
+    b = _batcher(full, cfg, mesh, max_batch=2, n_pages=16, page_size=4,
+                 max_pages_per_seq=4)
+    r1 = b.submit(PROMPT, 6, sampling=SamplingParams(logprobs=True))
+    r2 = b.submit([1, 2, 3], 6, sampling=SamplingParams(
+        temperature=0.8, top_k=50, seed=7, logprobs=True))
+    b.run_to_completion()
+    out["sampling"] = {"results": [b.result(r1), b.result(r2)],
+                       "logprobs": [b.result_logprobs(r1),
+                                    b.result_logprobs(r2)],
+                       "host": host_state(b)}
+
+    # what is not ported under a mesh yet
+    sp_mesh = M.make_mesh({"sp": 2}, device_type="cpu")
+    dp_mesh = M.make_mesh({"dp": 2, "tp": 1}, device_type="cpu")
+    lora = init_lora(cfg, torch.Generator().manual_seed(0), rank=2)
+    kw = dict(max_batch=2, n_pages=16, page_size=4, max_pages_per_seq=4)
+    out["refusals"] = {
+        "sp": error_of(lambda: _batcher(full, cfg, sp_mesh, **kw)),
+        "dp": error_of(lambda: _batcher(full, cfg, dp_mesh, **kw)),
+        "adapters": error_of(lambda: _batcher(full, cfg, mesh,
+                                              adapters=[lora], **kw)),
+        "moe": error_of(lambda: _batcher(full, tiny_config(n_experts=4),
+                                         mesh, **kw)),
+        "train_step": error_of(
+            lambda: T.Transformer(cfg, mesh).make_train_step()),
+        "init": error_of(lambda: T.Transformer(cfg, mesh).init(
+            torch.Generator(), device="cpu")),
+        "lora_train_step": error_of(
+            lambda: make_lora_train_step(cfg, mesh=mesh)),
+        "replicas_over_meshes": error_of(lambda: ReplicatedEngine.build(
+            full, cfg, 1, meshes=[mesh], **kw)),
+    }
+    return out
