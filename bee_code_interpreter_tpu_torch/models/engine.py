@@ -232,7 +232,13 @@ class Engine:
                 return
             except Exception as e:
                 # validate_request ran at intake, so this "cannot happen";
-                # if it does, fail the ticket instead of wedging the queue
+                # if it does, fail the ticket instead of wedging the queue.
+                # Not under a mesh: a rank cannot fail a request alone while
+                # the other ranks wait in that request's collectives (its
+                # next request's exchanges would pair with theirs), so the
+                # rank fails, and the launcher stops the others.
+                if self.batcher.mesh is not None:
+                    raise
                 self._state[ticket] = ("error", repr(e))
                 self._ticket_submit_t.pop(ticket, None)
                 if self._monitor is not None:

@@ -135,7 +135,7 @@ def make_lora_train_step(
     if mesh is not None:
         raise NotImplementedError(
             "training under meshes is not ported yet (ROADMAP Queue 1, "
-            "item 4)"
+            "item 4, slice 11)"
         )
     optimizer = optimizer or functools.partial(_lora_adamw, lr=1e-3)
 

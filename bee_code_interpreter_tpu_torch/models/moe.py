@@ -37,6 +37,17 @@ products, as they are plain XLA products in JAX (no Pallas kernel).
 
 Parameters keep the JAX layout: ``router [D, E]``, ``we_gate`` and
 ``we_up [E, D, F]``, ``we_down [E, F, D]``.
+
+Under a mesh (``transformer.param_specs``: experts over ``ep``, each
+expert's ``F`` over ``tp``, the router replicated) routing stays global and
+the same on every rank, rule for rule; a rank runs only its ``E/ep``
+experts (``expert_offset`` is the first), over its ``F/tp`` columns of
+``we_gate``/``we_up`` and rows of ``we_down``, in either form, and returns
+its f32 partial sum (``partial``), which the caller reduces once over tp
+and ep. Under sequence parallelism (``sp_group``) a rank holds a block of
+the sequence: the router logits are all-gathered over sp so that the
+tokens route in the groups and slot order of the whole sequence, and each
+rank keeps its own tokens' choices.
 """
 
 from __future__ import annotations
@@ -46,6 +57,12 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    group_rank,
+    group_size as n_ranks,
+)
 
 Params = dict
 
@@ -111,17 +128,16 @@ class Routing(NamedTuple):
 
 
 def _route_group(
-    xf: torch.Tensor,  # [..., g, D]: routing groups of g tokens
-    router: torch.Tensor,  # [D, E]
+    logits: torch.Tensor,  # [..., g, E] f32: routing groups of g tokens
     *,
     n_experts: int,
     top_k: int,
     capacity: int,
 ) -> Routing:
-    """GShard routing of each group, as JAX's ``_route_group``: the
+    """GShard routing of each group, as JAX's ``_route_group`` (which takes
+    ``xf`` and the router; here their product, the router logits): the
     dispatch set is ``{(token, expert, slot) : keep}`` and the combine
     weight of a kept choice its gate."""
-    logits = torch.einsum("...gd,de->...ge", xf.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k order: descending, ties to the lower index
     ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -150,12 +166,15 @@ def _swiglu(x: torch.Tensor, w_gate, w_up, w_down, dtype: torch.dtype):
     return torch.matmul(F.silu(gate) * up, w_down.to(dtype))
 
 
-def _every_expert(params: Params, xf, expert, weight, dtype) -> torch.Tensor:
-    """``[G, D]`` f32: every expert on every token, weighted per token."""
+def _every_expert(params: Params, xf, expert, weight, dtype,
+                  n_experts: int, offset: int = 0) -> torch.Tensor:
+    """``[G, D]`` f32: every expert of ``params`` (the global experts
+    ``offset ..``) on every token, weighted per token."""
     E = params["we_gate"].shape[0]
     G, D = xf.shape
-    combine = torch.zeros(G, E, dtype=torch.float32, device=xf.device)
+    combine = torch.zeros(G, n_experts, dtype=torch.float32, device=xf.device)
     combine = combine.scatter(1, expert, weight)  # a token's experts differ
+    combine = combine[:, offset:offset + E]
     y = _swiglu(xf.to(dtype).expand(E, G, D), params["we_gate"],
                 params["we_up"], params["we_down"], dtype)  # [E, G, D]
     w = combine.to(dtype).float().t().unsqueeze(-1)  # [E, G, 1]
@@ -163,11 +182,14 @@ def _every_expert(params: Params, xf, expert, weight, dtype) -> torch.Tensor:
 
 
 def _routed_experts(params: Params, xf, expert, weight, keep,
-                    dtype) -> torch.Tensor:
-    """``[G, D]`` f32: each expert on its kept tokens only."""
+                    dtype, offset: int = 0) -> torch.Tensor:
+    """``[G, D]`` f32: each expert of ``params`` (the global experts
+    ``offset ..``) on its kept tokens only."""
     E = params["we_gate"].shape[0]
     G, k = expert.shape
-    key = torch.where(keep, expert, E).reshape(-1)  # dropped choices last
+    mine = keep & (expert >= offset) & (expert < offset + E)
+    # dropped choices, and other ranks' experts, sort last
+    key = torch.where(mine, expert - offset, E).reshape(-1)
     order = torch.argsort(key, stable=True)  # [G·k] (token, choice) indices
     counts = torch.bincount(key, minlength=E + 1).tolist()  # host read
     n_kept = sum(counts[:E])
@@ -202,23 +224,42 @@ def moe_mlp(
     dtype: torch.dtype = torch.bfloat16,
     group_size: int = 1024,
     dropless: bool = False,
+    expert_offset: int = 0,
+    partial: bool = False,
+    sp_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(output [B, L, D] in dtype, aux f32 scalar)``."""
+    """Returns ``(output [B, L, D] in dtype, aux f32 scalar)``; with
+    ``partial``, the output is this rank's f32 partial sum over its
+    experts (``params`` holds experts ``expert_offset ..``) and its
+    ``F`` shard, for the caller to reduce. ``sp_group``: ``x`` is this
+    rank's block of a sequence sharded over sp, routed as part of the
+    whole sequence."""
     B, L, D = x.shape
-    G = B * L
+    sp = n_ranks(sp_group)
+    G = B * L * sp  # the routing pool: every token of the forward
     n_groups = max(1, G // group_size)
     if G % n_groups != 0:
         n_groups = 1
     g = G // n_groups
     C = expert_capacity(g, n_experts, top_k, capacity_factor, dropless)
-    xf = x.reshape(G, D)
-    r = _route_group(xf.reshape(n_groups, g, D), params["router"],
+    xf = x.reshape(B * L, D)
+    local = torch.einsum("bld,de->ble", x.float(), params["router"].float())
+    logits = all_gather_cat(local, sp_group, dim=1)  # [B, L*sp, E]
+    r = _route_group(logits.reshape(n_groups, g, n_experts),
                      n_experts=n_experts, top_k=top_k, capacity=C)
-    expert = r.expert.reshape(G, top_k)
-    keep = r.keep.reshape(G, top_k)
-    weight = r.gate.reshape(G, top_k) * keep
-    if G <= EVERY_EXPERT_MAX_TOKENS:
-        out = _every_expert(params, xf, expert, weight, dtype)
+    start = group_rank(sp_group) * L
+
+    def mine(t):  # this rank's tokens' choices, [B*L, k]
+        return t.reshape(B, L * sp, top_k)[:, start:start + L].reshape(
+            B * L, top_k)
+
+    expert, keep, gate = mine(r.expert), mine(r.keep), mine(r.gate)
+    weight = gate * keep
+    if B * L <= EVERY_EXPERT_MAX_TOKENS:
+        out = _every_expert(params, xf, expert, weight, dtype, n_experts,
+                            expert_offset)
     else:
-        out = _routed_experts(params, xf, expert, weight, keep, dtype)
-    return out.to(dtype).reshape(B, L, D), r.aux.mean()
+        out = _routed_experts(params, xf, expert, weight, keep, dtype,
+                              expert_offset)
+    out = out.reshape(B, L, D)
+    return (out if partial else out.to(dtype)), r.aux.mean()

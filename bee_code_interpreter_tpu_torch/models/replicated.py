@@ -17,7 +17,8 @@ Host-side only, in one process: each replica's device work is the
 single-device path, stepped in turn from this loop. Replicas on one card
 share the weights' tensors (``.to`` of a tensor already there is the tensor
 itself) and each holds its own pool. Replicas of tensor-parallel groups
-(dp x tp, JAX's ``meshes=``) are not ported yet (ROADMAP Queue 1, item 4).
+(dp x tp, JAX's ``meshes=``) are not ported yet (ROADMAP Queue 1, item 4,
+slice 12).
 """
 
 from __future__ import annotations
@@ -84,11 +85,11 @@ class ReplicatedEngine:
         ``cuda:0`` .. ``cuda:{n-1}``, which raises ValueError when fewer
         cards are visible (none without CUDA): the CPU, or several replicas
         on one card, are taken only when named. ``meshes`` (dp x tp
-        replicas) is not ported yet (ROADMAP Queue 1, item 4)."""
+        replicas) is not ported yet (ROADMAP Queue 1, item 4, slice 12)."""
         if meshes is not None:
             raise NotImplementedError(
                 "replicas over tensor-parallel meshes (dp x tp) are not "
-                "ported yet (ROADMAP Queue 1, item 4)"
+                "ported yet (ROADMAP Queue 1, item 4, slice 12)"
             )
         if devices is None:
             have = torch.cuda.device_count()

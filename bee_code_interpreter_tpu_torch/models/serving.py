@@ -32,27 +32,32 @@ step histograms and the capacity gauges; ``set_monitor``: a
 ``DeviceMonitor``'s first-call and step hooks), wired where the JAX batcher
 wires them.
 
-Tensor-parallel serving (``mesh``, a ``parallel.make_mesh`` mesh with a tp
-axis) is SPMD: one process per device, where JAX's one controller drives
-them all under GSPMD. Every rank builds the same ``ContinuousBatcher(params,
-config, mesh=mesh)``, calls ``submit`` / ``step`` / ``cancel`` /
-``state_dict`` / ``load_state_dict`` in the same order with the same
-arguments, and the caller reads rank 0's results; every rank's are the same,
-since each samples on its host from the same all-gathered logits with the
-same seeded generators. A rank holds its Megatron shard of the weights
-(``transformer.shard_params``) and a page pool of its ``kv_heads / tp``
-heads, its own allocation; the model functions make the collectives
-(``transformer``'s module docstring). The host loop is unchanged, so the
-int8 pool, speculative decoding with a draft and prefix-cached admission
-ride along. ``state_dict`` gathers the pool shards (a snapshot is
-topology-free) and ``load_state_dict`` takes this rank's heads of a
-snapshot from any topology. Not ported under a mesh yet (ROADMAP Queue 1,
-item 4; JAX serves them through GSPMD): adapters, Mixture-of-Experts
-configs, and mesh axes other than tp (sequence-parallel admission,
-data-parallel axes: replicas are ``models/replicated.py``); each raises
-``NotImplementedError``. Token streams equal the same batcher's solo
-decode, bit for bit, within a mesh; across meshes the partial sums add in
-another order, so, as JAX says, equality there is pinned by the
+Serving under a mesh (``mesh``, a ``parallel.make_mesh`` mesh over tp, sp
+and ep axes) is SPMD: one process per device, where JAX's one controller
+drives them all under GSPMD. Every rank builds the same
+``ContinuousBatcher(params, config, mesh=mesh)``, calls ``submit`` /
+``step`` / ``cancel`` / ``state_dict`` / ``load_state_dict`` in the same
+order with the same arguments, and the caller reads rank 0's results; every
+rank's are the same, since each samples on its host from the same logits
+with the same seeded generators. A rank holds its shard of the weights
+(``transformer.shard_params``: Megatron over tp, experts over ep) and a
+page pool of its ``kv_heads / tp`` heads, its own allocation, replicated
+over sp and ep; the model functions make the collectives
+(``transformer``'s module docstring). An sp axis is the long-context
+admission path: a one-shot admission (and the draft's) runs the padded
+prompt sequence-parallel, each rank ``L/sp`` of it, then gathers the K/V
+over sp into its pool and takes the last prompt token's logits from the
+rank that holds it (``transformer.gather_prefill``). Every other program
+(decode steps, admission windows, chunked admission) ignores sp, as JAX's
+do: each sp rank runs the same step. The host loop is unchanged, so the
+int8 pool, adapters, speculative decoding with a draft and prefix-cached,
+chunked and interleaved admission ride along. ``state_dict`` gathers the
+pool shards (a snapshot is topology-free) and ``load_state_dict`` takes
+this rank's heads of a snapshot from any topology. Data-parallel axes
+inside one batcher are not ported (replicas are ``models/replicated.py``)
+and raise ``NotImplementedError``. Token streams equal the same batcher's
+solo decode, bit for bit, within a mesh; across meshes the partial sums
+add in another order, so, as JAX says, equality there is pinned by the
 environment, not guaranteed.
 
 Mixture-of-Experts configs serve as in JAX. Under capacity routing the
@@ -91,7 +96,7 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (
     axis_index,
     group_size,
     mesh_shape_key,
-    serving_tp,
+    serving_groups,
 )
 from bee_code_interpreter_tpu_torch.utils.jitwatch import TrackedJit
 
@@ -287,11 +292,12 @@ class ContinuousBatcher:
     pressure). ``device`` defaults to CUDA (raises without it); ``params``
     must already live there.
 
-    ``mesh`` turns on tensor-parallel serving (the module docstring): the
-    device defaults to the mesh's device type (this rank's card, or the
-    CPU for a ``device_type="cpu"`` mesh), ``params`` (and
+    ``mesh`` turns on serving over tp, sp and ep (the module docstring):
+    the device defaults to the mesh's device type (this rank's card, or
+    the CPU for a ``device_type="cpu"`` mesh), ``params`` (and
     ``draft_params``) are the full weights, anywhere, of which this rank
-    keeps its shard, and ``kv_heads`` (the draft's too) must divide by tp.
+    keeps its shard, ``kv_heads`` (the draft's too) must divide by tp,
+    ``page_size`` by sp, and under Ulysses both head counts by sp.
 
     ``adapters`` (LoRA trees of ``models/lora.py`` on the attention
     projections) are stacked into one bank; ``submit(adapter=i)`` serves a
@@ -338,26 +344,32 @@ class ContinuousBatcher:
         device: torch.device | str | None = None,
     ) -> None:
         self.mesh = mesh
-        self._tp_group = None
-        tp = 1
+        groups = serving_groups(mesh)
+        self._tp_group, self._sp_group = groups.tp, groups.sp
+        tp, sp = groups.size("tp"), groups.size("sp")
         if mesh is not None:
-            tp, self._tp_group = serving_tp(mesh)
-            if config.n_experts or (
-                draft_config is not None and draft_config.n_experts
-            ):
-                raise NotImplementedError(
-                    "Mixture-of-Experts serving under a mesh is not ported "
-                    "yet (ROADMAP Queue 1, item 4)"
-                )
-            if adapters:
-                raise NotImplementedError(
-                    "multi-LoRA serving under a mesh is not ported yet "
-                    "(ROADMAP Queue 1, item 4)"
-                )
             if config.kv_heads % tp:
                 raise ValueError(
                     f"kv_heads {config.kv_heads} not divisible by tp={tp}"
                 )
+            if sp > 1 and page_size % sp:
+                # padded admission widths are page multiples, and the sp
+                # forward cuts the sequence sp ways
+                raise ValueError(
+                    f"page_size {page_size} not divisible by sp={sp} "
+                    "(sp admission chunks the padded prompt)"
+                )
+            if sp > 1 and config.sp_attention == "ulysses":
+                # refuse at construction a config no submit could admit
+                for name, heads in (
+                    ("n_heads", config.n_heads),
+                    ("kv_heads", config.kv_heads),
+                ):
+                    if heads % sp:
+                        raise ValueError(
+                            f"{name} {heads} not divisible by sp={sp} "
+                            "(ulysses sp admission shards heads)"
+                        )
             if draft_config is not None and draft_config.kv_heads % tp:
                 raise ValueError(
                     f"draft kv_heads {draft_config.kv_heads} not divisible "
@@ -488,37 +500,42 @@ class ContinuousBatcher:
         # suffix-admission windows, as in JAX.
         self._device_monitor = None
         self._mesh_key = mesh_shape_key(mesh)  # "1" on one card
-        # under tp every program makes its collectives over the tp group
-        tp_kw = {} if self._tp_group is None else {"tp_group": self._tp_group}
+        # under a mesh every program makes its collectives over the tp and
+        # ep groups; the one-shot prefills run sequence-parallel over sp too
+        mesh_kw = {} if mesh is None else {"tp_group": groups.tp,
+                                           "ep_group": groups.ep}
+        sp_kw = {} if groups.sp is None else {"sp_group": groups.sp}
         self._decode = self._track(
-            _program("decode_step_paged", config=config, **tp_kw),
+            _program("decode_step_paged", config=config, **mesh_kw),
             "decode_step_paged",
         )
         self._prefill = self._track(
-            _program("forward", config=config, return_kv=True, **tp_kw),
+            _program("forward", config=config, return_kv=True, **mesh_kw,
+                     **sp_kw),
             "prefill_forward",
         )
         self._prefill_chunked = self._track(
-            _program("prefill_chunked", config=config, **tp_kw),
+            _program("prefill_chunked", config=config, **mesh_kw),
             "prefill_chunked",
         )
         self._window = self._track(
-            _program("decode_window_paged", config=config, **tp_kw),
+            _program("decode_window_paged", config=config, **mesh_kw),
             "decode_window_paged",
         )
         self._verify = self._window
         if draft_config is not None:
             self._draft_decode = self._track(
-                _program("decode_step_paged", config=draft_config, **tp_kw),
+                _program("decode_step_paged", config=draft_config, **mesh_kw),
                 "draft_decode_step_paged",
             )
             self._draft_prefill = self._track(
                 _program("forward", config=draft_config, return_kv=True,
-                         **tp_kw),
+                         **mesh_kw, **sp_kw),
                 "draft_prefill_forward",
             )
             self._draft_window = self._track(
-                _program("decode_window_paged", config=draft_config, **tp_kw),
+                _program("decode_window_paged", config=draft_config,
+                         **mesh_kw),
                 "draft_decode_window_paged",
             )
         # Instrumentation (JAX serving.py:622-716). ``metrics`` is a
@@ -1185,7 +1202,9 @@ class ContinuousBatcher:
         row's pages; returns the last prompt token's logits row. One-shot:
         one ``forward`` over the prompt padded to whole pages (pad tokens
         are causally invisible to rows < L, so logits[L-1] and K/V[:L] are
-        exact), then ``seed_prefill``. Chunked: ``prefill_chunked`` builds
+        exact), then ``seed_prefill``; under sp the forward runs each rank's
+        block of the padded prompt and ``gather_prefill`` gives the whole
+        K/V and the last token's row. Chunked: ``prefill_chunked`` builds
         the contiguous cache in the pool's layout over the prompt pages and
         ``seed_from_contiguous`` copies it verbatim (int8 rows are not
         quantized twice).
@@ -1212,12 +1231,15 @@ class ContinuousBatcher:
                                  {name: x[:, 0] for name, x in contig.items()})
             last_row = last_logits[0].cpu().numpy()
         else:
-            logits, (k_pre, v_pre) = self._prefill(self.params, tokens)
+            last, (k_pre, v_pre) = transformer.gather_prefill(
+                *self._prefill(self.params, tokens), L - 1, self._sp_group)
             seed_prefill(self.cache, pages_t,
                          k_pre[:, 0, :, :L, :], v_pre[:, 0, :, :L, :])
-            last_row = logits[0, L - 1, :].cpu().numpy()
+            last_row = last[0].cpu().numpy()
         if speculative:
-            _, (dk, dv) = self._draft_prefill(self.draft_params, tokens)
+            _, (dk, dv) = transformer.gather_prefill(
+                *self._draft_prefill(self.draft_params, tokens), L - 1,
+                self._sp_group)
             seed_prefill(self.draft_cache, pages_t,
                          dk[:, 0, :, :L, :], dv[:, 0, :, :L, :])
         return last_row

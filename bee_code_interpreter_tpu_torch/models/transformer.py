@@ -42,15 +42,36 @@ collectives, each rank here holds its Megatron shard (``shard_params``) and
 the model functions make the collectives themselves, over the process group
 of the mesh's tp axis. A rank runs ``n_heads / tp`` query heads and
 ``kv_heads / tp`` K/V heads (its caches and pools hold only those), so the
-attention ops see the local head counts and nothing else changes in them;
-the row-parallel ``wo`` and ``w_down`` each end in one ``all_reduce`` of
-their partial sums, the vocab-sharded embedding is a masked lookup of the
-rank's rows plus one ``all_reduce`` (exact: one rank holds each row), and
-the column-parallel lm_head's local logits are ``all_gather``-ed into the
-full vocabulary before they leave the function, so every rank returns the
-same logits. Mixture-of-Experts layers, LoRA banks and training under a
-mesh are not ported yet (ROADMAP Queue 1, item 4) and raise
-``NotImplementedError``.
+attention ops see the local head counts and nothing else changes in them.
+Where tp does not divide ``kv_heads``, K/V are broadcast up to
+``lcm(kv_heads, tp)`` heads, as JAX's ``_attention`` does: a rank's
+``wk``/``wv`` hold the columns of the broadcast heads its query heads read
+(``kv_columns``), so its projection makes them directly. The row-parallel
+``wo`` and ``w_down`` each end in one ``all_reduce`` of their partial sums,
+the vocab-sharded embedding is a masked lookup of the rank's rows plus one
+``all_reduce`` (exact: one rank holds each row), and the column-parallel
+lm_head's local logits are ``all_gather``-ed into the full vocabulary
+before they leave the function, so every rank returns the same logits.
+
+Mixture-of-Experts layers shard their experts over ``ep`` and each expert's
+``d_ff`` over ``tp`` (``ep_group``): routing is global, a rank runs its
+experts on its shard, and the partial sum is reduced once, in f32, over tp
+and ep. A LoRA bank under tp (``decode_window_paged``) stays whole on every
+rank: a column-parallel target takes the rank's columns of ``B``, and
+``wo`` the rank's rows of ``A``, whose delta joins the partial sum before
+``wo``'s all-reduce (exact: the sum of ``(x_r A_r) B`` is ``(x A) B``).
+
+Sequence parallelism (``sp_group`` of ``forward``: the long-context
+admission path): every rank is given the whole ``[B, L]`` tokens, embeds
+and runs its contiguous ``L/sp`` of them at their global positions, and
+attends across the sp ranks by ring attention or Ulysses
+(``config.sp_attention``, ``parallel/``), with the sliding window threaded
+to both. Norms and MLPs stay token-local. The rank's logits and K/V are its
+block of positions (``gather_prefill`` makes the whole prompt's K/V and one
+position's logits of them); the logits are never gathered over sp, where
+they would be ``[B, L, vocab]`` f32 on every rank. Decode ignores sp.
+Training under a mesh is not ported yet (ROADMAP Queue 1, item 4, slice
+11) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -82,11 +103,18 @@ from bee_code_interpreter_tpu_torch.ops.weight_quant import is_quantized
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
     all_gather_cat,
     all_reduce_partial,
+    axis_index,
+    axis_size,
+    broadcast_from,
     group_rank,
     group_size,
-    serving_tp,
+    serving_groups,
     shard_tensor,
 )
+from bee_code_interpreter_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+)
+from bee_code_interpreter_tpu_torch.parallel.ulysses import ulysses_attention
 
 Params = dict[str, Any]
 
@@ -305,28 +333,50 @@ def n_params(params: Params) -> int:
 
 
 def param_specs(config: TransformerConfig, mesh) -> Params:
-    """JAX's Megatron specs over whichever of (fsdp, tp) the mesh has, as
-    tuples of axis names (None: that dim whole): column-parallel
+    """JAX's Megatron specs over whichever of (fsdp, tp, ep) the mesh has,
+    as tuples of axis names (None: that dim whole): column-parallel
     ``wq``/``wk``/``wv``/``w_gate``/``w_up`` ``(fsdp, tp)``, row-parallel
     ``wo``/``w_down`` ``(tp, fsdp)``, the vocab-sharded ``embed``
     ``(tp, None)``, the column-parallel ``lm_head`` ``(None, tp)``, the
-    norms replicated ``()``. ``layers`` holds one layer's specs, for every
-    layer (JAX's stacked specs add a leading None for the layer axis).
-    Mixture-of-Experts specs (JAX's ``ep`` axis) are not ported yet
-    (ROADMAP Queue 1, item 4)."""
-    if config.n_experts:
-        raise NotImplementedError(
-            "Mixture-of-Experts under a mesh is not ported yet (ROADMAP "
-            "Queue 1, item 4)"
-        )
+    norms replicated ``()``; a Mixture-of-Experts layer's ``moe`` dict has
+    ``we_gate``/``we_up`` ``(ep, fsdp, tp)``, ``we_down`` ``(ep, tp,
+    fsdp)`` and the router replicated. ``layers`` holds one layer's specs,
+    for every layer (JAX's stacked specs add a leading None for the layer
+    axis)."""
     names = tuple(mesh.mesh_dim_names)
     tp = "tp" if "tp" in names else None
     fsdp = "fsdp" if "fsdp" in names else None
+    ep = "ep" if "ep" in names else None
     col, row, rep = (fsdp, tp), (tp, fsdp), ()
     layer = {"ln1": rep, "ln2": rep, "wq": col, "wk": col, "wv": col,
-             "wo": row, "w_gate": col, "w_up": col, "w_down": row}
+             "wo": row}
+    if config.n_experts:
+        layer["moe"] = {"router": (None, None), "we_gate": (ep, fsdp, tp),
+                        "we_up": (ep, fsdp, tp), "we_down": (ep, tp, fsdp)}
+    else:
+        layer.update(w_gate=col, w_up=col, w_down=row)
     return {"embed": (tp, None), "layers": layer, "ln_f": rep,
             "lm_head": (None, tp)}
+
+
+def _kv_heads_local(config: TransformerConfig, tp: int) -> int:
+    """K/V heads a tp rank holds: ``kv_heads / tp``, or ``lcm(kv_heads,
+    tp) / tp`` of the broadcast heads where tp does not divide them."""
+    return math.lcm(config.kv_heads, tp) // tp
+
+
+def kv_columns(config: TransformerConfig, tp: int, rank: int) -> torch.Tensor:
+    """The ``wk``/``wv`` columns (and their LoRA ``B`` columns and int8
+    scales) tp rank ``rank`` holds: its ``n / tp`` heads of the
+    ``n = lcm(kv_heads, tp)`` broadcast heads, broadcast head ``g`` being
+    K/V head ``g // (n / kv_heads)`` (JAX's ``jnp.repeat``: query head h
+    keeps reading K/V head ``h // (n_heads / kv_heads)``). Where tp divides
+    ``kv_heads`` this is the rank's contiguous column block."""
+    n_local = _kv_heads_local(config, tp)
+    rep = n_local * tp // config.kv_heads
+    heads = (rank * n_local + torch.arange(n_local)) // rep
+    dh = config.head_dim
+    return (heads[:, None] * dh + torch.arange(dh)[None, :]).reshape(-1)
 
 
 def shard_params(params: Params, config: TransformerConfig, mesh,
@@ -337,21 +387,33 @@ def shard_params(params: Params, config: TransformerConfig, mesh,
     read. A weight-only-int8 leaf ``{q, s}`` shards as in JAX: ``q`` takes
     the weight's spec and ``s`` (one scale per out column) the spec without
     the contracted dim, so a column-parallel leaf's scales follow its
-    columns and a row-parallel leaf's stay whole. Mixture-of-Experts
-    layers raise ``NotImplementedError`` (``param_specs``)."""
+    columns and a row-parallel leaf's stay whole. Where tp does not divide
+    ``kv_heads``, ``wk``/``wv`` (and their scales) take the columns of
+    ``kv_columns`` instead of an even column block: the rank's K/V heads
+    of the ``lcm(kv_heads, tp)`` broadcast."""
     specs = param_specs(config, mesh)
     device = resolve_device(device if device is not None
                             else mesh.device_type)
+    tp = axis_size(mesh, "tp")
+    cols = (kv_columns(config, tp, axis_index(mesh, "tp"))
+            if config.kv_heads % tp else None)
 
-    def place(x, spec):
+    def place(x, spec, name=None):
+        if cols is not None and name in ("wk", "wv"):
+            if is_quantized(x):
+                return {"q": _columns(x["q"], cols, device),
+                        "s": _columns(x["s"], cols, device)}
+            return _columns(x, cols, device)
         if is_quantized(x):
             return {"q": shard_tensor(x["q"], spec, mesh, device),
                     "s": shard_tensor(x["s"], spec[1:], mesh, device)}
+        if isinstance(spec, dict):  # a Mixture-of-Experts layer's dict
+            return {k: place(x[k], spec[k]) for k in spec}
         return shard_tensor(x, spec, mesh, device)
 
     return {
         "embed": place(params["embed"], specs["embed"]),
-        "layers": [{name: place(leaf, specs["layers"][name])
+        "layers": [{name: place(leaf, specs["layers"][name], name)
                     for name, leaf in layer.items()}
                    for layer in params["layers"]],
         "ln_f": place(params["ln_f"], specs["ln_f"]),
@@ -359,23 +421,22 @@ def shard_params(params: Params, config: TransformerConfig, mesh,
     }
 
 
+def _columns(x: torch.Tensor, cols: torch.Tensor, device) -> torch.Tensor:
+    """``x``'s columns (last dim) ``cols``, a tensor of its own on
+    ``device``."""
+    return x.detach().index_select(-1, cols.to(x.device)).to(
+        device, copy=True).contiguous()
+
+
 # ------------------------------------------------------------------- forward
 
 
 def _local_heads(config: TransformerConfig, tp_group) -> tuple[int, int]:
     """(query heads, K/V heads) of one rank: all of them without a group,
-    ``1/tp`` of each under tensor parallelism."""
+    ``1/tp`` of each under tensor parallelism (of the ``lcm(kv_heads,
+    tp)`` broadcast K/V heads where tp does not divide ``kv_heads``)."""
     tp = group_size(tp_group)
-    if tp > 1 and config.n_experts:
-        raise NotImplementedError(
-            "Mixture-of-Experts under a mesh is not ported yet (ROADMAP "
-            "Queue 1, item 4)"
-        )
-    if config.kv_heads % tp:
-        raise ValueError(
-            f"kv_heads {config.kv_heads} not divisible by tp={tp}"
-        )
-    return config.n_heads // tp, config.kv_heads // tp
+    return config.n_heads // tp, _kv_heads_local(config, tp)
 
 
 def _embed(params: Params, tokens: torch.Tensor, config: TransformerConfig,
@@ -406,32 +467,64 @@ def _logits(h: torch.Tensor, params: Params, config: TransformerConfig,
 
 
 def _mlp_block(y: torch.Tensor, layer: Params, config: TransformerConfig,
-               tp_group=None):
+               tp_group=None, ep_group=None, sp_group=None):
     """The post-attention MLP, dense SwiGLU or MoE, shared by the forward
     and every decode path. Returns ``(mlp, aux)``: the layer's MoE
     load-balancing loss (an f32 scalar), or 0.0 for dense configs (the
     decode paths drop it). Under tensor parallelism ``w_gate``/``w_up``
     hold the rank's columns and ``w_down`` its rows, and the partial sums
-    are all-reduced."""
+    are all-reduced; an MoE layer's rank runs its experts (``ep_group``)
+    on its ``d_ff`` shard and its f32 partial is reduced once over tp and
+    ep. ``sp_group``: ``y`` is the rank's block of a sequence-parallel
+    forward (MoE routes it as part of the whole sequence)."""
     c = config
     if c.n_experts:
-        return moe_mlp(
-            layer["moe"], y, n_experts=c.n_experts, top_k=c.moe_top_k,
+        moe = layer["moe"]
+        groups = (tp_group, ep_group)
+        partial = any(g is not None for g in groups)
+        out, aux = moe_mlp(
+            moe, y, n_experts=c.n_experts, top_k=c.moe_top_k,
             capacity_factor=c.moe_capacity_factor, dtype=c.dtype,
             group_size=c.moe_group_size, dropless=c.moe_dropless,
+            expert_offset=group_rank(ep_group) * moe["we_gate"].shape[0],
+            partial=partial, sp_group=sp_group,
         )
+        if partial:
+            out = all_reduce_partial(out, groups).to(c.dtype)
+        return out, aux
     gate = qeinsum("bld,df->blf", y, layer["w_gate"], c.dtype)
     up = qeinsum("bld,df->blf", y, layer["w_up"], c.dtype)
     mlp = qeinsum("blf,fd->bld", F.silu(gate) * up, layer["w_down"], c.dtype)
     return all_reduce_partial(mlp, tp_group), 0.0
 
 
+def _attention(q, k, v, config: TransformerConfig, sp_group=None):
+    """Causal attention of a layer (JAX's ``_attention``): the rank's own
+    sequence through ``local_attention``, or across the sp ranks by ring
+    attention or Ulysses per ``config.sp_attention``, the sliding window
+    threaded to each."""
+    c = config
+    if c.sp_attention not in ("ring", "ulysses"):
+        raise ValueError(
+            f"sp_attention must be 'ring' or 'ulysses', got {c.sp_attention!r}"
+        )
+    if sp_group is None:
+        return local_attention(q, k, v, causal=True, window=c.sliding_window)
+    if c.sp_attention == "ulysses":
+        return ulysses_attention(q, k, v, group=sp_group, causal=True,
+                                 window=c.sliding_window)
+    return ring_attention(q, k, v, group=sp_group, causal=True,
+                          window=c.sliding_window)
+
+
 def _layer_apply(h, layer, config: TransformerConfig, positions,
-                 return_kv: bool = False, tp_group=None):
+                 return_kv: bool = False, tp_group=None, sp_group=None,
+                 ep_group=None):
     """One decoder layer (JAX's ``_layer_apply``; with ``tp_group``, the
-    rank's heads and its shard of the projections). Returns ``(h, (k, v) |
-    None, aux)``, K/V post-RoPE ``[B, kvh, L, dh]`` (the rank's
-    ``kv_heads / tp`` under tensor parallelism)."""
+    rank's heads and its shard of the projections; with ``sp_group``, the
+    rank's block of the sequence at its global ``positions``). Returns
+    ``(h, (k, v) | None, aux)``, K/V post-RoPE ``[B, kvh, L, dh]`` (the
+    rank's heads under tensor parallelism, its positions under sp)."""
     c = config
     B, L = h.shape[0], h.shape[1]
     x = rms_norm(h, layer["ln1"])
@@ -446,32 +539,44 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
     k = rope(proj(layer["wk"], kvh), positions, c.rope_theta, c.rope_scaling)
     v = proj(layer["wv"], kvh)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    attn = local_attention(q, k, v, causal=True, window=c.sliding_window)
+    attn = _attention(q, k, v, c, sp_group)
     attn = attn.transpose(1, 2).reshape(B, L, nh * dh)
     o = qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
     h = h + all_reduce_partial(o, tp_group)
-    mlp, aux = _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group)
+    mlp, aux = _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group,
+                          ep_group, sp_group)
     return h + mlp, ((k, v) if return_kv else None), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
             return_kv: bool = False, return_aux: bool = False,
-            tp_group=None):
+            tp_group=None, sp_group=None, ep_group=None):
     """Logits ``[B, L, vocab]`` in f32; with ``return_kv`` also the
     per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``; with
     ``return_aux`` also the MoE load-balancing loss summed over layers, an
     f32 scalar (0.0 for dense configs). With ``tp_group`` the params are
-    this rank's shard (``shard_params``), the K/V its ``kv_heads / tp``
-    heads, and the logits the whole vocabulary on every rank."""
+    this rank's shard (``shard_params``), the K/V its heads, and the logits
+    the whole vocabulary on every rank. With ``sp_group`` (L divisible by
+    sp) the rank runs positions ``[r L/sp, (r+1) L/sp)`` of ``tokens``
+    (every rank passes all of them): the logits and K/V are that block's,
+    ``[B, L/sp, ...]``."""
     c = config
     B, L = tokens.shape
-    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    start = 0
+    sp = group_size(sp_group)
+    if sp > 1:
+        if L % sp:
+            raise ValueError(f"sequence length {L} not divisible by sp={sp}")
+        L //= sp
+        start = group_rank(sp_group) * L
+        tokens = tokens[:, start:start + L]
+    positions = (start + torch.arange(L, device=tokens.device)).expand(B, L)
     h = _embed(params, tokens, c, tp_group)
     ks, vs = [], []
     aux = 0.0
     for layer in params["layers"]:
         h, kv, layer_aux = _layer_apply(h, layer, c, positions, return_kv,
-                                        tp_group)
+                                        tp_group, sp_group, ep_group)
         aux = aux + layer_aux
         if return_kv:
             ks.append(kv[0])
@@ -486,6 +591,24 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
     if extras:
         return (logits, *extras)
     return logits
+
+
+def gather_prefill(logits: torch.Tensor, kv, last: int, sp_group):
+    """The whole prompt's prefill from a sequence-parallel
+    ``forward(return_kv=True)``: the K/V blocks all-gathered over sp along
+    the sequence (``[n_layers, B, kvh, L, dh]`` on every rank), and the
+    logits at global position ``last`` (``[B, vocab]``), broadcast from the
+    rank whose block holds it; nothing else of the logits moves. Without
+    sp, the inputs as they are."""
+    k, v = kv
+    if sp_group is None:
+        return logits[:, last, :], (k, v)
+    L = logits.shape[1]
+    owner = last // L
+    row = broadcast_from(logits[:, last - owner * L, :].contiguous(), owner,
+                         sp_group)
+    return row, (all_gather_cat(k, sp_group, dim=3),
+                 all_gather_cat(v, sp_group, dim=3))
 
 
 # ------------------------------------------------------------ cached decode
@@ -512,15 +635,16 @@ def _grouped_attention(q, kf, vf, positions, config: TransformerConfig):
 
 
 def _decode_layers(params, tokens, positions, cache, config, attend,
-                   lora_delta=None, tp_group=None):
+                   lora_delta=None, tp_group=None, ep_group=None):
     """The layer loop both decode families share: ``attend(c_layer, q,
     k_new, v_new)`` writes the new K/V ``[B, kvh, W, dh]`` into one layer's
     cache views and returns the attention ``[B, W, nh * dh]``;
     ``lora_delta(li, x, name)``, when given, returns the adapter delta
     added to projection ``name`` of layer ``li`` (None for a projection
     without one). With ``tp_group``, nh and kvh are the rank's heads and
-    ``wo``/``w_down`` end in an all-reduce. Returns f32 logits ``[B, W,
-    vocab]``."""
+    ``wo``/``w_down`` end in an all-reduce (the ``wo`` delta joins the
+    partial sum before it); ``ep_group`` shards the experts. Returns f32
+    logits ``[B, W, vocab]``."""
     c = config
     B, W = tokens.shape
     dh = c.head_dim
@@ -546,7 +670,8 @@ def _decode_layers(params, tokens, positions, cache, config, attend,
         attn = attend(c_layer, q, k_new, v_new)
         h = h + all_reduce_partial(project(attn, "wo", "blk,kd->bld"),
                                    tp_group)
-        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group)[0]
+        h = h + _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group,
+                           ep_group)[0]
     return _logits(h, params, c, tp_group)
 
 
@@ -584,9 +709,10 @@ def init_decode_cache(config: TransformerConfig, B: int, total_len: int,
 
 
 def decode_step(params, token, pos, cache, config: TransformerConfig,
-                tp_group=None):
+                tp_group=None, ep_group=None):
     """One incremental decode step: ``decode_window`` with W = 1."""
-    return decode_window(params, token, pos, cache, config, tp_group)
+    return decode_window(params, token, pos, cache, config, tp_group,
+                         ep_group)
 
 
 def decode_window(
@@ -596,6 +722,7 @@ def decode_window(
     cache: dict,  # alloc_decode_cache layout (updated in place)
     config: TransformerConfig,
     tp_group=None,
+    ep_group=None,
 ):
     """Multi-token cached decode at positions ``pos0 .. pos0 + W - 1``
     against the contiguous cache, bf16 or int8. Returns ``(logits [B, W,
@@ -611,17 +738,18 @@ def decode_window(
         return _grouped_attention(q, kf, vf, positions, config)
 
     return _decode_layers(params, tokens, positions, cache, config, attend,
-                          tp_group=tp_group), cache
+                          tp_group=tp_group, ep_group=ep_group), cache
 
 
 def decode_step_paged(params, token, pos, cache, block_table,
                       config: TransformerConfig, lora_bank=None,
                       adapter_idx=None, lora_scale: float = 1.0,
-                      tp_group=None):
+                      tp_group=None, ep_group=None):
     """One decode step over the paged pool: ``decode_window_paged`` with
     W = 1, as in the JAX package."""
     return decode_window_paged(params, token, pos, cache, block_table, config,
-                               lora_bank, adapter_idx, lora_scale, tp_group)
+                               lora_bank, adapter_idx, lora_scale, tp_group,
+                               ep_group)
 
 
 def decode_window_paged(
@@ -635,6 +763,7 @@ def decode_window_paged(
     adapter_idx: torch.Tensor | None = None,  # [B] per-row adapter
     lora_scale: float = 1.0,
     tp_group=None,
+    ep_group=None,
 ):
     """Multi-token decode over the paged pool (bf16 or int8) with per-row
     positions. Returns ``(logits [B, W, vocab] f32, cache)``; the pool is
@@ -652,17 +781,15 @@ def decode_window_paged(
     adapters share one pass over the base weights.
 
     With ``tp_group`` the pool holds the rank's K/V heads (axis 2 of each
-    leaf), and the kernel runs over the rank's query heads; a bank under
-    tensor parallelism is not ported yet (ROADMAP Queue 1, item 4)."""
+    leaf), and the kernel runs over the rank's query heads. The bank stays
+    whole on every rank: ``wq``/``wk``/``wv`` take the rank's columns of
+    ``B`` (``x @ A`` is computed whole), ``wo`` the rank's rows of ``A``
+    (its heads' activations), whose delta is added to the rank's partial
+    ``o`` before the all-reduce ``wo`` makes anyway."""
     c = config
     B, W = tokens.shape
     dev = tokens.device
     lora_delta = None
-    if lora_bank is not None and tp_group is not None:
-        raise NotImplementedError(
-            "LoRA banks under a mesh are not ported yet (ROADMAP Queue 1, "
-            "item 4)"
-        )
     if lora_bank is not None:
         if adapter_idx is None:
             raise ValueError("lora_bank needs adapter_idx")
@@ -674,12 +801,17 @@ def decode_window_paged(
             )
         idx = adapter_idx.to(dev).long()
         scale = torch.tensor(lora_scale, dtype=c.dtype, device=dev)
+        shards = _lora_shards(c, tp_group, dev)
 
         def lora_delta(li, x_in, name):
             if name not in lora_bank:
                 return None
             Ab = lora_bank[name]["A"][li][idx].to(c.dtype)  # [B, d, r]
             Bb = lora_bank[name]["B"][li][idx].to(c.dtype)  # [B, r, o]
+            if name == "wo" and "wo" in shards:
+                Ab = Ab.index_select(1, shards["wo"])
+            elif name in shards:
+                Bb = Bb.index_select(2, shards[name])
             return torch.einsum(
                 "blr,bro->blo", torch.einsum("bld,bdr->blr", x_in, Ab), Bb
             ) * scale
@@ -710,13 +842,27 @@ def decode_window_paged(
         return _grouped_attention(q, kf, vf, positions, c)
 
     logits = _decode_layers(params, tokens, positions, cache, c, attend,
-                            lora_delta, tp_group)
+                            lora_delta, tp_group, ep_group)
     return logits, cache
+
+
+def _lora_shards(config: TransformerConfig, tp_group, device) -> dict:
+    """Under tensor parallelism, the index of the rank's share of each
+    bank target: the ``B`` columns of ``wq`` and of ``wk``/``wv`` (those of
+    ``kv_columns``), the ``A`` rows of ``wo``; empty without a group."""
+    tp = group_size(tp_group)
+    if tp == 1:
+        return {}
+    rank = group_rank(tp_group)
+    n = config.n_heads // tp * config.head_dim
+    heads = torch.arange(rank * n, (rank + 1) * n, device=device)
+    kv = kv_columns(config, tp, rank).to(device)
+    return {"wq": heads, "wo": heads, "wk": kv, "wv": kv}
 
 
 def prefill_chunked(params: Params, prompt: torch.Tensor,
                     config: TransformerConfig, total_len: int,
-                    chunk: int = 512, tp_group=None):
+                    chunk: int = 512, tp_group=None, ep_group=None):
     """The decode cache built by streaming the prompt ``[B, L]`` through
     ``decode_window`` in chunks of ``chunk`` tokens (activation memory
     bounded by the chunk), then a remainder chunk of ``L % chunk``.
@@ -736,7 +882,8 @@ def prefill_chunked(params: Params, prompt: torch.Tensor,
     last_logits = None
     for start in range(0, L, chunk):
         logits, cache = decode_window(params, prompt[:, start:start + chunk],
-                                      start, cache, config, tp_group)
+                                      start, cache, config, tp_group,
+                                      ep_group)
         last_logits = logits[:, -1, :]
     return last_logits, cache
 
@@ -813,24 +960,53 @@ class Transformer:
     """Config bundle with the training and generation entry points of the
     JAX ``Transformer``.
 
-    Under a ``mesh`` (``parallel.make_mesh``, a tp axis only) the
+    Under a ``mesh`` (``parallel.make_mesh``; tp, sp and ep axes) the
     inference entry points (``apply``, ``generate``, ``generate_cached``)
-    run tensor-parallel on this rank's shard of the params
-    (``shard_params``), every rank calling them alike; ``init`` and
-    ``make_train_step``, the training half, are not ported under a mesh yet
-    (ROADMAP Queue 1, item 4)."""
+    run on this rank's shard of the params (``shard_params``), every rank
+    calling them alike: ``apply`` gives the rank's block of positions under
+    sp, the generators the same tokens on every rank (their prefill runs
+    sequence-parallel, the decode steps ignore sp). ``init`` and
+    ``make_train_step``, the training half, are not ported under a mesh
+    yet (ROADMAP Queue 1, item 4, slice 11)."""
 
     def __init__(self, config: TransformerConfig, mesh=None) -> None:
         self.config = config
         self.mesh = mesh
-        self.tp_group = serving_tp(mesh)[1] if mesh is not None else None
+        self.groups = serving_groups(mesh)
+        self.tp_group = self.groups.tp
 
     def _refuse_mesh(self, what: str) -> None:
         if self.mesh is not None:
             raise NotImplementedError(
                 f"{what} under meshes is not ported yet (ROADMAP Queue 1, "
-                "item 4: training under dp/fsdp/tp)"
+                "item 4, slice 11: training under dp/fsdp/tp/ep)"
             )
+
+    def _forward(self, params: Params, tokens: torch.Tensor,
+                 return_kv: bool = False):
+        g = self.groups
+        return forward(params, tokens, self.config, return_kv=return_kv,
+                       tp_group=g.tp, sp_group=g.sp, ep_group=g.ep)
+
+    def _prefill(self, params: Params, tokens: torch.Tensor,
+                 return_kv: bool, last: int | None = None):
+        """The logits ``[B, vocab]`` at position ``last`` of ``tokens``
+        (default the last), and with ``return_kv`` the K/V of every
+        position: under sp the tokens are padded on the right to a multiple
+        of sp (pad tokens are causally invisible to the real ones) and
+        ``gather_prefill`` takes the row and the K/V."""
+        L = tokens.shape[1]
+        last = L - 1 if last is None else last
+        sp = self.groups.size("sp")
+        if sp == 1:
+            if return_kv:
+                logits, kv = self._forward(params, tokens, True)
+                return logits[:, last, :], kv
+            return self._forward(params, tokens)[:, last, :], None
+        padded = torch.nn.functional.pad(tokens, (0, -L % sp))
+        logits, kv = self._forward(params, padded, True)
+        row, (k, v) = gather_prefill(logits, kv, last, self.groups.sp)
+        return row, (k[..., :L, :], v[..., :L, :])
 
     def init(self, generator: torch.Generator,
              device: torch.device | str | None = None) -> Params:
@@ -841,7 +1017,7 @@ class Transformer:
                            dtype=torch.float32, requires_grad=True)
 
     def apply(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(params, tokens, self.config, tp_group=self.tp_group)
+        return self._forward(params, tokens)
 
     def make_optimizer(self, learning_rate: float = 3e-4):
         """The JAX ``optax.adamw`` as a factory: called on the params it
@@ -882,9 +1058,8 @@ class Transformer:
                              device=prompt.device)
         tokens[:, :L] = prompt
         for idx in range(L, L + max_new_tokens):
-            logits = forward(params, tokens, self.config,
-                             tp_group=self.tp_group)
-            tokens[:, idx] = torch.argmax(logits[:, idx - 1], dim=-1)
+            row, _ = self._prefill(params, tokens, False, last=idx - 1)
+            tokens[:, idx] = torch.argmax(row, dim=-1)
         return tokens
 
     def generate_cached(
@@ -910,7 +1085,7 @@ class Transformer:
         repeats it. The cache layout follows ``config.kv_cache_dtype``.
         Under a mesh every rank gets the same tokens (the same logits and,
         sampling, the same generator seed)."""
-        c, g = self.config, self.tp_group
+        c, g, ep = self.config, self.tp_group, self.groups.ep
         prompt = torch.as_tensor(prompt, device=params["embed"].device)
         B, L = prompt.shape
         total = L + max_new_tokens
@@ -919,12 +1094,10 @@ class Transformer:
         if prefill_chunk is not None:
             last_logits, cache = prefill_chunked(params, prompt, c, total,
                                                  chunk=prefill_chunk,
-                                                 tp_group=g)
+                                                 tp_group=g, ep_group=ep)
         else:
-            logits, (k_pre, v_pre) = forward(params, prompt, c, return_kv=True,
-                                             tp_group=g)
+            last_logits, (k_pre, v_pre) = self._prefill(params, prompt, True)
             cache = init_decode_cache(c, B, total, k_pre, v_pre)
-            last_logits = logits[:, L - 1, :]
         current = sample_logits(last_logits, generator, temperature, top_k,
                                 top_p)
         tokens = torch.zeros(B, total, dtype=torch.long, device=prompt.device)
@@ -932,7 +1105,8 @@ class Transformer:
         tokens[:, L:L + 1] = current
         done = current == eos_id if eos_id is not None else None
         for pos in range(L, total - 1):
-            step_logits, cache = decode_step(params, current, pos, cache, c, g)
+            step_logits, cache = decode_step(params, current, pos, cache, c, g,
+                                             ep)
             current = sample_logits(step_logits[:, -1, :], generator,
                                     temperature, top_k, top_p)
             if eos_id is not None:

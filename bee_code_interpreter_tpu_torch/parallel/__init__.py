@@ -3,9 +3,10 @@ one rank per device (``parallel/mesh.py``).
 
 Axis conventions, as in the JAX package: ``dp`` data parallel, ``fsdp``
 parameter sharding within data parallel, ``tp`` tensor parallel (Megatron
-column/row splits), ``sp`` sequence parallel, ``ep`` expert parallel. The
-port serves over ``tp``; ring attention, Ulysses and the pipeline are not
-ported yet (ROADMAP Queue 1, item 4).
+column/row splits), ``sp`` sequence parallel (ring attention or Ulysses),
+``ep`` expert parallel. The port serves over ``tp``, ``sp`` and ``ep``;
+training under a mesh and the pipeline are not ported yet (ROADMAP Queue 1,
+item 4, slice 11).
 """
 
 from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -17,4 +18,12 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_descriptor,
     mesh_shape_key,
     spawn,
+)
+from bee_code_interpreter_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention,
+    ring_attention_sharded,
+)
+from bee_code_interpreter_tpu_torch.parallel.ulysses import (  # noqa: F401
+    ulysses_attention,
+    ulysses_attention_sharded,
 )

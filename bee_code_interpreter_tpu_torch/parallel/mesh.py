@@ -1,5 +1,5 @@
-"""Device meshes, the launcher's environment and the tensor-parallel
-collectives of the port: the counterpart of
+"""Device meshes, the launcher's environment and the collectives and
+exchanges of the port: the counterpart of
 ``bee_code_interpreter_tpu/parallel/mesh.py``.
 
 The JAX package is single-controller: one process drives every device of a
@@ -7,7 +7,9 @@ The JAX package is single-controller: one process drives every device of a
 over ``torch.distributed``: one process (rank) per device, a
 ``torch.distributed.device_mesh.DeviceMesh`` naming the axes, and the
 collectives written out in the model functions (``all_reduce_partial``,
-``all_gather_cat``). A rank's "sharding" is its slice of a tensor plus the
+``all_gather_cat``, ``broadcast_from``) and in the sequence-parallel
+attention (``ring_shift``, ``all_to_all_tiled``: JAX's ``lax.ppermute``
+and ``lax.all_to_all``). A rank's "sharding" is its slice of a tensor plus the
 spec that says which slice (``shard_tensor``), never a DTensor that
 redistributes behind the code's back.
 
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import faulthandler
 import math
 import multiprocessing.connection
 import os
@@ -231,6 +234,22 @@ def tp_group(mesh):
     return mesh.get_group("tp")
 
 
+def sp_group(mesh):
+    """The process group of this rank's sp axis (sequence-parallel
+    admission), or None without an sp axis of size > 1."""
+    if axis_size(mesh, "sp") <= 1:
+        return None
+    return mesh.get_group("sp")
+
+
+def ep_group(mesh):
+    """The process group of this rank's ep axis (expert parallelism), or
+    None without an ep axis of size > 1."""
+    if axis_size(mesh, "ep") <= 1:
+        return None
+    return mesh.get_group("ep")
+
+
 def batch_axes(mesh) -> tuple[str, ...] | None:
     """The data-parallel-ish axes an activation batch dim shards over."""
     if mesh is None:
@@ -282,19 +301,47 @@ def mesh_descriptor(mesh) -> dict:
     }
 
 
-def serving_tp(mesh) -> tuple[int, object]:
-    """(tp size, tp group) of a mesh the port serves on. Only the tp axis
-    may exceed size 1: sequence parallelism, data-parallel axes inside one
-    batcher, experts and pipelines over a mesh are not ported yet (ROADMAP
-    Queue 1, item 4); replicas behind a router are ``ReplicatedEngine``."""
+# the axes one batcher serves over, and what the others wait for
+SERVING_AXES = ("tp", "sp", "ep")
+_UNPORTED_AXES = {
+    "dp": "slice 12: dp x tp replicas; data-parallel serving is "
+          "ReplicatedEngine",
+    "fsdp": "slice 11: fsdp belongs to training under a mesh",
+    "pp": "slice 11: the pipeline, parallel/pipeline.py",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingGroups:
+    """The process groups of the axes one batcher (or ``Transformer``)
+    serves over: tensor parallelism (``tp``), sequence-parallel admission
+    (``sp``) and expert parallelism (``ep``), each None where its axis is
+    absent or of size 1 (no collective to make)."""
+
+    tp: object = None
+    sp: object = None
+    ep: object = None
+
+    def size(self, axis: str) -> int:
+        return group_size(getattr(self, axis))
+
+
+def serving_groups(mesh) -> ServingGroups:
+    """The ``ServingGroups`` of a mesh the port serves on. An axis outside
+    ``SERVING_AXES`` may not exceed size 1 inside one batcher: each raises
+    ``NotImplementedError`` naming the slice of ROADMAP Queue 1, item 4
+    that ports it."""
+    if mesh is None:
+        return ServingGroups()
     for axis, size in axis_sizes(mesh).items():
-        if axis != "tp" and size > 1:
+        if axis not in SERVING_AXES and size > 1:
+            why = _UNPORTED_AXES.get(axis, "no slice serves it")
             raise NotImplementedError(
-                f"serving over mesh axis {axis}={size} is not ported yet "
-                "(ROADMAP Queue 1, item 4); the port serves tensor-parallel "
-                "meshes (tp) and data-parallel replicas (ReplicatedEngine)"
+                f"serving over mesh axis {axis}={size} inside one batcher is "
+                f"not ported yet (ROADMAP Queue 1, item 4, {why})"
             )
-    return axis_size(mesh, "tp"), tp_group(mesh)
+    return ServingGroups(tp=tp_group(mesh), sp=sp_group(mesh),
+                         ep=ep_group(mesh))
 
 
 # ------------------------------------------------------------- shardings
@@ -303,7 +350,8 @@ def serving_tp(mesh) -> tuple[int, object]:
 def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     """The shape of one rank's shard of a tensor of ``shape`` under
     ``spec`` (a tuple of axis names or None, one per dim; shorter specs
-    leave the trailing dims whole)."""
+    leave the trailing dims whole): a Megatron split over ``tp``, experts
+    over ``ep``, a sequence over ``sp``."""
     out = list(shape)
     for dim, axis in enumerate(spec):
         n = axis_size(mesh, axis) if axis is not None else 1
@@ -319,18 +367,15 @@ def local_shape(shape, spec, mesh) -> tuple[int, ...]:
 def shard_tensor(x: torch.Tensor, spec, mesh, device) -> torch.Tensor:
     """This rank's slice of ``x`` under ``spec``, as a contiguous tensor of
     its own on ``device`` (a fresh allocation even where ``x`` already
-    lives there). Only the tp axis slices; a spec naming another axis of
-    size > 1 raises NotImplementedError."""
+    lives there): along each dim named by an axis of size > 1, the
+    contiguous block at the rank's coordinate on that axis, as JAX's
+    ``NamedSharding`` lays it out (a sequence split over ``sp`` gives rank
+    r the positions ``[r L/sp, (r+1) L/sp)``)."""
     shape = local_shape(x.shape, spec, mesh)
     out = x
     for dim, axis in enumerate(spec):
         if axis is None or axis_size(mesh, axis) == 1:
             continue
-        if axis != "tp":
-            raise NotImplementedError(
-                f"sharding over {axis} is not ported yet (ROADMAP Queue 1, "
-                "item 4)"
-            )
         n = shape[dim]
         out = out.narrow(dim, axis_index(mesh, axis) * n, n)
     return out.detach().to(device, copy=True).contiguous()
@@ -354,12 +399,17 @@ def all_reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
     vocab-sharded embedding lookup) into the full one, in ``x``'s dtype:
     the partials are added in f32 and rounded once, so the sum does not
     depend on the backend (gloo's or NCCL's bf16 arithmetic) and, at tp=2,
-    equals a bf16 add. Identity without a group. ``x`` is a temporary:
-    an f32 ``x`` is reduced in place."""
-    if group is None:
+    equals a bf16 add. ``group`` may be a tuple of groups (a Mixture-of-
+    Experts partial over tp and ep): the f32 sum runs over each in turn and
+    is rounded once at the end. Identity without a group. ``x`` is a
+    temporary: an f32 ``x`` is reduced in place."""
+    groups = [g for g in (group if isinstance(group, tuple) else (group,))
+              if g is not None]
+    if not groups:
         return x
     acc = x.float()
-    dist.all_reduce(acc, group=group)
+    for g in groups:
+        dist.all_reduce(acc, group=g)
     return acc.to(x.dtype)
 
 
@@ -384,11 +434,94 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) or (
     dist.all_gather_into_tensor)
 
 
+# ------------------------------------------ sequence-parallel exchanges
+#
+# gloo stages the CUDA tensors of its all_reduce, all_gather, all_to_all and
+# broadcast through host memory itself (scripts/torch-tp-collectives.py
+# records what it takes). Its send/recv hand the tensor's pointer to the
+# transport as it is, so ``ring_shift`` stages CUDA tensors through host
+# buffers itself on gloo (the transport of ranks that share one card); NCCL
+# takes them as they are.
+
+
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as a point-to-point exchange takes it: contiguous, and on the
+    host for a CUDA tensor on a gloo group."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.detach().to("cpu").contiguous()
+    return x.contiguous()
+
+
+def ring_shift(tensors, group) -> list[torch.Tensor]:
+    """Each tensor sent to the next rank of ``group`` and the previous
+    rank's received in its place: the counterpart of ``lax.ppermute`` with
+    ``perm=[(i, (i + 1) % n)]``. The sends and receives are posted
+    together (``batch_isend_irecv``), so no rank blocks in a send while its
+    neighbour does the same. Identity without a group or with one rank."""
+    tensors = list(tensors)
+    n = group_size(group)
+    if n == 1:
+        return tensors
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    sends = [_wire(t, group) for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in sends]
+    ops += [dist.P2POp(dist.irecv, t, prv, group) for t in recvs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+
+def all_to_all_tiled(x: torch.Tensor, group, split_dim: int,
+                     concat_dim: int) -> torch.Tensor:
+    """The counterpart of ``lax.all_to_all(x, split_axis, concat_axis,
+    tiled=True)``: ``x`` is cut into ``n`` blocks along ``split_dim``, block
+    j goes to rank j of ``group``, and the blocks received are concatenated
+    along ``concat_dim`` in the senders' rank order. Identity without a
+    group."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    split_dim %= x.dim()
+    concat_dim %= x.dim()
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"dim {split_dim} of {tuple(x.shape)} does not split {n} ways"
+        )
+    blocks = torch.stack(x.chunk(n, dim=split_dim))  # [n, *block]
+    recv = torch.empty_like(blocks)
+    dist.all_to_all_single(recv, blocks, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of rank ``src`` of ``group`` (an index within the group) on
+    every rank; the others' ``x`` gives the shape and dtype. Identity
+    without a group."""
+    if group_size(group) == 1:
+        return x
+    buf = x.detach().clone().contiguous()
+    dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
+    return buf
+
+
 # ---------------------------------------------------------------- launcher
 
 
+# a spawned rank still running this many seconds (at most half its timeout)
+# before its timeout writes the stack of every thread to its stacks file,
+# which the parent's timeout error then carries: where a hung run stands
+_STACKS_GRACE_S = 30.0
+
+
+def _stacks_path(tmp: str, rank: int) -> str:
+    return os.path.join(tmp, f"stacks-{rank}")
+
+
 def _rank_main(fn, rank, world, init_method, device_type, backend, timeout_s,
-               args, conn) -> None:
+               args, conn, tmp) -> None:
     """One spawned rank: join the group, run ``fn(rank, *args)``, send
     back ``("ok", pickled result)`` or ``("error", traceback)``. A barrier
     on each side of ``fn`` keeps a fast rank from tearing the group down
@@ -397,6 +530,9 @@ def _rank_main(fn, rank, world, init_method, device_type, backend, timeout_s,
     stops the ranks left waiting."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
+    stacks = open(_stacks_path(tmp, rank), "w")
+    faulthandler.dump_traceback_later(
+        timeout_s - min(_STACKS_GRACE_S, timeout_s / 2), file=stacks)
     try:
         if device_type == "cuda":
             _set_local_device(rank)
@@ -413,6 +549,8 @@ def _rank_main(fn, rank, world, init_method, device_type, backend, timeout_s,
     except BaseException:
         conn.send(("error", traceback.format_exc()))
     finally:
+        faulthandler.cancel_dump_traceback_later()
+        stacks.close()
         if dist.is_initialized():
             dist.destroy_process_group()
         conn.close()
@@ -429,7 +567,8 @@ def spawn(fn, world: int, *, device_type: str = "cuda",
     importable by name and its result picklable (CPU tensors, numpy).
 
     A rank that raises, or the whole run passing ``timeout`` seconds,
-    stops every rank and raises RuntimeError with the first traceback. Not
+    stops every rank and raises RuntimeError with the first traceback (on
+    a timeout, the stacks of the ranks still running). Not
     needed to use the API: under ``torchrun`` the ranks join through
     ``initialize_distributed``."""
     import torch.multiprocessing as mp
@@ -445,7 +584,7 @@ def spawn(fn, world: int, *, device_type: str = "cuda",
             proc = ctx.Process(
                 target=_rank_main,
                 args=(fn, rank, world, init_method, device_type, backend,
-                      timeout, args, child),
+                      timeout, args, child, tmp),
                 daemon=True,
             )
             proc.start()
@@ -463,6 +602,11 @@ def spawn(fn, world: int, *, device_type: str = "cuda",
                 )
                 if not ready:
                     error = f"ranks {sorted(waiting)} passed {timeout} s"
+                    for rank in sorted(waiting):
+                        path = _stacks_path(tmp, rank)
+                        if os.path.exists(path):
+                            with open(path) as f:
+                                error += f"\nrank {rank}'s stacks:\n{f.read()}"
                     break
                 for conn in ready:
                     rank = next(r for r, c in waiting.items() if c is conn)

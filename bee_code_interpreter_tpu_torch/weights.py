@@ -18,8 +18,9 @@ stacked ``[n_layers, ...]``) becomes each layer's ``moe`` dict, cast like
 the dense leaves.
 
 Under a mesh (``mesh=``) the tree feeds ``transformer.shard_params``: the
-rank keeps its Megatron shard on its device, the slice of each leaf that
-JAX's ``shard_params`` puts on the device at the rank's mesh coordinates.
+rank keeps its shard on its device, the slice of each leaf that JAX's
+``shard_params`` puts on the device at the rank's mesh coordinates (a
+Mixture-of-Experts layer's experts over ep, each expert's d_ff over tp).
 
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.
@@ -55,7 +56,7 @@ def params_from_jax(params_np: dict, config, device=None,
         if requires_grad:
             raise NotImplementedError(
                 "trainable masters under meshes are not ported yet (ROADMAP "
-                "Queue 1, item 4)"
+                "Queue 1, item 4, slice 11)"
             )
         full = params_from_jax(params_np, config, device="cpu", dtype=dtype)
         return shard_params(full, config, mesh, device)

@@ -23,7 +23,10 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    f32 pool), each with the split the wrapper chose and each row held to a
    limit of its dtype; two K2 calls must give the same bits. Then K1 and
    K2 again at a tp=2 rank's heads (H=16, KVH=4: the main and serving
-   cases), the shapes ``serving_tp`` runs.
+   cases), the shapes ``serving_tp`` runs; then K1 at the sequence-parallel
+   shapes (``flash_fwd_sp``: a ring rank's own block, L=4096 causal, an
+   earlier hop, 4096 x 4096 non-causal, a windowed own block, window 1024,
+   and a Ulysses rank's H=16, KVH=4 over L=8192), out and lse both held.
 4. serving reference: the decoder cut to 2 layers at Llama-3-8B widths,
    prefill + paged decode teacher-forced, bf16 kernels on the card against
    the f32 plain path on the CPU on the same weights.
@@ -112,7 +115,35 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    pool bytes, the greedy agreement with phase 5); ``serving_replicated``
    (``ReplicatedEngine.build(n_replicas=2)`` over phase 5's traffic: every
    stream equal to phase 5's, K1/K2 over both replicas, the split of the
-   requests).
+   requests). Then, on the same transport, sequence-parallel serving and
+   the tensor-parallel breadth, each held against the single-device
+   batcher on the same weights and traffic, run here before its ranks
+   spawn and freed before they do: ``sp_attention`` (sp=2,
+   ``ring_attention_sharded`` and ``ulysses_attention_sharded`` on one
+   layer's [1, 32, 8192, 128] q, K/V at 8 heads, against single-device
+   flash_attention, the ring within SP_ATTN_ROW_TOL per row and Ulysses
+   bitwise; each timed, with its K1 and exchange time apart);
+   ``serving_sp`` (Llama-3-8B, all 32 layers, mesh
+   sp=2, ring: 4 prompts of 4096-8000 tokens, 32 new tokens each, half
+   greedy; per rank K1 = 32 x (rank + 1) x admissions, K2 = 32 x decode
+   steps; TTFT of each admission, decode step p50, live GB per rank, the
+   exchanges' ms per admission, ranks bitwise equal, first-token logits
+   within PATH_LOGIT_TOL of the single-device run's);
+   ``serving_sp_ulysses`` and ``serving_sp_tp`` (the same traffic on the
+   first BREADTH_CUT_LAYERS, Ulysses at sp=2 and the ring at sp=2 x tp=2 on
+   four ranks); ``serving_lora_tp`` (``serving_lora``'s adapters and
+   traffic at tp=2 on the cut, each row against a single-device forward on
+   the merged params); ``serving_moe_tp`` and ``serving_moe_ep``
+   (``main_path``'s traffic on Mixtral widths cut to BREADTH_CUT_LAYERS,
+   tp=2 and ep=2), each with ``moe_block_mesh``: one MoE block
+   (``_mlp_block``) on a decode step's 8 tokens (every-expert form) and on
+   a 1024-token prompt (routed form, capacity drops included) against one
+   card on the same input and weights, within MOE_BLOCK_ROW_TOL per token
+   under tp and bitwise under ep. ep's streams and first-token logits must
+   equal one card's; under tp at most MOE_TP_FIRST_OVER_MAX requests may
+   lie beyond PATH_LOGIT_TOL, since capacity routing turns a bf16 near-tie
+   into moved slots and dropped tokens. K1 at the shapes these paths
+   launch is checked in 3 (``flash_fwd_sp``).
 9. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits.
@@ -144,6 +175,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import json
 import pickle
 import shutil
@@ -214,13 +246,23 @@ from bee_code_interpreter_tpu_torch.observability import (  # noqa: E402
     TraceStore,
 )
 from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: E402
+    all_to_all_tiled,
+    axis_index,
     group_size,
     local_shape,
     make_mesh,
+    ring_shift,
+    serving_groups,
     spawn,
     tp_group,
 )
 from bee_code_interpreter_tpu_torch.utils.metrics import Registry  # noqa: E402
+
+# the modules (the package exports their functions under the same names)
+ring_mod = importlib.import_module(
+    "bee_code_interpreter_tpu_torch.parallel.ring_attention")
+ulysses_mod = importlib.import_module(
+    "bee_code_interpreter_tpu_torch.parallel.ulysses")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -231,6 +273,14 @@ SLEEP_CYCLES = 400_000
 # bf16 kernel vs f32 plain version on the same bf16 inputs: the output is
 # rounded to bf16 (~4e-3 at |x| ~ 1) and K1 rounds P to bf16 for P V
 KERNEL_TOL = 2e-2
+# K1's output against its plain version, per row (one query of one head):
+# max |error| over the row's max |output|, so long rows, whose outputs are
+# ~sqrt(e / Lk) (0.018-0.026 at Lk = 4096-8192 with randn q, k, v), are
+# held as tightly as short ones. The bf16 output rounding is at most 2^-8
+# of the row's largest value and the bf16 P in P V adds ~2e-3: 1e-2. Its
+# lse (f32) keeps the absolute KERNEL_TOL. An H100 run read 4.5e-3 to
+# 6.5e-3 over every case of this script, and lse within 1.1e-5.
+K1_ROW_TOL = 1e-2
 # K3/K4 vs their f32 plain versions on the same bf16 inputs: max |error| over
 # max |gradient|. P and dS are rounded to bf16 for the tensor cores and the
 # outputs are bf16; this script's flash_bwd phase on an H100 showed at most
@@ -321,6 +371,56 @@ MOE_EXACT_REQUESTS = 4
 # replicas; K1 and K2 then run at the rank-local head counts below
 TP = 2
 TP_HEADS = (32 // TP, 8 // TP)
+# sequence-parallel serving (the long-context admission path): sp=2 ranks
+# on the transport of the tp phases; 4 requests of 4096-8000 tokens (numpy
+# seed 20), 32 new tokens each, even ones greedy, odd ones seeded sampled,
+# in a geometry of 4 rows of up to 512 pages of 16 (8192 tokens) over 2049
+# pages. The ring runs all 32 layers; Ulysses, sp=2 x tp=2 and the
+# tensor-parallel LoRA and MoE phases run BREADTH_CUT_LAYERS to keep the
+# run's time.
+SP = 2
+SP_GEOMETRY = dict(max_batch=4, page_size=16, max_pages_per_seq=512,
+                   n_pages=2049)
+SP_REQUESTS, SP_PROMPT_RANGE, SP_NEW_TOKENS = 4, (4096, 8000), 32
+# K1 at the shapes the sp paths launch (H=32, KVH=8 a ring rank; H=16,
+# KVH=4 a Ulysses rank over the gathered sequence): (B, Lq, Lk, causal,
+# window)
+K1_SP_CASES = [(1, 4096, 4096, True, None), (1, 4096, 4096, False, None),
+               (1, 4096, 4096, True, 1024)]
+K1_ULYSSES_CASES = [(1, 8192, 8192, True, None)]
+# sp_attention: one layer's q/k/v of a 8192-token sequence, bf16, the whole
+# of it on every rank, against single-device flash_attention on the whole
+# sequence, per row (one query of one head) over the row's max |output|.
+# The ring rounds each hop's output to bf16 (half an ulp of a hop's value,
+# which may exceed the merged one) before the f32 merge and rounds the
+# merged result, where one card rounds once: up to ~2 bf16 ulps of the
+# row's largest value, 2 x 2^-7 = 1.6e-2. A plain-math model of the 2-hop
+# merge at this shape read 2^-7 = 7.8e-3 and an H100 run 8.6e-3: 1.5e-2.
+# Ulysses runs K1 on the same heads over the same sequence as one card, so
+# it must be bitwise equal.
+SP_ATTN_SHAPE = dict(B=1, H=32, KVH=8, L=8192, D=128)
+SP_ATTN_ROW_TOL = 1.5e-2
+# one MoE block (``_mlp_block``, Mixtral widths) under tp=2 or ep=2 against
+# one card on the same input, per token over the token's max |output|:
+# routing is the same by construction (the replicated router on the same
+# input). tp rounds each half of an expert's down projection to bf16
+# (half an ulp of a half's value, which may exceed the sum's) before the
+# f32 sum, and the sum once more, where one card rounds once: up to ~2 bf16
+# ulps of the token's largest value, 1.6e-2. An H100 run read 7.7e-3 (8
+# tokens, the every-expert form) and 9.1e-3 (1024, routed): 1.5e-2. Under
+# ep each expert is whole on one rank and a token's two choices add in f32
+# as on one card: bitwise equal (as the same run read both forms).
+MOE_BLOCK_ROW_TOL = 1.5e-2
+# its inputs, (B, L): a decode step at 8 rows (the every-expert form) and a
+# 1024-token prompt (the routed form, capacity drops included)
+MOE_BLOCK_SHAPES = {"decode": (8, 1), "prefill": (1, 1024)}
+# serving_moe_tp's requests whose first-token logits may lie beyond
+# PATH_LOGIT_TOL of one card's: capacity routing moves a near-tied token to
+# another expert on a bf16 rounding of the tp reduce, which then moves the
+# GShard slots of every later token in its group and drops the prompt's
+# last tokens. Two H100 calls read 4 of 12 (0.118-0.254), the same bits
+# both times; the MoE block itself is held by MOE_BLOCK_ROW_TOL.
+MOE_TP_FIRST_OVER_MAX = 4
 # the MoE aux loss, bf16 on the card against f32 on the CPU: relative error
 # (a top-1 flip moves it by ~E/tokens x a probability gap; bf16 rounding of
 # the mean probabilities by ~1e-3)
@@ -413,10 +513,13 @@ def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES) -> list[dict]:
         ref_out, ref_lse = fa.flash_attention_fwd_plain(
             q.float(), k.float(), v.float(), causal, window=window
         )
-        err = max((out.float() - ref_out).abs().max().item(),
-                  (lse - ref_lse).abs().max().item())
+        lse_err = (lse - ref_lse).abs().max().item()
+        err = max((out.float() - ref_out).abs().max().item(), lse_err)
+        row_err = row_rel_err(out, ref_out)
         case = f"B={B} Lq={L} Lk={Lk} causal={causal} window={window}"
         check(err <= KERNEL_TOL, f"flash_fwd {case}: max abs err {err}")
+        check(row_err <= K1_ROW_TOL,
+              f"flash_fwd {case}: out row err {row_err} over {K1_ROW_TOL}")
         ms = timer(lambda: fa.flash_attention_with_lse(q, k, v, causal, window=window), 20)
         plain_ms = timer(lambda: fa.flash_attention_fwd_plain(
             q.float(), k.float(), v.float(), causal, window=window), 3, warmup=1)
@@ -434,7 +537,8 @@ def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES) -> list[dict]:
         b_ms, b_by = bound(flops, nbytes)
         rows.append({
             "B": B, "H": H, "KVH": KVH, "L": L, "Lk": Lk, "causal": causal,
-            "window": window, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "window": window, "max_abs_err": err, "out_row_rel_err": row_err,
+            "lse_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "tflops": flops / ms / 1e9,
         })
@@ -451,6 +555,13 @@ def visible_pairs(Lq: int, Lk: int, causal: bool, window: int | None) -> int:
     lo = torch.zeros_like(rows) if window is None else torch.clamp(
         rows - window + 1, min=0)
     return int((hi - lo).clamp(min=0).sum())
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max over rows (every index but the last) of the row's max |error|
+    over its max |want|."""
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    return (diff / want.float().abs().amax(dim=-1).clamp_min(1e-30)).max().item()
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -2493,6 +2604,544 @@ def serving_replicated(params, cfg, requests, main_first, how) -> dict:
     }
 
 
+# ------------------------------------------- sequence-parallel serving, and
+# ------------------------------------ LoRA and MoE under a tensor-parallel mesh
+
+
+def sp_requests(vocab_size: int) -> list:
+    """serving_sp's traffic: SP_REQUESTS prompts of 4096-8000 tokens
+    (numpy seed 20), SP_NEW_TOKENS each, even ones greedy and odd ones
+    seeded sampled."""
+    rng = np.random.default_rng(20)
+    lo, hi = SP_PROMPT_RANGE
+    requests = []
+    for i, L in enumerate(rng.integers(lo, hi + 1, size=SP_REQUESTS)):
+        prompt = rng.integers(0, vocab_size, int(L)).tolist()
+        sampling = (SamplingParams() if i % 2 == 0 else
+                    SamplingParams(temperature=0.8, top_k=50, seed=200 + i))
+        requests.append((prompt, SP_NEW_TOKENS, sampling, {}))
+    return requests
+
+
+class ExchangeClock:
+    """Host milliseconds, and calls, of the sequence-parallel exchanges
+    while installed: the ring's ``ring_shift``, Ulysses' all-to-alls, and
+    ``transformer.gather_prefill`` (the K/V gathered over sp into the pool
+    and the last row's broadcast). Each call is timed between two
+    ``torch.cuda.synchronize()``, so queued compute is not counted."""
+
+    def __init__(self) -> None:
+        self.ms = {"ring_shift": 0.0, "all_to_all": 0.0, "gather_prefill": 0.0}
+        self.calls = dict.fromkeys(self.ms, 0)
+        self._undo = []
+        for module, attr, key in (
+                (ring_mod, "ring_shift", "ring_shift"),
+                (ulysses_mod, "all_to_all_tiled", "all_to_all"),
+                (transformer, "gather_prefill", "gather_prefill")):
+            fn = getattr(module, attr)
+            setattr(module, attr, self._timed(fn, key))
+            self._undo.append((module, attr, fn))
+
+    def _timed(self, fn, key):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[key] += (time.perf_counter() - t) * 1e3
+            self.calls[key] += 1
+            return out
+        return timed
+
+    def close(self) -> None:
+        for module, attr, fn in self._undo:
+            setattr(module, attr, fn)
+
+
+def llama_cut(dev, n_layers: int):
+    """main_path's seed-0 Llama-3-8B weights built on ``dev``, cut to the
+    first ``n_layers`` (the draws of a 32-layer build, so every cut of them
+    is the same model's first layers), and its config."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              paged_attention_kernel=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if n_layers < cfg.n_layers:
+        params = {**params, "layers": params["layers"][:n_layers]}
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return params, cfg
+
+
+def build_in_turns(rank: int, world: int, make):
+    """``make()`` on one rank at a time, a barrier after each turn: a rank
+    that builds the whole model to keep its shard frees it before the next
+    one builds (the ranks may share one card)."""
+    out = None
+    for turn in range(world):
+        if turn == rank:
+            out = make()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.synchronize()
+    return out
+
+
+def sp_rank_setup(axes: dict):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(axes, device_type="cuda")
+    return mesh, torch.device("cuda", torch.cuda.current_device())
+
+
+def run_batcher(batcher, requests) -> dict:
+    """``drive`` with the exchanges timed; what serving_sp keeps of it."""
+    clock = ExchangeClock()
+    try:
+        run = drive(batcher, requests)
+    finally:
+        clock.close()
+    keep = ("tokens", "finish", "k1_launches", "k2_launches", "decode_steps",
+            "wall_s", "ttft_s", "decode_only_step_ms", "admit_s")
+    out = {k: run[k] for k in keep}
+    out["first_logits"] = np.stack(run["first_logits"])
+    out["exchange_ms"], out["exchange_calls"] = clock.ms, clock.calls
+    return out
+
+
+def sp_attention_rank(rank: int, dev) -> dict:
+    """One sp rank of ``sp_attention``: q/k/v of SP_ATTN_SHAPE from one
+    seed (the same on every rank), ``ring_attention_sharded`` and
+    ``ulysses_attention_sharded`` over sp against single-device
+    ``flash_attention`` on the whole sequence; each timed (host clock
+    around calls ending in a synchronize, after a warm-up), with the K1
+    time of this rank's own work (CUDA events) and its exchanges alone."""
+    mesh = make_mesh({"sp": SP}, device_type="cuda")
+    group = serving_groups(mesh).sp
+    c = SP_ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q = torch.randn(c["B"], c["H"], c["L"], c["D"], generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(c["B"], c["KVH"], c["L"], c["D"], generator=gen,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    want = fa.flash_attention(q, k, v, True)
+    scale = want.float().abs().max().item()
+    me, Lr = axis_index(mesh, "sp"), c["L"] // SP
+    blk = slice(me * Lr, (me + 1) * Lr)
+    qr, kr, vr = (x[:, :, blk].contiguous() for x in (q, k, v))
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    def event_ms(fn, reps=5):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = {}
+    fa.FLASH_FWD.launches = 0
+    ring = ring_mod.ring_attention_sharded(mesh, q, k, v)
+    ring_k1 = fa.FLASH_FWD.launches
+    fa.FLASH_FWD.launches = 0
+    uly = ulysses_mod.ulysses_attention_sharded(mesh, q, k, v)
+    uly_k1 = fa.FLASH_FWD.launches
+    # this rank's K1 work in each: the ring's own block (causal) and, on
+    # rank r, r earlier blocks (non-causal); Ulysses' H/sp heads over L
+    q_h = q[:, :c["H"] // SP].contiguous()
+    k_h, v_h = (x[:, :c["KVH"] // SP].contiguous() for x in (k, v))
+    ring_k1_ms = event_ms(lambda: fa.flash_attention_with_lse(qr, kr, vr, True))
+    ring_k1_ms += me * event_ms(
+        lambda: fa.flash_attention_with_lse(qr, kr, vr, False))
+    uly_k1_ms = event_ms(
+        lambda: fa.flash_attention_with_lse(q_h, k_h, v_h, True))
+    out["ring"] = {
+        "rel_err": (ring.float() - want.float()).abs().max().item() / scale,
+        "row_rel_err": row_rel_err(ring, want),
+        "ms": host_ms(lambda: ring_mod.ring_attention_sharded(mesh, q, k, v)),
+        "k1_ms": ring_k1_ms,
+        "exchange_ms": host_ms(lambda: ring_shift((kr, vr), group)),
+        "k1_launches": ring_k1,
+    }
+    out["ulysses"] = {
+        "rel_err": (uly.float() - want.float()).abs().max().item() / scale,
+        "row_rel_err": row_rel_err(uly, want),
+        "ms": host_ms(lambda: ulysses_mod.ulysses_attention_sharded(
+            mesh, q, k, v)),
+        "k1_ms": uly_k1_ms,
+        # q, k, v out and the output back: four all-to-alls
+        "exchange_ms": host_ms(lambda: [all_to_all_tiled(x, group, 1, 2)
+                                        for x in (qr, kr, vr)]
+                               + [all_to_all_tiled(
+                                   torch.empty_like(q_h), group, 2, 1)]),
+        "k1_launches": uly_k1,
+    }
+    out["bitwise_ulysses_vs_single"] = bool(torch.equal(uly, want))
+    return out
+
+
+def serve_on(batcher, requests, dev) -> dict:
+    """``run_batcher`` on a mesh batcher, with this rank's live bytes (its
+    shard of the weights and its pool, before the traffic) and mesh key."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    out = run_batcher(batcher, requests)
+    out.update(live_bytes=live, mesh_key=batcher._mesh_key)
+    return out
+
+
+def serving_sp_rank(rank: int) -> dict:
+    """One rank of the sp=2 spawn: ``sp_attention``, then serving_sp's
+    traffic on Llama-3-8B (all 32 layers, ring), then on its first
+    BREADTH_CUT_LAYERS under Ulysses. Every rank builds the same seed-0
+    weights on the card, in turns, and keeps only its batcher's copy (a
+    rank of an sp-only mesh holds every weight)."""
+    mesh, dev = sp_rank_setup({"sp": SP})
+    out = {"sp_attention": sp_attention_rank(rank, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def make():
+        params, cfg = llama_cut(dev, 32)
+        return ContinuousBatcher(params, cfg, mesh=mesh, **SP_GEOMETRY)
+
+    batcher = build_in_turns(rank, SP, make)
+    requests = sp_requests(batcher.config.vocab_size)
+    out["ring"] = serve_on(batcher, requests, dev)
+    params, cfg = batcher.params, batcher.config
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = {**params, "layers": params["layers"][:BREADTH_CUT_LAYERS]}
+    del params
+    batcher = ContinuousBatcher(
+        cut, dataclasses.replace(cfg, n_layers=BREADTH_CUT_LAYERS,
+                                 sp_attention="ulysses"),
+        mesh=mesh, **SP_GEOMETRY)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ulysses"] = serve_on(batcher, requests, dev)
+    return out
+
+
+def serving_sp_tp_rank(rank: int) -> dict:
+    """One rank of sp=2 x tp=2 (four ranks): serving_sp's traffic on the
+    first BREADTH_CUT_LAYERS, ring; each rank keeps its tp shard."""
+    axes = {"sp": SP, "tp": TP}
+    mesh, dev = sp_rank_setup(axes)
+    requests = sp_requests(TransformerConfig.llama3_8b().vocab_size)
+
+    def make():
+        params, cfg = llama_cut(dev, BREADTH_CUT_LAYERS)
+        return ContinuousBatcher(params, cfg, mesh=mesh, **SP_GEOMETRY)
+
+    batcher = build_in_turns(rank, SP * TP, make)
+    out = serve_on(batcher, requests, dev)
+    out["sp_index"] = axis_index(mesh, "sp")
+    return out
+
+
+def moe_block_outputs(layer, cfg, dev, groups=None) -> dict:
+    """``_mlp_block`` of one MoE layer on MOE_BLOCK_SHAPES' inputs (seed
+    38, the same on every card), on one card or under ``groups``' tp and
+    ep; CPU copies."""
+    gen = torch.Generator(device=dev).manual_seed(38)
+    out = {}
+    for name, (B, L) in MOE_BLOCK_SHAPES.items():
+        y = torch.randn(B, L, cfg.d_model, generator=gen, device=dev,
+                        dtype=cfg.dtype)
+        got, _ = transformer._mlp_block(
+            y, layer, cfg, tp_group=groups and groups.tp,
+            ep_group=groups and groups.ep)
+        out[name] = got.cpu()
+    return out
+
+
+def tp_breadth_rank(rank: int) -> dict:
+    """One rank of the tensor-parallel breadth spawn: serving_lora's
+    traffic and adapters on Llama-3-8B's first BREADTH_CUT_LAYERS at tp=2,
+    then main_path's traffic on Mixtral widths cut to BREADTH_CUT_LAYERS at
+    tp=2 and at ep=2."""
+    mesh, dev = sp_rank_setup({"tp": TP})
+    out = {}
+
+    def make_lora():
+        params, cfg = llama_cut(dev, BREADTH_CUT_LAYERS)
+        adapters = lora_adapters(cfg, dev, 4, LORA_RANK, seed=15)
+        return ContinuousBatcher(params, cfg, mesh=mesh, adapters=adapters,
+                                 lora_scale=LORA_SCALE, **SERVE_GEOMETRY)
+
+    batcher = build_in_turns(rank, TP, make_lora)
+    out["lora"] = serve_on(batcher, lora_requests(batcher.config), dev)
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_mesh = make_mesh({"ep": TP}, device_type="cuda")
+    for name, m in (("moe_tp", mesh), ("moe_ep", ep_mesh)):
+        def make_moe(m=m):
+            cfg = moe_config(BREADTH_CUT_LAYERS)
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(36), dev)
+            return ContinuousBatcher(params, cfg, mesh=m, **SERVE_GEOMETRY)
+
+        batcher = build_in_turns(rank, TP, make_moe)
+        out[name] = serve_on(batcher, main_requests(batcher.config.vocab_size),
+                             dev)
+        out[name]["block"] = moe_block_outputs(
+            batcher.params["layers"][0], batcher.config, dev,
+            serving_groups(m))
+        del batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lora_requests(cfg) -> list:
+    """serving_lora's 8 requests (numpy seed 16) over 4 adapters and the
+    base, and the adapter of each."""
+    rng = np.random.default_rng(16)
+    which = [0, 1, 2, 3, None, 0, 1, None]
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, size=len(which))]
+    return [(p, 32, SamplingParams(), {"adapter": a})
+            for p, a in zip(prompts, which)]
+
+
+def first_rows(params, cfg, requests, adapters=None) -> np.ndarray:
+    """Each request's first-token logits from a one-shot forward on the
+    card (the single-device reference of a mesh phase): on ``params``, or
+    for an adapter row on ``merge_lora(params, adapters[i])``."""
+    rows = []
+    for prompt, _, _, kw in requests:
+        a = kw.get("adapter")
+        tree = params if a is None else merge_lora(params, adapters[a],
+                                                   LORA_SCALE)
+        tok = torch.as_tensor([prompt], device=params["embed"].device)
+        rows.append(transformer.forward(tree, tok, cfg)[0, -1].float().cpu()
+                    .numpy())
+        del tree
+    return np.stack(rows)
+
+
+def mesh_report(name, ranks, key, ref, requests, n_layers, k1_want,
+                how, over_max=0, exact=False) -> dict:
+    """The checks every mesh serving phase makes, and its report: every
+    request runs to its length; each rank's K1 launches as ``k1_want(rank)``
+    predicts and K2 once per layer and decode step; every rank's streams
+    and first-token logits bitwise equal to rank 0's; the first-token
+    logits against ``ref`` (the single-device run's) within PATH_LOGIT_TOL
+    for all but at most ``over_max`` requests; with ``exact``, streams and
+    first-token logits equal to ``ref``'s."""
+    runs = [r[key] for r in ranks]
+    lead = runs[0]
+    for r, run in enumerate(runs):
+        check(all(f == "length" for f in run["finish"]),
+              f"{name} rank {r}: finish reasons {run['finish']}")
+        check(run["k1_launches"] == k1_want(r),
+              f"{name} rank {r}: flash_fwd launched {run['k1_launches']} "
+              f"times, predicted {k1_want(r)}")
+        check(run["decode_steps"] > 0
+              and run["k2_launches"] == n_layers * run["decode_steps"],
+              f"{name} rank {r}: paged_decode launched {run['k2_launches']} "
+              f"times over {run['decode_steps']} decode steps")
+        check(run["tokens"] == lead["tokens"],
+              f"{name}: rank {r}'s streams differ from rank 0's")
+        check(np.array_equal(run["first_logits"], lead["first_logits"]),
+              f"{name}: rank {r}'s first-token logits differ from rank 0's")
+    got = lead["first_logits"]
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite logits")
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, ref["first_logits"])]
+    over = sum(e > PATH_LOGIT_TOL for e in errs)
+    check(over <= over_max,
+          f"{name}: first-token logits {errs} from the single-device run's, "
+          f"{over} over {PATH_LOGIT_TOL} where {over_max} may be")
+    if exact:
+        check(max(errs) == 0.0 and lead["tokens"] == ref["tokens"],
+              f"{name}: streams or first-token logits {errs} differ from "
+              "the single-device run's")
+    n_admit = len(requests)
+    generated = sum(len(t) for t in lead["tokens"])
+    greedy = greedy_rows(requests)
+    return {
+        "phase": name, **{k: how[k] for k in ("backend", "cards")},
+        "world": len(ranks), "mesh": lead["mesh_key"], "layers": n_layers,
+        "requests": n_admit, "prompt_lens": [len(p) for p, _, _, _ in requests],
+        "tokens_per_s": generated / lead["wall_s"], "wall_s": lead["wall_s"],
+        "ttft_ms": [t * 1e3 for t in lead["ttft_s"]],
+        "admit_ms": [(e - s) * 1e3 for s, e in lead["admit_s"]],
+        "decode_step_p50_ms": (float(np.median(lead["decode_only_step_ms"]))
+                               if lead["decode_only_step_ms"] else None),
+        "decode_steps": lead["decode_steps"],
+        "k1_launches_per_rank": [r["k1_launches"] for r in runs],
+        "k2_launches_per_rank": [r["k2_launches"] for r in runs],
+        "live_gb_per_rank": [run["live_bytes"] / 1e9 for run in runs],
+        "exchange_ms_per_admission": {
+            k: v / n_admit for k, v in lead["exchange_ms"].items()},
+        "exchange_calls": lead["exchange_calls"],
+        "ranks_identical": True,
+        "first_token_rel_err_vs_single_device": errs,
+        "first_token_tolerance": PATH_LOGIT_TOL,
+        "first_token_over_tolerance": over, "first_token_over_max": over_max,
+        "exact": exact,
+        "first_token_argmax_agreement": float(np.mean(
+            got.argmax(-1) == ref["first_logits"].argmax(-1))),
+        "greedy_agreement_with_single_device": token_agreement(
+            lead["tokens"], ref["tokens"], greedy),
+        "streams_equal_single_device": lead["tokens"] == ref["tokens"],
+    }
+
+
+def single_device_run(params, cfg, requests, **batcher_kw) -> dict:
+    """The single-device batcher on a mesh phase's traffic: its streams
+    and first-token logits, the reference the ranks are held to."""
+    run = drive(ContinuousBatcher(params, cfg, **batcher_kw), requests)
+    return {"tokens": run["tokens"],
+            "first_logits": np.stack(run["first_logits"]),
+            "ttft_s": run["ttft_s"], "wall_s": run["wall_s"],
+            "decode_only_step_ms": run["decode_only_step_ms"]}
+
+
+def sequence_parallel_phases(dev, how) -> list[dict]:
+    """``sp_attention``, ``serving_sp`` (ring, 32 layers), its Ulysses and
+    sp=2 x tp=2 runs (BREADTH_CUT_LAYERS), each held against the
+    single-device batcher on the same weights and traffic, run here before
+    the ranks spawn and freed before they do."""
+    params, cfg = llama_cut(dev, 32)
+    requests = sp_requests(cfg.vocab_size)
+    ref32 = single_device_run(params, cfg, requests, **SP_GEOMETRY)
+    cut, cut_cfg = ({**params, "layers": params["layers"][:BREADTH_CUT_LAYERS]},
+                    dataclasses.replace(cfg, n_layers=BREADTH_CUT_LAYERS))
+    ref8 = single_device_run(cut, cut_cfg, requests, **SP_GEOMETRY)
+    del params, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn(serving_sp_rank, SP, device_type="cuda",
+                  backend=how["backend"], timeout=900)
+    t_sp = time.perf_counter() - t
+    attn = [r["sp_attention"] for r in ranks]
+    for r, rec in enumerate(attn):
+        check(rec["ring"]["row_rel_err"] <= SP_ATTN_ROW_TOL,
+              f"sp_attention rank {r} ring: row err "
+              f"{rec['ring']['row_rel_err']} over {SP_ATTN_ROW_TOL}")
+        check(rec["bitwise_ulysses_vs_single"],
+              f"sp_attention rank {r}: Ulysses differs from one card's "
+              f"flash_attention (row err {rec['ulysses']['row_rel_err']})")
+        check(rec["ring"]["k1_launches"] == r + 1,
+              f"sp_attention rank {r}: ring launched K1 "
+              f"{rec['ring']['k1_launches']} times, predicted {r + 1}")
+        check(rec["ulysses"]["k1_launches"] == 1,
+              f"sp_attention rank {r}: Ulysses launched K1 "
+              f"{rec['ulysses']['k1_launches']} times, predicted 1")
+    out = [{"phase": "sp_attention", **SP_ATTN_SHAPE, "dtype": "bfloat16",
+            "sp": SP, "backend": how["backend"], "cards": how["cards"],
+            "row_tolerance": SP_ATTN_ROW_TOL, "ulysses": "bitwise",
+            "per_rank": attn}]
+    n_req = len(requests)
+    out.append(mesh_report(
+        "serving_sp", ranks, "ring", ref32, requests, cfg.n_layers,
+        lambda r: cfg.n_layers * (r + 1) * n_req, how))
+    out.append(mesh_report(
+        "serving_sp_ulysses", ranks, "ulysses", ref8, requests,
+        BREADTH_CUT_LAYERS, lambda r: BREADTH_CUT_LAYERS * n_req, how))
+    t = time.perf_counter()
+    quad = spawn(serving_sp_tp_rank, SP * TP, device_type="cuda",
+                 backend=how["backend"], timeout=900)
+    t_quad = time.perf_counter() - t
+    out.append(mesh_report(
+        "serving_sp_tp", [{"run": q} for q in quad], "run", ref8, requests,
+        BREADTH_CUT_LAYERS,
+        lambda r: BREADTH_CUT_LAYERS * (quad[r]["sp_index"] + 1) * n_req, how))
+    out[1]["spawn_s"], out[3]["spawn_s"] = t_sp, t_quad
+    for rec in out[1:]:
+        rec["single_device"] = {
+            "ttft_ms": [x * 1e3 for x in (ref32 if rec["phase"] == "serving_sp"
+                                          else ref8)["ttft_s"]],
+            "decode_step_p50_ms": float(np.median(
+                (ref32 if rec["phase"] == "serving_sp" else ref8)[
+                    "decode_only_step_ms"]))}
+    return out
+
+
+def tp_breadth_phases(dev, how) -> list[dict]:
+    """``serving_lora_tp`` (serving_lora's adapters and traffic at tp=2 on
+    Llama-3-8B's first BREADTH_CUT_LAYERS: every row's first-token logits
+    against a single-device forward on the merged params) and
+    ``serving_moe_tp`` / ``serving_moe_ep`` (main_path's traffic on Mixtral
+    widths cut to BREADTH_CUT_LAYERS at tp=2 and ep=2, against the
+    single-device MoE batcher on the same cut, and one MoE block against
+    one card's on the same input: ``moe_block_mesh``). Capacity routing
+    breaks near-ties of a token's 2nd and 3rd expert by the partial sums'
+    order (``moe_reference``), so under tp at most MOE_TP_FIRST_OVER_MAX
+    requests' first-token errors may pass PATH_LOGIT_TOL; ep must equal
+    one card."""
+    params, cfg = llama_cut(dev, BREADTH_CUT_LAYERS)
+    adapters = lora_adapters(cfg, dev, 4, LORA_RANK, seed=15)
+    requests = lora_requests(cfg)
+    lora_ref = {"first_logits": first_rows(params, cfg, requests, adapters)}
+    lora_ref["tokens"] = single_device_run(
+        params, cfg, requests, adapters=adapters, lora_scale=LORA_SCALE,
+        **SERVE_GEOMETRY)["tokens"]
+    del params, adapters
+    mcfg = moe_config(BREADTH_CUT_LAYERS)
+    mparams = init_params(mcfg, torch.Generator(device=dev).manual_seed(36))
+    mreq = main_requests(mcfg.vocab_size)
+    moe_ref = single_device_run(mparams, mcfg, mreq, **SERVE_GEOMETRY)
+    block_ref = moe_block_outputs(mparams["layers"][0], mcfg, dev)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn(tp_breadth_rank, TP, device_type="cuda",
+                  backend=how["backend"], timeout=900)
+    n_l = BREADTH_CUT_LAYERS
+    n_base = sum(kw.get("adapter") is None for _, _, _, kw in requests)
+    lora = mesh_report("serving_lora_tp", ranks, "lora", lora_ref, requests,
+                       n_l, lambda r: n_l * n_base, how)
+    lora.update(adapters=4, rank=LORA_RANK, lora_scale=LORA_SCALE,
+                reference="single-device forward on merge_lora per adapter")
+    out = [lora]
+    for name, key in (("serving_moe_tp", "moe_tp"), ("serving_moe_ep", "moe_ep")):
+        ep, block = key == "moe_ep", {}
+        for shape, want in block_ref.items():
+            got = ranks[0][key]["block"][shape]
+            for r, rank in enumerate(ranks):
+                check(torch.equal(rank[key]["block"][shape], got),
+                      f"moe_block_mesh {key} {shape}: rank {r} differs "
+                      "from rank 0")
+            err = row_rel_err(got, want)
+            check(bool(torch.isfinite(got).all()) and err <= MOE_BLOCK_ROW_TOL,
+                  f"moe_block_mesh {key} {shape}: row err {err} over "
+                  f"{MOE_BLOCK_ROW_TOL}")
+            bitwise = bool(torch.equal(got, want))
+            check(bitwise or not ep,
+                  f"moe_block_mesh {key} {shape}: differs from one card's")
+            block[shape] = {"tokens": got.shape[0] * got.shape[1],
+                            "row_rel_err": err, "bitwise": bitwise}
+        rec = mesh_report(name, ranks, key, moe_ref, mreq, n_l,
+                          lambda r: n_l * len(mreq), how,
+                          over_max=0 if ep else MOE_TP_FIRST_OVER_MAX,
+                          exact=ep)
+        rec.update(config="mixtral_8x7b", layers_cut_from=32,
+                   capacity_factor=mcfg.moe_capacity_factor,
+                   moe_block_mesh=block,
+                   moe_block_row_tolerance=MOE_BLOCK_ROW_TOL)
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2519,17 +3168,27 @@ def main() -> int:
     # serving path meets the card as it did before the training phases
     timer = Timer(dev)
     flash_rows = check_flash(timer, dev)
-    emit({"phase": "flash_fwd", "tolerance": KERNEL_TOL, "cases": flash_rows})
+    emit({"phase": "flash_fwd", "tolerance": KERNEL_TOL,
+          "row_tolerance": K1_ROW_TOL, "cases": flash_rows})
     paged_rows = check_paged_decode(timer, dev)
     emit({"phase": "paged_decode", "tolerance": KERNEL_TOL, "cases": paged_rows})
     paged = next(r for r in paged_rows if r["case"] == K2_MAIN_CASE)
     # the same kernels at a tp=2 rank's heads (serving_tp's shapes)
     flash_tp_rows = check_flash(timer, dev, TP_HEADS, K1_TP_CASES)
     emit({"phase": "flash_fwd_rank_local", "heads": list(TP_HEADS),
-          "tolerance": KERNEL_TOL, "cases": flash_tp_rows})
+          "tolerance": KERNEL_TOL, "row_tolerance": K1_ROW_TOL,
+          "cases": flash_tp_rows})
     paged_tp_rows = check_paged_decode(timer, dev, TP_HEADS, K2_TP_CASES)
     emit({"phase": "paged_decode_rank_local", "heads": list(TP_HEADS),
           "tolerance": KERNEL_TOL, "cases": paged_tp_rows})
+    # K1 at the sequence-parallel shapes: a ring rank's own block, an
+    # earlier hop and a windowed own block; a Ulysses rank's heads over the
+    # gathered sequence. out (per row) and lse (absolute) are both held.
+    flash_sp_rows = (check_flash(timer, dev, (32, 8), K1_SP_CASES)
+                     + check_flash(timer, dev, (16, 4), K1_ULYSSES_CASES))
+    emit({"phase": "flash_fwd_sp", "tolerance": KERNEL_TOL,
+          "row_tolerance": K1_ROW_TOL, "compared": ["out", "lse"],
+          "cases": flash_sp_rows})
     del timer
 
     cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
@@ -2608,13 +3267,25 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    for name, rec in (("tp_reference", tp_ref), ("serving_tp", tp_run)):
+    mesh_runs = [tp_ref, tp_run]
+    # sequence-parallel serving, then LoRA and MoE under tp/ep; each
+    # function builds its own weights and frees them before its ranks spawn
+    for phases in (sequence_parallel_phases, tp_breadth_phases):
+        t = time.perf_counter()
+        results = phases(dev, how)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for rec in results:
+            rec["group_seconds"] = time.perf_counter() - t
+            emit(rec)
+        mesh_runs += [r for r in results if "k1_launches_per_rank" in r]
+    k1_per_rank, k2_per_rank = {}, {}
+    for rec in mesh_runs:
+        name = rec["phase"]
         k1_by_phase[name] = rec["k1_launches_per_rank"][0]
         k2_by_phase[name] = rec["k2_launches_per_rank"][0]
-    k1_per_rank = {"tp_reference": tp_ref["k1_launches_per_rank"],
-                   "serving_tp": tp_run["k1_launches_per_rank"]}
-    k2_per_rank = {"tp_reference": tp_ref["k2_launches_per_rank"],
-                   "serving_tp": tp_run["k2_launches_per_rank"]}
+        k1_per_rank[name] = rec["k1_launches_per_rank"]
+        k2_per_rank[name] = rec["k2_launches_per_rank"]
 
     timer = Timer(dev)
     bwd_rows = check_flash_bwd(timer, dev)
@@ -2688,7 +3359,8 @@ def main() -> int:
                                   "lora_train": lora["launches"]["flash_fwd"],
                                   "train": train["launches"]["flash_fwd"],
                                   "train_moe": train_m["launches"]["flash_fwd"]},
-            "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in flash_rows + flash_sp_rows),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],
             "plain_ms": main_k1["plain_ms"], "bound_ms": main_k1["bound_ms"],
             "bound_by": main_k1["bound_by"],
@@ -2698,6 +3370,10 @@ def main() -> int:
             "rank_local": rank_local(
                 main_k1_tp, f"B=1 H={TP_HEADS[0]} KVH={TP_HEADS[1]} L=1024 "
                 "D=128 causal bf16"),
+            "sp_shapes": [rank_local(
+                r, f"B={r['B']} H={r['H']} KVH={r['KVH']} Lq={r['L']} "
+                f"Lk={r['Lk']} causal={r['causal']} window={r['window']} "
+                "D=128 bf16") for r in flash_sp_rows],
         },
         bwd_entry("flash_bwd_dkdv", "dkdv",
                   "bee_code_interpreter_tpu/ops/flash_attention.py:291"),

@@ -94,7 +94,7 @@ def assert_routing_equal(xf, jrouter, trouter, E, k, C):
     and aux within tolerance; returns JAX's dispatch."""
     jd, jc, jaux = jax_route(jnp.asarray(xf), jrouter, n_experts=E, top_k=k,
                              capacity=C)
-    r = moe._route_group(torch.from_numpy(xf), trouter, n_experts=E,
+    r = moe._route_group(torch.from_numpy(xf) @ trouter, n_experts=E,
                          top_k=k, capacity=C)
     d, c = port_dispatch(r, E, C)
     np.testing.assert_array_equal(d, np.asarray(jd))
@@ -218,7 +218,7 @@ def test_zero_router_ties_go_to_the_lower_expert(form, E):
     jp = {**jp, "router": jnp.zeros((16, E))}
     tp = {**tp, "router": torch.zeros(16, E)}
     x = jax_x((1, 16, 16), seed=4)
-    r = moe._route_group(torch.from_numpy(x[0]), tp["router"], n_experts=E,
+    r = moe._route_group(torch.from_numpy(x[0]) @ tp["router"], n_experts=E,
                          top_k=2, capacity=64)
     assert r.expert.tolist() == [[0, 1]] * 16
     check_moe_mlp(x, jp, tp, n_experts=E, top_k=2, dropless=True)

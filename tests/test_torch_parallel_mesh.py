@@ -14,6 +14,7 @@ contiguous decode paths and ``generate_cached`` under tp against JAX.
 """
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -55,13 +56,38 @@ def inputs():
                                     jax_quantize_weights(params)),
         "tokens": rng.integers(0, 256, (2, 8)),
         "feed": rng.integers(0, 256, (2, 3)),
+        # the four-rank cases of mesh_forward_cases
+        "sp_tokens": rng.integers(0, 256, (2, 32)),
+        "jax_h8": jax_t.init_params(h8_config(), jax.random.PRNGKey(2)),
+        "jax_moe": jax_t.init_params(moe_config(), jax.random.PRNGKey(3)),
+        "jax_kv2": jax_t.init_params(kv2_config(), jax.random.PRNGKey(4)),
     }
+
+
+def h8_config():
+    """8 query heads over 2 K/V heads: tp=4 does not divide the K/V heads."""
+    return dataclasses.replace(jax_t.TransformerConfig.tiny(),
+                               dtype=jnp.float32, n_heads=8, n_kv_heads=2)
+
+
+def kv2_config(**kw):
+    """The tiny decoder over 2 K/V heads, the serving tests' config."""
+    return dataclasses.replace(jax_t.TransformerConfig.tiny(),
+                               dtype=jnp.float32, n_kv_heads=2, **kw)
+
+
+def moe_config():
+    return kv2_config(n_experts=4)
 
 
 @pytest.fixture(scope="module")
 def spawned(inputs):
     """World size -> every rank's records: one spawn per world size."""
-    payload = {k: v for k, v in inputs.items() if k != "jax_params"}
+    payload = {k: v for k, v in inputs.items()
+               if k not in ("jax_params", "jax_h8", "jax_moe", "jax_kv2")}
+    payload.update(params_h8=jax.tree.map(np.asarray, inputs["jax_h8"]),
+                   params_moe=jax.tree.map(np.asarray, inputs["jax_moe"]),
+                   params_kv2=jax.tree.map(np.asarray, inputs["jax_kv2"]))
     return {world: M.spawn(W.parallel_cases, world, device_type="cpu",
                            args=(world, payload), timeout=300)
             for world in WORLDS}
@@ -314,12 +340,151 @@ def test_tp_generate_cached_matches_jax(ranks, inputs):
                                           err_msg=key)
 
 
+# ------------------------------------- K/V broadcast, sp and MoE (tp=4)
+
+MESH_TOL = 2e-4
+
+
+def test_forward_broadcasts_kv_heads_to_lcm_over_tp(spawned, inputs):
+    """JAX's tests/test_models.py:222: n_heads=8 over kv_heads=2 at tp=4.
+    K/V go to lcm(2, 4) = 4 heads, one a rank, group-major pairing kept:
+    the sharded forward equals the unsharded one within 2e-4 (JAX's bound;
+    the partial sums of wo and w_down add in another order), and each rank
+    holds K/V head rank // 2."""
+    cfg = h8_config()
+    tokens = jnp.asarray(inputs["sp_tokens"])
+    want, (k, _) = jax_t.forward(inputs["jax_h8"], tokens, cfg,
+                                 return_kv=True)
+    sharded = jax_t.forward(
+        jax_t.shard_params(inputs["jax_h8"], cfg, tp_mesh(4)), tokens, cfg,
+        tp_mesh(4))
+    for rank, rec in enumerate(spawned[4]):
+        got = rec["lcm"]
+        assert tuple(got["wk_shape"]) == (64, cfg.head_dim)
+        np.testing.assert_allclose(got["logits"], np.asarray(want),
+                                   atol=MESH_TOL, rtol=MESH_TOL)
+        np.testing.assert_allclose(got["logits"], np.asarray(sharded),
+                                   atol=MESH_TOL, rtol=MESH_TOL)
+        np.testing.assert_allclose(got["k"][:, :, 0],
+                                   np.asarray(k)[:, :, rank // 2],
+                                   atol=TOL, rtol=TOL)
+
+
+SP_MESHES = {"sp=4": {"sp": 4}, "sp=2,tp=2": {"sp": 2, "tp": 2}}
+
+
+@pytest.mark.parametrize("window", (None, 5))
+@pytest.mark.parametrize("attn", ("ring", "ulysses"))
+@pytest.mark.parametrize("key", tuple(SP_MESHES))
+def test_sp_forward_matches_jax(spawned, inputs, key, attn, window):
+    """Sequence-parallel forward (JAX's ``forward`` under an sp mesh):
+    each rank's logits and K/V are its block of positions (and its tp
+    heads) of JAX's, within 2e-4 (JAX's bound for its sp forward)."""
+    cfg = kv2_config(sp_attention=attn, sliding_window=window)
+    axes = SP_MESHES[key]
+    devices = np.array(jax.devices()[:4]).reshape(tuple(axes.values()))
+    mesh = Mesh(devices, tuple(axes))
+    tokens = jnp.asarray(inputs["sp_tokens"])
+    logits, (k, _) = jax_t.forward(
+        jax_t.shard_params(inputs["jax_kv2"], cfg, mesh), tokens, cfg, mesh,
+        return_kv=True)
+    sp, tp = axes.get("sp", 1), axes.get("tp", 1)
+    L, kvh = tokens.shape[1] // sp, cfg.kv_heads // tp
+    for rank, rec in enumerate(spawned[4]):
+        got = rec[f"sp {key} {attn} {window}"]
+        s = rec[f"sp_index {key}"]
+        t = rank % tp
+        np.testing.assert_allclose(
+            got["logits"], np.asarray(logits)[:, s * L:(s + 1) * L],
+            atol=MESH_TOL, rtol=MESH_TOL)
+        np.testing.assert_allclose(
+            got["k"], np.asarray(k)[:, :, t * kvh:(t + 1) * kvh,
+                                    s * L:(s + 1) * L],
+            atol=MESH_TOL, rtol=MESH_TOL)
+
+
+@pytest.mark.parametrize("key", tuple(SP_MESHES))
+def test_sp_generate_matches_jax(spawned, inputs, key):
+    """``Transformer.generate_cached`` and ``generate`` under an sp mesh: a
+    13-token prompt, padded on the right to a multiple of sp for the
+    sequence-parallel prefill, gives JAX's unsharded tokens on every
+    rank."""
+    cfg = kv2_config()
+    prompt = jnp.asarray(inputs["sp_tokens"])[:, :13]
+    model = jax_t.Transformer(cfg)
+    want = {"cached": model.generate_cached(inputs["jax_kv2"], prompt,
+                                            max_new_tokens=5),
+            "plain": model.generate(inputs["jax_kv2"], prompt,
+                                    max_new_tokens=3)}
+    for rec in spawned[4]:
+        for name, tokens in want.items():
+            np.testing.assert_array_equal(rec[f"sp_generate {key}"][name],
+                                          np.asarray(tokens), err_msg=name)
+
+
+MOE_MESHES = ("ep=2,tp=2", "tp=4", "ep=4", "sp=4", "sp=2,ep=2")
+
+
+@pytest.mark.parametrize("key", MOE_MESHES)
+def test_moe_forward_over_tp_ep_sp_matches_jax(spawned, inputs, key):
+    """Mixture-of-Experts layers under a mesh: experts over ep, each
+    expert's d_ff over tp, the router replicated, routing global (under sp
+    the router logits of the whole sequence). Logits within 2e-4 of JAX's
+    unsharded forward (the expert partials add in another order), the aux
+    loss equal to f32 ulps, and each rank's expert shard the shape
+    JAX's specs give it."""
+    cfg = moe_config()
+    tokens = jnp.asarray(inputs["sp_tokens"])
+    want, aux = jax_t.forward(inputs["jax_moe"], tokens, cfg,
+                              return_aux=True)
+    axes = dict(part.split("=") for part in key.split(","))
+    ep, tp, sp = (int(axes.get(a, 1)) for a in ("ep", "tp", "sp"))
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.ff_dim
+    L = tokens.shape[1] // sp
+    for rec in spawned[4]:
+        got = rec[f"moe {key}"]
+        s = got["sp_index"]
+        np.testing.assert_allclose(got["logits"],
+                                   np.asarray(want)[:, s * L:(s + 1) * L],
+                                   atol=MESH_TOL, rtol=MESH_TOL)
+        np.testing.assert_allclose(got["aux"], np.asarray(aux), rtol=1e-6)
+        assert got["loader_equal"]  # params_from_jax(mesh=...) carries MoE
+        shapes = {n: tuple(x) for n, x in got["shapes"].items()}
+        assert shapes == {"router": (D, E),
+                                 "we_gate": (E // ep, D, F // tp),
+                                 "we_up": (E // ep, D, F // tp),
+                                 "we_down": (E // ep, F // tp, D)}
+
+
+def test_moe_param_specs_match_jax():
+    """JAX's expert specs (transformer.py:264-271) over an ep x tp mesh."""
+    jspecs = jax_t.param_specs(moe_config(),
+                               jax_mesh.make_mesh({"ep": 2, "tp": 2}))
+    with W.single_rank_mesh({"ep": 1, "tp": 1}) as mesh:
+        from bee_code_interpreter_tpu_torch.models import transformer as T
+
+        specs = T.param_specs(W.tiny_config(n_experts=4), mesh)
+    for name, spec in jspecs["layers"]["moe"].items():
+        assert specs["layers"]["moe"][name] == tuple(spec)[1:], name
+    assert "w_gate" not in specs["layers"]
+
+
 # ------------------------------------------------------------- launcher
 
 
 def test_spawn_fails_when_a_rank_fails():
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         M.spawn(W.failing_rank, 2, device_type="cpu", timeout=120)
+
+
+def test_spawn_timeout_carries_the_ranks_stacks():
+    """A rank still running at the timeout has written its stacks half the
+    timeout in; the error carries them, down to the frame it stands in."""
+    t = time.monotonic()
+    with pytest.raises(RuntimeError, match="(?s)passed 20 s.*rank 0's "
+                       "stacks.*in sleeping_rank"):
+        M.spawn(W.sleeping_rank, 1, device_type="cpu", timeout=20)
+    assert time.monotonic() - t < 60
 
 
 def test_distributed_env_reads_both_launchers(monkeypatch):

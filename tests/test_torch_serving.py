@@ -190,20 +190,23 @@ def test_engine_queue_priorities_and_cancel(models):
 
 
 def test_unported_features_raise(models):
-    """What later slices port still raises (MoE and adapters under a mesh;
-    tensor-parallel serving itself is held to JAX in
-    tests/test_torch_serving_mesh.py); the int8 pool, the prefix cache,
-    chunked and interleaved admission, preemption, adapters, a draft model,
-    snapshots and the metrics and monitor hooks no longer do."""
+    """What later slices port still raises (training under a mesh; serving
+    under meshes is held to JAX in tests/test_torch_serving_mesh.py); an
+    MoE batcher under a mesh, the int8 pool, the prefix cache, chunked and
+    interleaved admission, preemption, adapters, a draft model, snapshots
+    and the metrics and monitor hooks no longer do."""
     from bee_code_interpreter_tpu_torch.observability import ServingMonitor
     from bee_code_interpreter_tpu_torch.utils.metrics import Registry
     from tests.torch_tp_worker import single_rank_mesh
 
     _, tcfg, _, tparams = models
-    with single_rank_mesh({"tp": 1}) as mesh:
-        with pytest.raises(NotImplementedError):
-            torch_serving.ContinuousBatcher(
-                tparams, dataclasses.replace(tcfg, n_experts=4), mesh=mesh)
+    moe_cfg = dataclasses.replace(tcfg, n_experts=4)
+    moe_params = torch_t.init_params(moe_cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    with single_rank_mesh({"ep": 1, "tp": 1}) as mesh:
+        torch_serving.ContinuousBatcher(moe_params, moe_cfg, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="slice 11"):
+            torch_t.Transformer(tcfg, mesh).make_train_step()
     registry = Registry()
     monitor = ServingMonitor(metrics=registry)
     hooked = torch_serving.ContinuousBatcher(

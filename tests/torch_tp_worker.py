@@ -12,16 +12,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from bee_code_interpreter_tpu_torch.models import transformer as T
-from bee_code_interpreter_tpu_torch.models.lora import (
-    init_lora,
-    make_lora_train_step,
-)
+from bee_code_interpreter_tpu_torch.models.engine import Engine
+from bee_code_interpreter_tpu_torch.models.lora import make_lora_train_step
 from bee_code_interpreter_tpu_torch.models.replicated import ReplicatedEngine
 from bee_code_interpreter_tpu_torch.models.serving import (
     ContinuousBatcher,
@@ -224,6 +223,74 @@ def parallel_cases(rank: int, world: int, inputs: dict) -> dict:
         dataclasses.replace(cfg, kv_cache_dtype="int8"), mesh
     ).generate_cached(shard, tokens, max_new_tokens=5))
     out["generate"] = to_np(model.generate(shard, tokens, max_new_tokens=3))
+    if world == 4:
+        out.update(mesh_forward_cases(rank, inputs))
+    return out
+
+
+def mesh_forward_cases(rank: int, inputs: dict) -> dict:
+    """Four ranks: the K/V broadcast to ``lcm(kv_heads, tp)`` heads
+    (n_heads=8 over kv_heads=2 at tp=4), the sequence-parallel forward
+    (ring and Ulysses, with and without a window, on sp=4 and sp=2 x
+    tp=2) and Mixture-of-Experts layers over tp, ep and sp; each rank's
+    logits (its block of positions under sp) and its K/V."""
+    out = {}
+    tokens = torch.as_tensor(inputs["sp_tokens"])
+    cfg = tiny_config(n_heads=8)
+    full = params_from_jax(inputs["params_h8"], cfg, device="cpu")
+    mesh = M.make_mesh({"tp": 4}, device_type="cpu")
+    shard = T.shard_params(full, cfg, mesh)
+    logits, (k, v) = T.forward(shard, tokens, cfg, return_kv=True,
+                               tp_group=M.tp_group(mesh))
+    out["lcm"] = to_np({"logits": logits, "k": k, "v": v,
+                        "wk_shape": tuple(shard["layers"][0]["wk"].shape)})
+
+    cfg = tiny_config()
+    full = params_from_jax(inputs["params_kv2"], cfg, device="cpu")
+    for axes in ({"sp": 4}, {"sp": 2, "tp": 2}):
+        mesh = M.make_mesh(axes, device_type="cpu")
+        groups = M.serving_groups(mesh)
+        shard = T.shard_params(full, cfg, mesh)
+        key = M.mesh_shape_key(mesh)
+        out[f"sp_index {key}"] = M.axis_index(mesh, "sp")
+        for attn in ("ring", "ulysses"):
+            for window in (None, 5):
+                c = dataclasses.replace(cfg, sp_attention=attn,
+                                        sliding_window=window)
+                logits, (k, v) = T.forward(shard, tokens, c, return_kv=True,
+                                           tp_group=groups.tp,
+                                           sp_group=groups.sp)
+                out[f"sp {key} {attn} {window}"] = to_np(
+                    {"logits": logits, "k": k})
+        # the generators under sp: the prompt (13 tokens) padded to a
+        # multiple of sp for the prefill, decode steps ignoring sp
+        model = T.Transformer(cfg, mesh)
+        prompt = tokens[:, :13]
+        out[f"sp_generate {key}"] = to_np({
+            "cached": model.generate_cached(shard, prompt, max_new_tokens=5),
+            "plain": model.generate(shard, prompt, max_new_tokens=3)})
+
+    mcfg = tiny_config(n_experts=4)
+    mfull = params_from_jax(inputs["params_moe"], mcfg, device="cpu")
+    for axes in ({"ep": 2, "tp": 2}, {"tp": 4}, {"ep": 4}, {"sp": 4},
+                 {"sp": 2, "ep": 2}):
+        mesh = M.make_mesh(axes, device_type="cpu")
+        groups = M.serving_groups(mesh)
+        shard = T.shard_params(mfull, mcfg, mesh)
+        key = M.mesh_shape_key(mesh)
+        logits, aux = T.forward(shard, tokens, mcfg, return_aux=True,
+                                tp_group=groups.tp, sp_group=groups.sp,
+                                ep_group=groups.ep)
+        # the loader's shard of an MoE tree is shard_params'
+        loaded = params_from_jax(inputs["params_moe"], mcfg, mesh=mesh)
+        same = all(torch.equal(loaded["layers"][li]["moe"][n], leaf)
+                   for li, layer in enumerate(shard["layers"])
+                   for n, leaf in layer["moe"].items())
+        out[f"moe {key}"] = to_np({
+            "logits": logits, "aux": aux, "sp_index": M.axis_index(mesh, "sp"),
+            "loader_equal": same,
+            "shapes": {n: tuple(x.shape)
+                       for n, x in shard["layers"][0]["moe"].items()}})
     return out
 
 
@@ -243,11 +310,37 @@ def failing_rank(rank: int) -> int:
     return rank
 
 
+def sleeping_rank(rank: int) -> int:
+    """Outlasts any short ``spawn`` timeout."""
+    time.sleep(120)
+    return rank
+
+
 # ---------------------------------------------------------------- serving
 
 
 def _batcher(params, cfg, mesh, **kw):
     return ContinuousBatcher(params, cfg, mesh=mesh, **kw)
+
+
+def engine_admission_fails_on_rank0(rank: int, inputs: dict) -> None:
+    """An ``Engine`` over a tp=2 batcher whose admission raises on rank 0
+    alone: rank 0 must raise out of the step, not fail the ticket and go
+    on while rank 1 waits in the prefill's all-reduces."""
+    mesh = M.make_mesh({"tp": 2}, device_type="cpu")
+    cfg = tiny_config()
+    b = _batcher(params_from_jax(inputs["params"], cfg, device="cpu"), cfg,
+                 mesh, max_batch=2, n_pages=16, page_size=4,
+                 max_pages_per_seq=4)
+    if rank == 0:
+        def fail(*args, **kwargs):
+            raise RuntimeError("rank 0's admission fails on purpose")
+
+        b._full_admit = fail
+    engine = Engine(b)
+    engine.submit(PROMPT, 4)
+    engine.submit(PROMPT[:5], 4)
+    engine.run_to_completion()
 
 
 def serving_cases(rank: int, inputs: dict) -> dict:
@@ -361,18 +454,45 @@ def serving_cases(rank: int, inputs: dict) -> dict:
                                     b.result_logprobs(r2)],
                        "host": host_state(b)}
 
+    # JAX's test_multilora_serving.py:254 at tp=2: the bank whole on each
+    # rank, every attention projection targeted
+    adapters = [{t: {k: torch.from_numpy(np.array(x)) for k, x in ab.items()}
+                 for t, ab in a.items()} for a in inputs["adapters"]]
+    b = _batcher(full, cfg, mesh, max_batch=3, n_pages=40, page_size=4,
+                 max_pages_per_seq=8, adapters=adapters,
+                 lora_scale=inputs["lora_scale"])
+    rs = [b.submit(PROMPT, 5, adapter=0), b.submit([9, 8, 7], 5),
+          b.submit([1, 2, 3, 4, 5], 5, adapter=1)]
+    b.run_to_completion()
+    out["lora_tp"] = {"results": [b.result(r) for r in rs],
+                      "host": host_state(b)}
+
+    # Mixture-of-Experts: dropless per-token routing (moe_exact) at tp=2 and
+    # at ep=2, capacity routing at tp=2
+    for name, axes, extra in (
+        ("moe_exact_tp", {"tp": 2}, dict(moe_dropless=True, moe_group_size=1)),
+        ("moe_exact_ep", {"ep": 2}, dict(moe_dropless=True, moe_group_size=1)),
+        ("moe_capacity_tp", {"tp": 2}, dict(moe_capacity_factor=0.25)),
+    ):
+        mcfg = tiny_config(n_experts=4, **extra)
+        mfull = params_from_jax(inputs["moe_params"], mcfg, device="cpu")
+        b = _batcher(mfull, mcfg, M.make_mesh(axes, device_type="cpu"),
+                     max_batch=4, n_pages=40, page_size=4,
+                     max_pages_per_seq=8)
+        rs = [b.submit(p, 6) for p in inputs["moe_prompts"]]
+        b.run_to_completion()
+        out[name] = {"results": [b.result(r) for r in rs],
+                     "host": host_state(b),
+                     "moe_shapes": {k: tuple(x.shape) for k, x in
+                                    b.params["layers"][0]["moe"].items()}}
+
     # what is not ported under a mesh yet
-    sp_mesh = M.make_mesh({"sp": 2}, device_type="cpu")
     dp_mesh = M.make_mesh({"dp": 2, "tp": 1}, device_type="cpu")
-    lora = init_lora(cfg, torch.Generator().manual_seed(0), rank=2)
+    fsdp_mesh = M.make_mesh({"fsdp": 2}, device_type="cpu")
     kw = dict(max_batch=2, n_pages=16, page_size=4, max_pages_per_seq=4)
     out["refusals"] = {
-        "sp": error_of(lambda: _batcher(full, cfg, sp_mesh, **kw)),
         "dp": error_of(lambda: _batcher(full, cfg, dp_mesh, **kw)),
-        "adapters": error_of(lambda: _batcher(full, cfg, mesh,
-                                              adapters=[lora], **kw)),
-        "moe": error_of(lambda: _batcher(full, tiny_config(n_experts=4),
-                                         mesh, **kw)),
+        "fsdp": error_of(lambda: _batcher(full, cfg, fsdp_mesh, **kw)),
         "train_step": error_of(
             lambda: T.Transformer(cfg, mesh).make_train_step()),
         "init": error_of(lambda: T.Transformer(cfg, mesh).init(
