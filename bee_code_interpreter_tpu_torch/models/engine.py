@@ -46,6 +46,24 @@ class _Queued:
     priority: int = 0  # kept so a preempted ticket requeues in its class
 
 
+def stream_holdback(sampling: SamplingParams | None) -> int:
+    """How many of a live request's last tokens ``new_tokens`` holds back:
+    (max stop length - 1), so a stop sequence completing later never trims
+    a token already streamed."""
+    stops = sampling.stop_sequences if sampling is not None else ()
+    return max((len(s) for s in stops), default=1) - 1
+
+
+def stream_chunk(tokens: list[int], done: bool, cursor: int,
+                 holdback: int) -> tuple[list[int], int]:
+    """``new_tokens``' rule: the tokens from ``cursor`` on, less the last
+    ``holdback`` while the request is live, and the new cursor."""
+    limit = len(tokens) if done else max(0, len(tokens) - holdback)
+    if limit <= cursor:
+        return [], cursor
+    return list(tokens[cursor:limit]), limit
+
+
 class Engine:
     """Queue + admission loop over a ``ContinuousBatcher``.
 
@@ -171,11 +189,7 @@ class Engine:
         self._state[ticket] = "queued"
         self._queued.add(ticket)
         self._stream_cursor[ticket] = 0
-        # streaming holdback: while the request is live, the last
-        # (max stop length - 1) tokens stay unstreamed, so a stop sequence
-        # completing later never trims a token already emitted
-        stops = sampling.stop_sequences if sampling is not None else ()
-        self._holdback[ticket] = max((len(s) for s in stops), default=1) - 1
+        self._holdback[ticket] = stream_holdback(sampling)
         if self._metrics is not None:
             self._ticket_submit_t[ticket] = time.monotonic()
         if self._monitor is not None:
@@ -272,6 +286,18 @@ class Engine:
         return len(self._queued)
 
     @property
+    def outstanding(self) -> int:
+        """Queued tickets plus occupied rows: the load a replica router
+        reads (O(1), where ``stats`` iterates every ticket)."""
+        return (self.pending + int(self.batcher.active.sum())
+                + len(self.batcher.prefill_state))
+
+    @property
+    def busy(self) -> bool:
+        """Whether the batcher is decoding or admitting a row."""
+        return self.batcher.busy
+
+    @property
     def stats(self) -> dict:
         st = {**self.batcher.stats, "queued": len(self._queued)}
         st["requests_submitted"] = len(self._state)
@@ -343,15 +369,10 @@ class Engine:
         tokens = self.partial_result(ticket)
         if not tokens:
             return []
-        limit = (
-            len(tokens) if self.is_done(ticket)
-            else max(0, len(tokens) - self._holdback[ticket])
-        )
-        cursor = self._stream_cursor[ticket]
-        if limit <= cursor:
-            return []
-        self._stream_cursor[ticket] = limit
-        return list(tokens[cursor:limit])
+        chunk, self._stream_cursor[ticket] = stream_chunk(
+            tokens, self.is_done(ticket), self._stream_cursor[ticket],
+            self._holdback[ticket])
+        return chunk
 
     def preempt(self, ticket: int) -> bool:
         """Evict an admitted ticket whose interleaved prefill has not

@@ -9,7 +9,10 @@ for the unchanged ``forward`` / decode paths.
 
 ``make_lora_train_step`` differentiates the loss through the merge with
 respect to the LoRA factors only: the base gets no gradient and no
-optimizer state. ``B`` starts at zero, so the adapted model starts equal to
+optimizer state. Under a mesh the base is the rank's shard and the factors
+follow its specs (``lora_specs``, ``shard_lora``): ``A [d_in, r]`` takes
+the base's ``d_in`` split and ``B [r, d_out]`` its ``d_out`` split, so the
+rank's ``A @ B`` is the delta of exactly its block of the weight. ``B`` starts at zero, so the adapted model starts equal to
 the base. ``stack_lora_bank`` stacks adapters into the multi-LoRA serving
 bank of ``models/serving.py``.
 
@@ -30,8 +33,15 @@ from bee_code_interpreter_tpu_torch.models.transformer import (
     TransformerConfig,
     layer_shapes,
     loss_fn,
+    param_specs,
 )
 from bee_code_interpreter_tpu_torch.ops.weight_quant import is_quantized
+from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    copy_to_group,
+    mesh_groups,
+    reduce_gradients,
+    shard_tensor,
+)
 
 Params = dict[str, Any]
 
@@ -120,6 +130,43 @@ def _lora_adamw(lora: Params, *, lr: float) -> torch.optim.AdamW:
                              weight_decay=1e-4)
 
 
+def lora_specs(lora: Params, config: TransformerConfig, mesh) -> Params:
+    """Each factor's spec under ``mesh`` (the stacked ``[n_layers, ...]``
+    layout): ``A`` takes its base leaf's ``d_in`` split, ``B`` its
+    ``d_out`` split (``transformer.param_specs``)."""
+    base = param_specs(config, mesh)["layers"]
+    return {t: {"A": (None, base[t][0], None), "B": (None, None, base[t][1])}
+            for t in lora}
+
+
+def shard_lora(lora: Params, config: TransformerConfig, mesh,
+               device=None) -> Params:
+    """This rank's shard of each factor (``lora_specs``), a tensor of its
+    own on ``device`` (default: the mesh's device type)."""
+    specs = lora_specs(lora, config, mesh)
+    device = device if device is not None else mesh.device_type
+    return {t: {k: shard_tensor(x, specs[t][k], mesh, device)
+                for k, x in ab.items()} for t, ab in lora.items()}
+
+
+def _merge_on_mesh(params: Params, lora: Params, scale: float,
+                   config: TransformerConfig, mesh) -> Params:
+    """``merge_lora`` of the rank's shards: each factor that is whole over
+    tp while its base leaf is split over tp (``A`` of a column-parallel
+    target, ``B`` of a row-parallel one) enters through ``copy_to_group``,
+    so its gradient sums every tp rank's block of the weight."""
+    tp = mesh_groups(mesh).tp
+    base = param_specs(config, mesh)["layers"]
+    entered = {}
+    for t, ab in lora.items():
+        spec = base[t]
+        entered[t] = {
+            "A": copy_to_group(ab["A"], tp) if spec[1] == "tp" else ab["A"],
+            "B": copy_to_group(ab["B"], tp) if spec[0] == "tp" else ab["B"],
+        }
+    return merge_lora(params, entered, scale)
+
+
 def make_lora_train_step(
     config: TransformerConfig,
     optimizer=None,
@@ -131,11 +178,16 @@ def make_lora_train_step(
     optimizer)``: ``optimizer(lora)`` gives the state (an AdamW over the
     factors, by default with ``optax.adamw(1e-3)``'s settings) and
     ``step(lora, opt_state, params, batch) -> (lora, opt_state, loss)``
-    updates the factors in place."""
-    if mesh is not None:
+    updates the factors in place. Under ``mesh`` (dp, fsdp, tp, ep)
+    ``params`` are the rank's shard, ``lora`` the rank's factors
+    (``shard_lora``) and ``batch`` its rows (``Transformer.batch_slice``);
+    the loss is the global batch's and each factor's gradient is summed
+    over the batch axes it is whole on, as ``Transformer.make_train_step``
+    does."""
+    if mesh is not None and mesh_groups(mesh).sp is not None:
         raise NotImplementedError(
-            "training under meshes is not ported yet (ROADMAP Queue 1, "
-            "item 4, slice 11)"
+            "training with sp > 1 is not ported yet (ROADMAP Queue 1, item "
+            "1, slice 11b: the backward of the ring and of Ulysses)"
         )
     optimizer = optimizer or functools.partial(_lora_adamw, lr=1e-3)
 
@@ -143,11 +195,20 @@ def make_lora_train_step(
         if opt_state is None:
             opt_state = optimizer(lora)
         leaves = lora_leaves(lora)
-        loss = loss_fn(merge_lora(params, lora, scale), batch, config)
+        if mesh is None:
+            merged = merge_lora(params, lora, scale)
+        else:
+            merged = _merge_on_mesh(params, lora, scale, config, mesh)
+        loss = loss_fn(merged, batch, config, mesh)
         # grads for the factors only: the engine skips the base's
         grads = torch.autograd.grad(loss, leaves)
         for w, g in zip(leaves, grads):
             w.grad = g
+        if mesh is not None:
+            specs = lora_specs(lora, config, mesh)
+            reduce_gradients(
+                [(lora[t][k], specs[t][k]) for t in sorted(lora)
+                 for k in ("A", "B")], mesh_groups(mesh))
         opt_state.step()
         return lora, opt_state, loss.detach()
 

@@ -43,11 +43,15 @@ expert's ``F`` over ``tp``, the router replicated) routing stays global and
 the same on every rank, rule for rule; a rank runs only its ``E/ep``
 experts (``expert_offset`` is the first), over its ``F/tp`` columns of
 ``we_gate``/``we_up`` and rows of ``we_down``, in either form, and returns
-its f32 partial sum (``partial``), which the caller reduces once over tp
-and ep. Under sequence parallelism (``sp_group``) a rank holds a block of
+its f32 partial sum (``partial_group``), which the caller reduces once over
+tp and ep. Under sequence parallelism (``sp_group``) a rank holds a block of
 the sequence: the router logits are all-gathered over sp so that the
 tokens route in the groups and slot order of the whole sequence, and each
-rank keeps its own tokens' choices.
+rank keeps its own tokens' choices; a prompt padded to a multiple of sp
+routes its real positions only (``valid_len``), so its groups and capacity
+are the unpadded prompt's. In training under batch axes (``batch_group``)
+a routing group that spans the ranks' rows routes from the router logits
+gathered over them, so the capacity and the drops are JAX's.
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ import torch.nn.functional as F
 
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
     all_gather_cat,
+    batch_shard_of,
+    copy_to_group,
+    gather_shards,
     group_rank,
     group_size as n_ranks,
 )
@@ -225,18 +232,33 @@ def moe_mlp(
     group_size: int = 1024,
     dropless: bool = False,
     expert_offset: int = 0,
-    partial: bool = False,
+    partial_group=None,
     sp_group=None,
+    batch_group=None,
+    valid_len: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(output [B, L, D] in dtype, aux f32 scalar)``; with
-    ``partial``, the output is this rank's f32 partial sum over its
-    experts (``params`` holds experts ``expert_offset ..``) and its
-    ``F`` shard, for the caller to reduce. ``sp_group``: ``x`` is this
-    rank's block of a sequence sharded over sp, routed as part of the
-    whole sequence."""
+    """Returns ``(output [B, L, D] in dtype, aux f32 scalar)``.
+
+    ``partial_group`` (tp, ep or a tuple of both): ``params`` holds experts
+    ``expert_offset ..`` over this rank's ``F`` shard, and the output is the
+    rank's f32 partial sum, for the caller to reduce over that group; under
+    autograd the tokens and the combine weights enter the rank's products
+    through ``copy_to_group`` (their gradients are partial on each rank).
+    ``sp_group``: ``x`` is this rank's block of a sequence sharded over sp,
+    of which the positions from ``valid_len`` on are padding, kept out of
+    the routing pool (their output is zero). ``batch_group`` (dp, fsdp or a
+    tuple, in that order): ``x`` is this rank's block of rows of a batch
+    sharded over it (``parallel.mesh.batch_shard_of``). JAX routes the flat
+    global batch in groups of ``group_size``: a group that lies inside the
+    rank is routed here, one that spans ranks from the router logits
+    gathered over the batch axes (``gather_shards``). The aux is then the
+    rank's share of JAX's mean over every group (the shares sum to it)."""
     B, L, D = x.shape
     sp = n_ranks(sp_group)
-    G = B * L * sp  # the routing pool: every token of the forward
+    shard, n_shards = (0, 1) if batch_group is None else batch_shard_of(
+        batch_group)
+    Ls = L * sp if valid_len is None else valid_len  # routed positions a row
+    G = B * n_shards * Ls  # the routing pool: every token of the forward
     n_groups = max(1, G // group_size)
     if G % n_groups != 0:
         n_groups = 1
@@ -244,17 +266,26 @@ def moe_mlp(
     C = expert_capacity(g, n_experts, top_k, capacity_factor, dropless)
     xf = x.reshape(B * L, D)
     local = torch.einsum("bld,de->ble", x.float(), params["router"].float())
-    logits = all_gather_cat(local, sp_group, dim=1)  # [B, L*sp, E]
-    r = _route_group(logits.reshape(n_groups, g, n_experts),
-                     n_experts=n_experts, top_k=top_k, capacity=C)
+    logits = all_gather_cat(local, sp_group, dim=1)[:, :Ls]  # [B, Ls, E]
+    span = (B * Ls) % g != 0  # a routing group spans batch shards
+    if span:
+        logits = gather_shards(logits, batch_group, dim=0)
+    r = _route_group(logits.reshape(-1, g, n_experts), n_experts=n_experts,
+                     top_k=top_k, capacity=C)
     start = group_rank(sp_group) * L
 
-    def mine(t):  # this rank's tokens' choices, [B*L, k]
-        return t.reshape(B, L * sp, top_k)[:, start:start + L].reshape(
-            B * L, top_k)
+    def mine(t):  # this rank's tokens' choices, [B*L, k]; pads: nothing
+        t = t.reshape(-1, Ls, top_k)
+        if span:
+            t = t[shard * B:(shard + 1) * B]
+        if Ls < L * sp:
+            t = torch.cat([t, t.new_zeros(t.shape[0], L * sp - Ls, top_k)], 1)
+        return t[:, start:start + L].reshape(B * L, top_k)
 
     expert, keep, gate = mine(r.expert), mine(r.keep), mine(r.gate)
     weight = gate * keep
+    xf = copy_to_group(xf, partial_group)
+    weight = copy_to_group(weight, partial_group)
     if B * L <= EVERY_EXPERT_MAX_TOKENS:
         out = _every_expert(params, xf, expert, weight, dtype, n_experts,
                             expert_offset)
@@ -262,4 +293,8 @@ def moe_mlp(
         out = _routed_experts(params, xf, expert, weight, keep, dtype,
                               expert_offset)
     out = out.reshape(B, L, D)
-    return (out if partial else out.to(dtype)), r.aux.mean()
+    if n_shards == 1:
+        aux = r.aux.mean()
+    else:  # the rank's share of JAX's mean over every group
+        aux = r.aux.sum() / n_groups / (n_shards if span else 1)
+    return (out if partial_group is not None else out.to(dtype)), aux

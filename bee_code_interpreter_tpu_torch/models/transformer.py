@@ -70,8 +70,22 @@ to both. Norms and MLPs stay token-local. The rank's logits and K/V are its
 block of positions (``gather_prefill`` makes the whole prompt's K/V and one
 position's logits of them); the logits are never gathered over sp, where
 they would be ``[B, L, vocab]`` f32 on every rank. Decode ignores sp.
-Training under a mesh is not ported yet (ROADMAP Queue 1, item 4, slice
-11) and raises ``NotImplementedError``.
+
+Training under a mesh (``loss_fn(mesh=...)``, ``Transformer.init`` and
+``make_train_step``) runs over dp, fsdp, tp and ep. The batch is sharded
+over dp then fsdp (``Transformer.batch_slice``); the weights by
+``param_specs``, fsdp gathered one layer at a time (``gather_shards``,
+whose backward reduce-scatters the weight's gradient). The collectives are
+differentiable: Megatron's ``f`` (``copy_to_group``) where a tensor that is
+the same on every tp rank enters a sharded product, its ``g``
+(``all_reduce_partial``) after each row-parallel product; an MoE layer
+adds ``f`` over tp and ep on its tokens and combine weights. The loss
+stays sharded over the vocabulary (``_token_losses``: the logsumexp and
+the target logit from all-reduces, never the ``[B, L, V]`` logits), each
+rank's loss is its share of the global batch's, and after the backward
+``reduce_gradients`` sums each gradient over the batch axes its leaf is
+whole on. Training with sp > 1 is not ported yet (ROADMAP Queue 1, item 1,
+slice 11b) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -82,6 +96,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from bee_code_interpreter_tpu_torch.device import resolve_device
@@ -105,10 +120,15 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (
     all_reduce_partial,
     axis_index,
     axis_size,
+    batch_shard_of,
+    batch_slice,
     broadcast_from,
+    copy_to_group,
+    gather_shards,
     group_rank,
     group_size,
-    serving_groups,
+    mesh_groups,
+    reduce_gradients,
     shard_tensor,
 )
 from bee_code_interpreter_tpu_torch.parallel.ring_attention import (
@@ -251,6 +271,7 @@ def init_params(
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
     requires_grad: bool = False,
+    mesh=None,
 ) -> Params:
     """Random weights with the JAX ``init_params`` distributions
     (normal / sqrt(fan_in), ones for the norms), made straight in ``dtype``
@@ -258,7 +279,10 @@ def init_params(
     it); ``requires_grad`` makes every leaf a trainable master. ``generator``
     must live on that device; the numbers differ from ``jax.random``'s, so
     tests that compare the two frameworks load JAX's weights through
-    ``weights.params_from_jax`` instead."""
+    ``weights.params_from_jax`` instead. With ``mesh`` every leaf is drawn
+    whole, as without one (every rank the same draws from the same
+    generator), and only the rank's shard under ``param_specs`` is kept
+    (``shard_params``' slice), so no rank holds the whole tree at once."""
     c = config
     device = resolve_device(device)
     dtype = dtype or c.dtype
@@ -266,6 +290,17 @@ def init_params(
         raise ValueError(
             f"generator is on {generator.device}, weights go to {device}"
         )
+    specs = None
+    if mesh is not None:
+        if c.kv_heads % axis_size(mesh, "tp"):
+            raise ValueError(
+                f"kv_heads {c.kv_heads} not divisible by "
+                f"tp={axis_size(mesh, 'tp')} (drawn shards are even blocks)"
+            )
+        specs = param_specs(c, mesh)
+
+    def keep(w, spec):
+        return w if specs is None else shard_tensor(w, spec, mesh, device)
 
     def dense(fan_in, *shape):
         w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
@@ -275,20 +310,23 @@ def init_params(
         return torch.ones(n, device=device, dtype=dtype)
 
     def make(name, shape):
+        spec = specs and specs["layers"][name]
         if name == "moe":
-            return init_moe_params(generator, d, c.ff_dim, c.n_experts,
-                                   device, dtype)
-        return dense(shape[0], *shape) if len(shape) == 2 else ones(shape[0])
+            moe = init_moe_params(generator, d, c.ff_dim, c.n_experts,
+                                  device, dtype)
+            return {k: keep(w, spec and spec[k]) for k, w in moe.items()}
+        w = dense(shape[0], *shape) if len(shape) == 2 else ones(shape[0])
+        return keep(w, spec)
 
     d = c.d_model
     layers = [{name: make(name, shape)
                for name, shape in layer_shapes(c).items()}
               for _ in range(c.n_layers)]
     params = {
-        "embed": dense(d, c.vocab_size, d),
+        "embed": keep(dense(d, c.vocab_size, d), specs and specs["embed"]),
         "layers": layers,
-        "ln_f": ones(d),
-        "lm_head": dense(d, d, c.vocab_size),
+        "ln_f": keep(ones(d), specs and specs["ln_f"]),
+        "lm_head": keep(dense(d, d, c.vocab_size), specs and specs["lm_head"]),
     }
     for leaf in param_leaves(params):
         leaf.requires_grad_(requires_grad)
@@ -343,7 +381,10 @@ def param_specs(config: TransformerConfig, mesh) -> Params:
     fsdp)`` and the router replicated. ``layers`` holds one layer's specs,
     for every layer (JAX's stacked specs add a leading None for the layer
     axis)."""
-    names = tuple(mesh.mesh_dim_names)
+    return _specs(config, tuple(mesh.mesh_dim_names))
+
+
+def _specs(config: TransformerConfig, names: tuple[str, ...]) -> Params:
     tp = "tp" if "tp" in names else None
     fsdp = "fsdp" if "fsdp" in names else None
     ep = "ep" if "ep" in names else None
@@ -357,6 +398,23 @@ def param_specs(config: TransformerConfig, mesh) -> Params:
         layer.update(w_gate=col, w_up=col, w_down=row)
     return {"embed": (tp, None), "layers": layer, "ln_f": rep,
             "lm_head": (None, tp)}
+
+
+def leaf_specs(params: Params, specs: Params) -> list[tuple]:
+    """``(leaf, spec)`` of every weight of ``params`` under ``specs``
+    (``param_specs``), in ``param_leaves``' order."""
+    def layer_pairs(layer):
+        for name, leaf in layer.items():
+            spec = specs["layers"][name]
+            if isinstance(leaf, dict):  # a Mixture-of-Experts layer's dict
+                yield from ((leaf[k], spec[k]) for k in leaf)
+            else:
+                yield leaf, spec
+
+    return ([(params["embed"], specs["embed"])]
+            + [pair for layer in params["layers"] for pair in layer_pairs(layer)]
+            + [(params["ln_f"], specs["ln_f"]),
+               (params["lm_head"], specs["lm_head"])])
 
 
 def _kv_heads_local(config: TransformerConfig, tp: int) -> int:
@@ -461,41 +519,67 @@ def _logits(h: torch.Tensor, params: Params, config: TransformerConfig,
     """The final norm and the lm_head: f32 logits over the whole
     vocabulary (a rank's column shard all-gathered under tensor
     parallelism)."""
-    h = rms_norm(h, params["ln_f"])
+    h = copy_to_group(rms_norm(h, params["ln_f"]), tp_group)
     logits = qeinsum("bld,dv->blv", h, params["lm_head"], config.dtype)
     return all_gather_cat(logits.float(), tp_group, dim=-1)
 
 
 def _mlp_block(y: torch.Tensor, layer: Params, config: TransformerConfig,
-               tp_group=None, ep_group=None, sp_group=None):
+               tp_group=None, ep_group=None, sp_group=None, batch_group=None,
+               valid_len: int | None = None):
     """The post-attention MLP, dense SwiGLU or MoE, shared by the forward
     and every decode path. Returns ``(mlp, aux)``: the layer's MoE
-    load-balancing loss (an f32 scalar), or 0.0 for dense configs (the
-    decode paths drop it). Under tensor parallelism ``w_gate``/``w_up``
-    hold the rank's columns and ``w_down`` its rows, and the partial sums
-    are all-reduced; an MoE layer's rank runs its experts (``ep_group``)
-    on its ``d_ff`` shard and its f32 partial is reduced once over tp and
-    ep. ``sp_group``: ``y`` is the rank's block of a sequence-parallel
-    forward (MoE routes it as part of the whole sequence)."""
+    load-balancing loss (an f32 scalar; under batch axes the rank's share),
+    or 0.0 for dense configs (the decode paths drop it). Under tensor
+    parallelism ``w_gate``/``w_up`` hold the rank's columns and ``w_down``
+    its rows, and the partial sums are all-reduced; an MoE layer's rank
+    runs its experts (``ep_group``) on its ``d_ff`` shard and its f32
+    partial is reduced once over tp and ep. ``sp_group``: ``y`` is the
+    rank's block of a sequence-parallel forward (MoE routes it as part of
+    the whole sequence, its first ``valid_len`` positions); ``batch_group``:
+    the rank's rows of a batch sharded over the batch axes."""
     c = config
     if c.n_experts:
         moe = layer["moe"]
-        groups = (tp_group, ep_group)
-        partial = any(g is not None for g in groups)
+        groups = tuple(g for g in (tp_group, ep_group) if g is not None)
         out, aux = moe_mlp(
             moe, y, n_experts=c.n_experts, top_k=c.moe_top_k,
             capacity_factor=c.moe_capacity_factor, dtype=c.dtype,
             group_size=c.moe_group_size, dropless=c.moe_dropless,
             expert_offset=group_rank(ep_group) * moe["we_gate"].shape[0],
-            partial=partial, sp_group=sp_group,
+            partial_group=groups or None, sp_group=sp_group,
+            batch_group=batch_group, valid_len=valid_len,
         )
-        if partial:
+        if groups:
             out = all_reduce_partial(out, groups).to(c.dtype)
         return out, aux
+    y = copy_to_group(y, tp_group)
     gate = qeinsum("bld,df->blf", y, layer["w_gate"], c.dtype)
     up = qeinsum("bld,df->blf", y, layer["w_up"], c.dtype)
     mlp = qeinsum("blf,fd->bld", F.silu(gate) * up, layer["w_down"], c.dtype)
     return all_reduce_partial(mlp, tp_group), 0.0
+
+
+def _whole_over_fsdp(layer: Params, config: TransformerConfig,
+                     fsdp_group) -> Params:
+    """One layer's weights whole over fsdp: each leaf that ``param_specs``
+    shards over fsdp all-gathered along that dim (``gather_shards``, whose
+    backward sums the ranks' gradients and keeps the rank's block); an
+    int8 leaf's ``q`` and its column scales alike."""
+    if fsdp_group is None:
+        return layer
+    specs = _specs(config, ("fsdp",))["layers"]
+
+    def whole(leaf, spec):
+        if is_quantized(leaf):
+            return {"q": whole(leaf["q"], spec), "s": whole(leaf["s"], spec[1:])}
+        if isinstance(leaf, dict):
+            return {k: whole(leaf[k], spec[k]) for k in leaf}
+        if "fsdp" not in spec:
+            return leaf
+        return gather_shards(leaf, fsdp_group, spec.index("fsdp"))
+
+    return {name: whole(leaf, specs[name]) for name, leaf in layer.items()}
 
 
 def _attention(q, k, v, config: TransformerConfig, sp_group=None):
@@ -519,15 +603,18 @@ def _attention(q, k, v, config: TransformerConfig, sp_group=None):
 
 def _layer_apply(h, layer, config: TransformerConfig, positions,
                  return_kv: bool = False, tp_group=None, sp_group=None,
-                 ep_group=None):
+                 ep_group=None, fsdp_group=None, batch_group=None,
+                 valid_len: int | None = None):
     """One decoder layer (JAX's ``_layer_apply``; with ``tp_group``, the
     rank's heads and its shard of the projections; with ``sp_group``, the
-    rank's block of the sequence at its global ``positions``). Returns
+    rank's block of the sequence at its global ``positions``; with
+    ``fsdp_group``, the layer's fsdp shards gathered whole first). Returns
     ``(h, (k, v) | None, aux)``, K/V post-RoPE ``[B, kvh, L, dh]`` (the
     rank's heads under tensor parallelism, its positions under sp)."""
     c = config
+    layer = _whole_over_fsdp(layer, c, fsdp_group)
     B, L = h.shape[0], h.shape[1]
-    x = rms_norm(h, layer["ln1"])
+    x = copy_to_group(rms_norm(h, layer["ln1"]), tp_group)
     dh = c.head_dim
     nh, kvh = _local_heads(c, tp_group)
 
@@ -544,22 +631,14 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
     o = qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
     h = h + all_reduce_partial(o, tp_group)
     mlp, aux = _mlp_block(rms_norm(h, layer["ln2"]), layer, c, tp_group,
-                          ep_group, sp_group)
+                          ep_group, sp_group, batch_group, valid_len)
     return h + mlp, ((k, v) if return_kv else None), aux
 
 
-def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
-            return_kv: bool = False, return_aux: bool = False,
-            tp_group=None, sp_group=None, ep_group=None):
-    """Logits ``[B, L, vocab]`` in f32; with ``return_kv`` also the
-    per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``; with
-    ``return_aux`` also the MoE load-balancing loss summed over layers, an
-    f32 scalar (0.0 for dense configs). With ``tp_group`` the params are
-    this rank's shard (``shard_params``), the K/V its heads, and the logits
-    the whole vocabulary on every rank. With ``sp_group`` (L divisible by
-    sp) the rank runs positions ``[r L/sp, (r+1) L/sp)`` of ``tokens``
-    (every rank passes all of them): the logits and K/V are that block's,
-    ``[B, L/sp, ...]``."""
+def _trunk(params: Params, tokens: torch.Tensor, config: TransformerConfig,
+           return_kv: bool, tp_group, sp_group, ep_group, fsdp_group,
+           batch_group, valid_len):
+    """Every layer of ``forward``: ``(h, (K, V) | None, aux)``."""
     c = config
     B, L = tokens.shape
     start = 0
@@ -576,18 +655,46 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
     aux = 0.0
     for layer in params["layers"]:
         h, kv, layer_aux = _layer_apply(h, layer, c, positions, return_kv,
-                                        tp_group, sp_group, ep_group)
+                                        tp_group, sp_group, ep_group,
+                                        fsdp_group, batch_group, valid_len)
         aux = aux + layer_aux
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
-    logits = _logits(h, params, c, tp_group)
+    kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, kv, aux
+
+
+def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
+            return_kv: bool = False, return_aux: bool = False,
+            tp_group=None, sp_group=None, ep_group=None, fsdp_group=None,
+            batch_group=None, valid_len: int | None = None):
+    """Logits ``[B, L, vocab]`` in f32; with ``return_kv`` also the
+    per-layer K/V stacked ``[n_layers, B, kv_heads, L, head_dim]``; with
+    ``return_aux`` also the MoE load-balancing loss summed over layers, an
+    f32 scalar (0.0 for dense configs). With ``tp_group`` the params are
+    this rank's shard (``shard_params``), the K/V its heads, and the logits
+    the whole vocabulary on every rank. With ``sp_group`` (L divisible by
+    sp) the rank runs positions ``[r L/sp, (r+1) L/sp)`` of ``tokens``
+    (every rank passes all of them): the logits and K/V are that block's,
+    ``[B, L/sp, ...]``; positions from ``valid_len`` on are padding, which
+    MoE layers keep out of their routing. With ``fsdp_group`` the params
+    hold their fsdp shards, gathered one layer at a time. With
+    ``batch_group`` (the dp/fsdp groups) ``tokens`` are the rank's rows of
+    a batch sharded over them: MoE routes them with the other ranks' rows
+    where JAX's routing groups span ranks, and the aux is the rank's share
+    (the shares sum to the aux of the whole batch)."""
+    h, kv, aux = _trunk(params, tokens, config, return_kv, tp_group,
+                        sp_group, ep_group, fsdp_group, batch_group,
+                        valid_len)
+    logits = _logits(h, params, config, tp_group)
     extras = []
     if return_kv:
-        extras.append((torch.stack(ks), torch.stack(vs)))
+        extras.append(kv)
     if return_aux:
-        extras.append(aux if torch.is_tensor(aux) else torch.zeros(
-            (), dtype=torch.float32, device=logits.device))
+        extras.append(aux)
     if extras:
         return (logits, *extras)
     return logits
@@ -931,20 +1038,61 @@ def filter_logits(x: torch.Tensor, top_k: int | None = None,
 # ---------------------------------------------------------------- loss/train
 
 
-def loss_fn(params: Params, batch: dict[str, torch.Tensor],
-            config: TransformerConfig) -> torch.Tensor:
-    """Mean next-token NLL over f32 logits plus the z-loss
-    ``z_loss * logsumexp(logits)**2`` and the MoE aux term, as the JAX
-    ``loss_fn`` (tokens and targets ``[B, L]``)."""
-    logits, aux = forward(params, batch["tokens"], config, return_aux=True)
-    logz = torch.logsumexp(logits, dim=-1)
-    target_logit = torch.gather(
-        logits, -1, batch["targets"].long()[..., None]
-    )[..., 0]
-    nll = logz - target_logit
+def _token_losses(h: torch.Tensor, params: Params, targets: torch.Tensor,
+                  config: TransformerConfig, tp_group) -> torch.Tensor:
+    """Each position's ``nll + z_loss * logz**2`` ``[B, L]`` (f32) from the
+    last hidden state. Under tensor parallelism the logits stay sharded
+    over the vocabulary (``[B, L, V/tp]`` a rank, never gathered): the
+    logsumexp from the max and the sum of exps all-reduced over tp, the
+    target logit from the rank whose shard holds it, the z-loss from that
+    logsumexp."""
+    h = copy_to_group(rms_norm(h, params["ln_f"]), tp_group)
+    logits = qeinsum("bld,dv->blv", h, params["lm_head"], config.dtype).float()
+    targets = targets.long()
+    if tp_group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:
+        top = logits.detach().amax(dim=-1, keepdim=True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=tp_group)
+        sumexp = all_reduce_partial((logits - top).exp().sum(dim=-1), tp_group)
+        logz = top[..., 0] + sumexp.log()
+        rows = logits.shape[-1]
+        local = targets - group_rank(tp_group) * rows
+        mine = (local >= 0) & (local < rows)
+        picked = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])
+        target_logit = all_reduce_partial(
+            picked[..., 0].masked_fill(~mine, 0.0), tp_group)
     # z-loss keeps logits from drifting (stability at bf16)
-    loss = nll + config.z_loss * logz**2
-    return loss.mean() + config.moe_aux_weight * aux
+    return logz - target_logit + config.z_loss * logz**2
+
+
+def loss_fn(params: Params, batch: dict[str, torch.Tensor],
+            config: TransformerConfig, mesh=None) -> torch.Tensor:
+    """Mean next-token NLL over f32 logits plus the z-loss
+    ``z_loss * logz**2`` and the MoE aux term, as the JAX ``loss_fn``
+    (tokens and targets ``[B, L]``). Under a ``mesh`` (dp, fsdp, tp, ep)
+    ``params`` are the rank's shard and ``batch`` its rows of the global
+    batch (``Transformer.batch_slice``): the value is the loss of the
+    global batch, the same bits on every rank (the ranks' shares summed in
+    f32), and its gradient is the rank's share of the global gradient,
+    which ``reduce_gradients`` sums over the batch axes."""
+    g = mesh_groups(mesh)
+    if g.sp is not None:
+        raise NotImplementedError(
+            "training with sp > 1 is not ported yet (ROADMAP Queue 1, item "
+            "1, slice 11b: the backward of the ring and of Ulysses)"
+        )
+    batch_group = g.batch or None
+    h, _, aux = _trunk(params, batch["tokens"], config, False, g.tp, None,
+                       g.ep, g.fsdp, batch_group, None)
+    losses = _token_losses(h, params, batch["targets"], config, g.tp)
+    if batch_group is None:
+        return losses.mean() + config.moe_aux_weight * aux
+    n_shards = batch_shard_of(batch_group)[1]
+    share = losses.sum() / (losses.numel() * n_shards)
+    return all_reduce_partial(share + config.moe_aux_weight * aux,
+                              batch_group)
 
 
 def _adamw(params: Params, *, lr: float) -> torch.optim.AdamW:
@@ -960,41 +1108,65 @@ class Transformer:
     """Config bundle with the training and generation entry points of the
     JAX ``Transformer``.
 
-    Under a ``mesh`` (``parallel.make_mesh``; tp, sp and ep axes) the
-    inference entry points (``apply``, ``generate``, ``generate_cached``)
-    run on this rank's shard of the params (``shard_params``), every rank
-    calling them alike: ``apply`` gives the rank's block of positions under
-    sp, the generators the same tokens on every rank (their prefill runs
-    sequence-parallel, the decode steps ignore sp). ``init`` and
-    ``make_train_step``, the training half, are not ported under a mesh
-    yet (ROADMAP Queue 1, item 4, slice 11)."""
+    Under a ``mesh`` (``parallel.make_mesh``) every rank calls the entry
+    points alike, on its shard of the params. The inference entry points
+    (``apply``, ``generate``, ``generate_cached``) run over tp, sp and ep:
+    ``apply`` gives the rank's block of positions under sp, the generators
+    the same tokens on every rank (their prefill runs sequence-parallel,
+    the decode steps ignore sp). Training (``init``, ``make_train_step``)
+    runs over dp, fsdp, tp and ep: ``init`` draws the f32 masters and keeps
+    the rank's shard (``param_specs``), ``batch_slice`` gives the rank's
+    rows of a global batch, and the step's loss is the global batch's on
+    every rank; ``apply`` then takes the rank's rows too. Training with
+    sp > 1 is not ported yet (ROADMAP Queue 1, item 1, slice 11b)."""
 
     def __init__(self, config: TransformerConfig, mesh=None) -> None:
         self.config = config
         self.mesh = mesh
-        self.groups = serving_groups(mesh)
+        self.groups = mesh_groups(mesh)
         self.tp_group = self.groups.tp
 
-    def _refuse_mesh(self, what: str) -> None:
-        if self.mesh is not None:
+    def _check_training(self, what: str) -> None:
+        """What a mesh must be for training: no sp, and even K/V shards."""
+        if self.mesh is None:
+            return
+        if self.groups.sp is not None:
             raise NotImplementedError(
-                f"{what} under meshes is not ported yet (ROADMAP Queue 1, "
-                "item 4, slice 11: training under dp/fsdp/tp/ep)"
+                f"{what} with sp > 1 is not ported yet (ROADMAP Queue 1, "
+                "item 1, slice 11b: the backward of the ring and of Ulysses)"
+            )
+        tp = self.groups.size("tp")
+        if self.config.kv_heads % tp:
+            raise ValueError(
+                f"{what}: kv_heads {self.config.kv_heads} not divisible by "
+                f"tp={tp} (a trained K/V head lives on one rank)"
+            )
+
+    def _check_generation(self) -> None:
+        if self.groups.batch:
+            raise NotImplementedError(
+                "generation over the batch axes (dp, fsdp) is not ported; "
+                "data-parallel serving is ReplicatedEngine.build(meshes=...)"
             )
 
     def _forward(self, params: Params, tokens: torch.Tensor,
-                 return_kv: bool = False):
+                 return_kv: bool = False, valid_len: int | None = None):
         g = self.groups
         return forward(params, tokens, self.config, return_kv=return_kv,
-                       tp_group=g.tp, sp_group=g.sp, ep_group=g.ep)
+                       tp_group=g.tp, sp_group=g.sp, ep_group=g.ep,
+                       fsdp_group=g.fsdp, batch_group=g.batch or None,
+                       valid_len=valid_len)
 
     def _prefill(self, params: Params, tokens: torch.Tensor,
                  return_kv: bool, last: int | None = None):
         """The logits ``[B, vocab]`` at position ``last`` of ``tokens``
         (default the last), and with ``return_kv`` the K/V of every
         position: under sp the tokens are padded on the right to a multiple
-        of sp (pad tokens are causally invisible to the real ones) and
-        ``gather_prefill`` takes the row and the K/V."""
+        of sp (pad tokens are causally invisible to the real ones, and MoE
+        layers keep them out of their routing pool, so a capacity-routed
+        prompt routes as it does unsharded) and ``gather_prefill`` takes
+        the row and the K/V. JAX refuses a prompt that does not divide over
+        sp; the port pads it (ROADMAP Queue 3, an intended divergence)."""
         L = tokens.shape[1]
         last = L - 1 if last is None else last
         sp = self.groups.size("sp")
@@ -1004,25 +1176,39 @@ class Transformer:
                 return logits[:, last, :], kv
             return self._forward(params, tokens)[:, last, :], None
         padded = torch.nn.functional.pad(tokens, (0, -L % sp))
-        logits, kv = self._forward(params, padded, True)
+        logits, kv = self._forward(params, padded, True, valid_len=L)
         row, (k, v) = gather_prefill(logits, kv, last, self.groups.sp)
         return row, (k[..., :L, :], v[..., :L, :])
 
     def init(self, generator: torch.Generator,
              device: torch.device | str | None = None) -> Params:
         """f32 master weights that require grad, on ``device`` (default
-        CUDA; raises without it); compute runs in ``config.dtype``."""
-        self._refuse_mesh("Transformer.init (training masters)")
+        CUDA; raises without it); compute runs in ``config.dtype``. Under a
+        mesh, the rank's shard of them (``init_params(mesh=...)``: every
+        rank passes a generator of the same seed)."""
+        self._check_training("Transformer.init")
+        if self.mesh is not None and device is None:
+            device = self.mesh.device_type
         return init_params(self.config, generator, device,
-                           dtype=torch.float32, requires_grad=True)
+                           dtype=torch.float32, requires_grad=True,
+                           mesh=self.mesh)
 
     def apply(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return self._forward(params, tokens)
 
+    def batch_slice(self, batch: dict[str, torch.Tensor]) -> dict:
+        """This rank's rows of a global batch (each value's dim 0) over the
+        batch axes, dp then fsdp, dp major: the counterpart of JAX's
+        ``batch_sharding()``. The whole batch without a mesh."""
+        if self.mesh is None:
+            return dict(batch)
+        return {name: batch_slice(x, self.mesh) for name, x in batch.items()}
+
     def make_optimizer(self, learning_rate: float = 3e-4):
         """The JAX ``optax.adamw`` as a factory: called on the params it
         gives the optimizer state, a ``torch.optim.AdamW`` over every
-        leaf (``param_leaves``)."""
+        leaf (``param_leaves``; under a mesh the rank's shards, so the
+        moments are sharded as the masters are)."""
         return functools.partial(_adamw, lr=learning_rate)
 
     def make_train_step(self, optimizer=None):
@@ -1030,16 +1216,26 @@ class Transformer:
         loss)`` with the JAX signature. ``opt_state`` is ``optimizer(params)``
         (None makes it on the first step). The update is in place, where
         JAX donates params and state; the gradients stay on the leaves
-        (``.grad``) until the next step."""
-        self._refuse_mesh("make_train_step")
+        (``.grad``) until the next step. Under a mesh ``params`` are the
+        rank's shard and ``batch`` its rows (``batch_slice``); ``loss`` is
+        the global batch's on every rank, and each gradient is summed over
+        the batch axes its leaf is whole on before the step
+        (``reduce_gradients``), so a leaf replicated over an axis stays the
+        same bits on every rank of it."""
+        self._check_training("make_train_step")
         optimizer = optimizer or self.make_optimizer()
+        config, mesh = self.config, self.mesh
 
         def train_step(params, opt_state, batch):
             if opt_state is None:
                 opt_state = optimizer(params)
             opt_state.zero_grad(set_to_none=True)
-            loss = loss_fn(params, batch, self.config)
+            loss = loss_fn(params, batch, config, mesh)
             loss.backward()
+            if mesh is not None:
+                reduce_gradients(
+                    leaf_specs(params, param_specs(config, mesh)),
+                    self.groups)
             opt_state.step()
             return params, opt_state, loss.detach()
 
@@ -1052,6 +1248,7 @@ class Transformer:
         """Greedy decode without a cache: a full forward over the whole
         ``[B, L + max_new_tokens]`` buffer per new token (the simple
         correctness path). Returns the buffer, prompt included."""
+        self._check_generation()
         prompt = torch.as_tensor(prompt, device=params["embed"].device)
         B, L = prompt.shape
         tokens = torch.zeros(B, L + max_new_tokens, dtype=torch.long,
@@ -1085,6 +1282,7 @@ class Transformer:
         repeats it. The cache layout follows ``config.kv_cache_dtype``.
         Under a mesh every rank gets the same tokens (the same logits and,
         sampling, the same generator seed)."""
+        self._check_generation()
         c, g, ep = self.config, self.tp_group, self.groups.ep
         prompt = torch.as_tensor(prompt, device=params["embed"].device)
         B, L = prompt.shape

@@ -4,9 +4,10 @@ one rank per device (``parallel/mesh.py``).
 Axis conventions, as in the JAX package: ``dp`` data parallel, ``fsdp``
 parameter sharding within data parallel, ``tp`` tensor parallel (Megatron
 column/row splits), ``sp`` sequence parallel (ring attention or Ulysses),
-``ep`` expert parallel. The port serves over ``tp``, ``sp`` and ``ep``;
-training under a mesh and the pipeline are not ported yet (ROADMAP Queue 1,
-item 4, slice 11).
+``ep`` expert parallel. The port serves over ``tp``, ``sp`` and ``ep``
+(``dp`` as replicas, ``models/replicated.py``) and trains over ``dp``,
+``fsdp``, ``tp`` and ``ep``; training over ``sp`` and the pipeline are not
+ported yet (ROADMAP Queue 1, item 1, slice 11b).
 """
 
 from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -18,6 +18,21 @@ builds the same ``ContinuousBatcher(mesh=...)``, calls ``submit`` /
 ``step`` / ``cancel`` / ``state_dict`` in the same order with the same
 arguments, and the caller reads rank 0's results (every rank's are the
 same: each samples on the host from the same all-gathered logits).
+Data-parallel serving is a set of such batchers, one per coordinate of a
+``dp`` axis (``replica_mesh``), behind a front end on rank 0 that talks to
+the other ranks over a gloo group of its own (``control_group``;
+``models/replicated.py``).
+
+Training under a mesh (``models/transformer.py``) shards the batch over
+the batch axes (``dp``, then ``fsdp``: ``batch_shard_of``), the weights by
+``param_specs`` (Megatron over ``tp``, experts over ``ep``, the weights'
+other dim over ``fsdp``), and differentiates through the collectives:
+``all_reduce_partial`` is Megatron's ``g`` (a sum forward, the identity
+backward), ``copy_to_group`` its ``f`` (the identity forward, a sum
+backward), and ``gather_shards`` is the fsdp
+gather, whose backward sums every rank's gradient and keeps the rank's
+block (a reduce-scatter). Every sum adds in f32 and rounds once, so the
+ranks agree bit for bit.
 
 Ranks come from a launcher (``torchrun``, or a pod group that bakes the JAX
 names ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
@@ -258,6 +273,52 @@ def batch_axes(mesh) -> tuple[str, ...] | None:
     return axes or None
 
 
+def batch_shard_of(groups) -> tuple[int, int]:
+    """(this rank's block of the batch dim, the number of blocks) from the
+    batch axes' groups (dp, then fsdp; one group or a tuple): the batch
+    splits over dp then fsdp, dp major, as JAX's ``P(("dp", "fsdp"))``
+    lays it out; (0, 1) without a group."""
+    index, count = 0, 1
+    for g in _group_list(groups):
+        n = dist.get_world_size(g)
+        index, count = index * n + dist.get_rank(g), count * n
+    return index, count
+
+
+def batch_slice(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch ``x`` (dim 0), ``batch_shard_of``
+    its batch axes' groups: the counterpart of JAX's ``batch_sharding()``."""
+    index, count = batch_shard_of(mesh_groups(mesh).batch)
+    if x.shape[0] % count:
+        raise ValueError(
+            f"a batch of {x.shape[0]} rows does not split over {count} "
+            "batch shards"
+        )
+    rows = x.shape[0] // count
+    return x[index * rows:(index + 1) * rows]
+
+
+def replica_mesh(mesh):
+    """This rank's replica of a ``{"dp": n, "tp": tp}`` mesh: the tp
+    sub-mesh at its dp coordinate (``mesh["tp"]``), the mesh one serving
+    replica's batcher runs on."""
+    sizes = axis_sizes(mesh)
+    if set(sizes) != {"dp", "tp"}:
+        raise ValueError(
+            f"replicas need a mesh of exactly the axes dp and tp, got {sizes}"
+        )
+    return mesh["tp"]
+
+
+def control_group(mesh):
+    """A gloo group over every rank of ``mesh``, for host messages (the
+    replicated front end's requests and reports): they never ride a NCCL
+    group, and never interleave with the collectives of the model. Every
+    rank of the default group must call it, in the same order."""
+    ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+    return dist.new_group(ranks=ranks, backend="gloo")
+
+
 def mesh_shape_key(mesh) -> str:
     """Stable string key for a mesh's axis sizes (``"dp=2,tp=4"``), the
     bucket step telemetry aggregates under; ``"1"`` with no mesh."""
@@ -301,47 +362,77 @@ def mesh_descriptor(mesh) -> dict:
     }
 
 
-# the axes one batcher serves over, and what the others wait for
+# the axes one batcher serves over, the axes training shards over, and what
+# the others wait for or are instead
 SERVING_AXES = ("tp", "sp", "ep")
+TRAINING_AXES = ("dp", "fsdp", "tp", "ep")
+_SERVING_ELSEWHERE = {
+    "dp": "data-parallel serving is ReplicatedEngine.build(meshes=...), one "
+          "batcher per dp coordinate",
+    "fsdp": "fsdp shards training state (Transformer.make_train_step)",
+}
 _UNPORTED_AXES = {
-    "dp": "slice 12: dp x tp replicas; data-parallel serving is "
-          "ReplicatedEngine",
-    "fsdp": "slice 11: fsdp belongs to training under a mesh",
-    "pp": "slice 11: the pipeline, parallel/pipeline.py",
+    "pp": "not ported yet (ROADMAP Queue 1, item 1, slice 11b: the "
+          "pipeline, parallel/pipeline.py)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
-class ServingGroups:
-    """The process groups of the axes one batcher (or ``Transformer``)
-    serves over: tensor parallelism (``tp``), sequence-parallel admission
-    (``sp``) and expert parallelism (``ep``), each None where its axis is
-    absent or of size 1 (no collective to make)."""
+class MeshGroups:
+    """The process groups of a mesh's axes, each None where its axis is
+    absent or of size 1 (no collective to make): tensor parallelism
+    (``tp``), sequence-parallel admission (``sp``), expert parallelism
+    (``ep``) and the batch axes (``dp``, ``fsdp``)."""
 
     tp: object = None
     sp: object = None
     ep: object = None
+    dp: object = None
+    fsdp: object = None
 
     def size(self, axis: str) -> int:
         return group_size(getattr(self, axis))
 
+    @property
+    def batch(self) -> tuple:
+        """The batch axes' groups (dp, then fsdp), those of size > 1."""
+        return tuple(g for g in (self.dp, self.fsdp) if g is not None)
 
-def serving_groups(mesh) -> ServingGroups:
-    """The ``ServingGroups`` of a mesh the port serves on. An axis outside
-    ``SERVING_AXES`` may not exceed size 1 inside one batcher: each raises
-    ``NotImplementedError`` naming the slice of ROADMAP Queue 1, item 4
-    that ports it."""
+
+def _axis_group(mesh, axis: str):
+    return mesh.get_group(axis) if axis_size(mesh, axis) > 1 else None
+
+
+def mesh_groups(mesh) -> MeshGroups:
+    """The ``MeshGroups`` of a mesh the port runs a model on. An axis of
+    size > 1 that no path runs (``pp``) raises ``NotImplementedError``
+    naming the slice of ROADMAP Queue 1, item 1 that ports it."""
     if mesh is None:
-        return ServingGroups()
+        return MeshGroups()
+    for axis, size in axis_sizes(mesh).items():
+        if size > 1 and axis not in (*TRAINING_AXES, "sp"):
+            why = _UNPORTED_AXES.get(axis, "no path runs it")
+            raise NotImplementedError(f"mesh axis {axis}={size}: {why}")
+    return MeshGroups(**{axis: _axis_group(mesh, axis)
+                         for axis in ("tp", "sp", "ep", "dp", "fsdp")})
+
+
+def serving_groups(mesh) -> MeshGroups:
+    """The groups of a mesh one batcher serves on. An axis outside
+    ``SERVING_AXES`` may not exceed size 1 inside one batcher:
+    ``NotImplementedError`` says where its work is done instead."""
+    if mesh is None:
+        return MeshGroups()
     for axis, size in axis_sizes(mesh).items():
         if axis not in SERVING_AXES and size > 1:
-            why = _UNPORTED_AXES.get(axis, "no slice serves it")
+            why = _SERVING_ELSEWHERE.get(axis) or _UNPORTED_AXES.get(
+                axis, "no path runs it")
             raise NotImplementedError(
-                f"serving over mesh axis {axis}={size} inside one batcher is "
-                f"not ported yet (ROADMAP Queue 1, item 4, {why})"
+                f"serving over mesh axis {axis}={size} inside one batcher: "
+                f"{why}"
             )
-    return ServingGroups(tp=tp_group(mesh), sp=sp_group(mesh),
-                         ep=ep_group(mesh))
+    return MeshGroups(tp=tp_group(mesh), sp=sp_group(mesh),
+                      ep=ep_group(mesh))
 
 
 # ------------------------------------------------------------- shardings
@@ -394,6 +485,54 @@ def group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
+def _group_list(group) -> list:
+    """``group`` (None, a group, or a tuple of them) as a list of groups."""
+    return [g for g in (group if isinstance(group, tuple) else (group,))
+            if g is not None]
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum_f32(x: torch.Tensor, groups: list, copy: bool) -> torch.Tensor:
+    """The sum over ``groups`` in turn, added in f32 and rounded once to
+    ``x``'s dtype; ``copy=False`` lets an f32 ``x`` be reduced in place."""
+    acc = x.to(torch.float32, copy=copy)
+    for g in groups:
+        dist.all_reduce(acc, group=g)
+    return acc.to(x.dtype)
+
+
+class _ReduceFromGroups(torch.autograd.Function):
+    """Megatron's ``g``: the sum of the ranks' partials forward; backward,
+    every rank's gradient is the whole one (what follows is the same on
+    every rank), so it passes as it is."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _sum_f32(x, list(groups), copy=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToGroups(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward (``x`` is the same on every
+    rank); backward, each rank holds the gradient of its own shard's use
+    of ``x``, and their sum is ``x``'s."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(grad, list(ctx.groups), copy=True), None
+
+
 def all_reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
     """Sum the ranks' partial results of a row-parallel product (or of the
     vocab-sharded embedding lookup) into the full one, in ``x``'s dtype:
@@ -402,30 +541,112 @@ def all_reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
     equals a bf16 add. ``group`` may be a tuple of groups (a Mixture-of-
     Experts partial over tp and ep): the f32 sum runs over each in turn and
     is rounded once at the end. Identity without a group. ``x`` is a
-    temporary: an f32 ``x`` is reduced in place."""
-    groups = [g for g in (group if isinstance(group, tuple) else (group,))
-              if g is not None]
+    temporary: an f32 ``x`` is reduced in place, unless it takes part in
+    autograd, where this is Megatron's ``g`` (the gradient passes through
+    unchanged)."""
+    groups = _group_list(group)
     if not groups:
         return x
-    acc = x.float()
-    for g in groups:
-        dist.all_reduce(acc, group=g)
-    return acc.to(x.dtype)
+    if _differentiable(x):
+        return _ReduceFromGroups.apply(x, tuple(groups))
+    return _sum_f32(x, groups, copy=False)
 
 
-def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in rank order (the
-    column-parallel lm_head's vocabulary, a head-sharded pool's heads).
-    Identity without a group."""
-    if group is None:
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``, put where a tensor that is the same on every rank
+    of ``group`` (a tuple of groups: each in turn) enters a sharded
+    product: the identity forward, the sum of the ranks' gradients
+    backward (f32, rounded once). ``x`` itself outside autograd."""
+    groups = _group_list(group)
+    if not groups or not _differentiable(x):
         return x
+    return _CopyToGroups.apply(x, tuple(groups))
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
-    dim = dim % x.dim()
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     _ALL_GATHER(out, x.contiguous(), group=group)
     shape = list(x.shape)
     shape[dim] *= n
     return out.view(n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``group``."""
+    n = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * n, n)
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (the
+    column-parallel lm_head's vocabulary, a head-sharded pool's heads).
+    Identity without a group. Outside autograd: training keeps the logits
+    sharded (``transformer._token_losses``)."""
+    if group is None:
+        return x
+    return _gather(x, group, dim % x.dim())
+
+
+def reduce_scatter_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` (f32, rounded once to ``x``'s dtype),
+    and of it this rank's block along ``dim``: NCCL's
+    ``reduce_scatter_tensor``; gloo has none, so there it is an
+    all-reduce and the rank's slice (the same f32 sum, the same bits; the
+    transport's choice, not the math's)."""
+    if dist.get_backend(group) == "gloo":
+        acc = _sum_f32(x, [group], copy=True)
+        return _block(acc, group, dim).contiguous()
+    n = dist.get_world_size(group)
+    src = x.to(torch.float32).movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous().to(x.dtype)
+
+
+class _GatherShards(torch.autograd.Function):
+    """The fsdp gather: the shards concatenated forward; backward, every
+    rank's gradient of the whole tensor is partial (its own batch rows),
+    so they are summed and the rank keeps its block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_cat(grad, ctx.group, ctx.dim), None, None
+
+
+def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The whole of a tensor sharded along ``dim`` over ``group`` (a tuple
+    of groups: the last one's shards innermost, so ``(dp, fsdp)`` gives the
+    dp-major order of ``batch_shard_of``), on every rank. Under autograd its
+    backward reduce-scatters the ranks' gradients: an fsdp weight's
+    gradient summed over the ranks' batch shards, a batch-sharded
+    tensor's gradient summed over every rank's use of it. Identity without
+    a group."""
+    dim = dim % x.dim()
+    for g in reversed(_group_list(group)):
+        x = (_GatherShards.apply(x, g, dim) if _differentiable(x)
+             else _gather(x, g, dim))
+    return x
+
+
+def reduce_gradients(pairs, groups: MeshGroups) -> None:
+    """After a backward under a mesh: each ``(leaf, spec)``'s gradient
+    summed over the batch axes it is whole on (each rank's is its batch
+    shard's share): ``dp``, and ``fsdp`` unless ``spec`` shards the leaf
+    over it (``gather_shards``' backward summed those). In f32, rounded
+    once, in place; every rank then holds the same bits."""
+    for leaf, spec in pairs:
+        gs = [g for g in (groups.dp, None if "fsdp" in spec else groups.fsdp)
+              if g is not None]
+        if gs and leaf.grad is not None:
+            total = _sum_f32(leaf.grad, gs, copy=False)
+            if total is not leaf.grad:
+                leaf.grad.copy_(total)
 
 
 # the one-tensor all-gather into a rank-major concatenation along dim 0;

@@ -27,8 +27,8 @@ result nothing reads, is not sent.
 Every rank of the group must call these functions alike (SPMD). The ring
 is not differentiable here: ``torch.distributed``'s point-to-point calls
 are not autograd-aware, so an input that requires grad under grad mode
-raises ``NotImplementedError`` (training under a mesh is ROADMAP Queue 1,
-item 4, slice 11).
+raises ``NotImplementedError`` (the sp backward is ROADMAP Queue 1, item
+1, slice 11b).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def refuse_grad(what: str, *tensors) -> None:
         raise NotImplementedError(
             f"{what} is not differentiable in the port yet: its exchanges "
             "are torch.distributed calls outside autograd (ROADMAP Queue 1, "
-            "item 4, slice 11: training under a mesh)"
+            "item 1, slice 11b: the backward of the ring and of Ulysses)"
         )
 
 

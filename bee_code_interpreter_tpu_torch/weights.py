@@ -20,7 +20,9 @@ the dense leaves.
 Under a mesh (``mesh=``) the tree feeds ``transformer.shard_params``: the
 rank keeps its shard on its device, the slice of each leaf that JAX's
 ``shard_params`` puts on the device at the rank's mesh coordinates (a
-Mixture-of-Experts layer's experts over ep, each expert's d_ff over tp).
+Mixture-of-Experts layer's experts over ep, each expert's d_ff over tp,
+the other dim of a projection over fsdp), trainable masters with
+``requires_grad``.
 
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.
@@ -45,21 +47,22 @@ def params_from_jax(params_np: dict, config, device=None,
     ``jax.tree.map(np.asarray, params)``). ``device`` defaults to CUDA and
     raises without it; ``requires_grad`` makes every leaf a trainable
     master. With ``mesh`` the result is this rank's shard
-    (``transformer.shard_params``; serving, so no ``requires_grad``), the
-    whole tree crossing on the CPU first; ``device`` then defaults to the
-    mesh's device type."""
+    (``transformer.shard_params``; with ``requires_grad``, trainable masters
+    for ``Transformer.make_train_step`` under that mesh), the whole tree
+    crossing on the CPU first; ``device`` then defaults to the mesh's
+    device type."""
     if mesh is not None:
         from bee_code_interpreter_tpu_torch.models.transformer import (
+            param_leaves,
             shard_params,
         )
 
-        if requires_grad:
-            raise NotImplementedError(
-                "trainable masters under meshes are not ported yet (ROADMAP "
-                "Queue 1, item 4, slice 11)"
-            )
         full = params_from_jax(params_np, config, device="cpu", dtype=dtype)
-        return shard_params(full, config, mesh, device)
+        shard = shard_params(full, config, mesh, device)
+        for leaf in param_leaves(shard):
+            if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+                leaf.requires_grad_(requires_grad)
+        return shard
     device = resolve_device(device)
     dtype = dtype or config.dtype
 

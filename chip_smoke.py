@@ -143,10 +143,21 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    equal one card's; under tp at most MOE_TP_FIRST_OVER_MAX requests may
    lie beyond PATH_LOGIT_TOL, since capacity routing turns a bf16 near-tie
    into moved slots and dropped tokens. K1 at the shapes these paths
-   launch is checked in 3 (``flash_fwd_sp``).
+   launch is checked in 3 (``flash_fwd_sp``). Then ``serving_replicated_tp``:
+   ``ReplicatedEngine.build(meshes=...)`` as 2 replicas x tp=2 on four
+   ranks (one a card over NCCL with four cards; all on card 0 over gloo
+   with one), main_path's traffic on its weights cut to BREADTH_CUT_LAYERS
+   through rank 0's front end while the other ranks follow: each request's
+   first-token logits within PATH_LOGIT_TOL of the single-device batcher's
+   on the same cut (their argmax and the greedy agreement printed), each
+   rank's K1 = 8 x its replica's admissions and K2 = 8 x its decode steps,
+   the ranks of a replica bitwise equal, and ``replica_of`` printed beside
+   an in-process pair of single-device replicas'; tokens/s, TTFT p50,
+   decode step p50, live GB a rank and the front end's exchange ms a round.
 9. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
-   same inputs must give the same bits.
+   same inputs must give the same bits; again at a tp=2 rank's heads (H=16,
+   KVH=4, B=2, L=1024: ``flash_bwd_rank_local``, train_tp's shape).
 10. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
@@ -160,7 +171,24 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    layer and step. Then ``train_moe``: the same at Mixtral widths cut to 2
    layers (3.16 B parameters, 50.6 GB of masters, gradients and moments),
    loss and aux per step, after a 1-layer L=128 check of the first step's
-   loss, aux and router gradient norm against the f32 CPU path.
+   loss, aux and router gradient norm against the f32 CPU path. Between
+   them, training under a mesh on two ranks (the transport of the tp
+   phases): ``train_tp_rounding_control`` (train_path's run on one card
+   with tp=2's roundings: each row-parallel product as two bf16 partials
+   added in f32, each column-parallel one as two column blocks), ``train_tp``
+   (train_path at tp=2: 8 layers, the same seed-10 masters and batch, 4
+   steps) and ``train_mesh`` (one step each at dp=2 and fsdp=2, Llama-3-8B
+   widths cut to 2 layers, and ep=2, Mixtral widths cut to 2 layers). In
+   each, the ranks first take turns computing one card's loss and gradient
+   on the whole batch from the same masters; the mesh run's first loss is
+   held within TRAIN_LOSS_TOL of it and each leaf's first gradient (after
+   the batch-axis sums) within TRAIN_GRAD_TOL on the rank's block; after
+   the last step every leaf a mesh axis replicates hashes alike on every
+   rank; K1/K3/K4 once per layer and step on each rank. train_tp's losses
+   and the control's within TRAIN_TP_LOSS_TOL of train_path's at each of
+   the 4 steps (AdamW turns tp's rounding into a drift the control shows
+   on one card). Step ms,
+   tokens/s, the collectives' ms a step and the peak GB a rank.
 12. ``hf_load``: an HF-named Llama state dict (Llama-3-8B widths, 2 layers)
    built on the card from ``init_params``, loaded by ``load_llama_params``:
    every leaf and the logits bitwise equal to the source's.
@@ -247,10 +275,14 @@ from bee_code_interpreter_tpu_torch.observability import (  # noqa: E402
 )
 from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: E402
     all_to_all_tiled,
+    shard_tensor,
     axis_index,
+    axis_sizes,
     group_size,
     local_shape,
     make_mesh,
+    mesh_shape_key,
+    replica_mesh,
     ring_shift,
     serving_groups,
     spawn,
@@ -263,6 +295,8 @@ ring_mod = importlib.import_module(
     "bee_code_interpreter_tpu_torch.parallel.ring_attention")
 ulysses_mod = importlib.import_module(
     "bee_code_interpreter_tpu_torch.parallel.ulysses")
+mesh_mod = importlib.import_module(
+    "bee_code_interpreter_tpu_torch.parallel.mesh")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -302,6 +336,15 @@ REFERENCE_TOL = 5e-2
 # weight casts); the limits keep 60x and 1.6x headroom.
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 4e-2
+# train_tp's losses (train_path at tp=2, 4 steps) against train_path's, per
+# step, relative; the tp-rounding control (train_path on one card with
+# tp=2's bf16 partials, ``tp_split_qeinsum``) is held to the same limits.
+# An H100 run read 1.8e-5, 1.2e-4, 3.1e-4, 1.07e-2 for the control and
+# 1.8e-5, 1.1e-4, 2.4e-4, 9.8e-3 for train_tp (AdamW's early updates are
+# ~lr x sign(g), so rounding flips near-zero gradients into whole steps):
+# TRAIN_LOSS_TOL where both read under a third of it, else twice the
+# control's reading.
+TRAIN_TP_LOSS_TOL = (TRAIN_LOSS_TOL, TRAIN_LOSS_TOL, TRAIN_LOSS_TOL, 2e-2)
 # admission and KV-cache phases on Llama-3-8B (32 layers, bf16): max |logit
 # error| over max |logit| of one path against another. A prefix hit's
 # suffix windows (einsum attention over the pool) and a chunked admission
@@ -421,6 +464,26 @@ MOE_BLOCK_SHAPES = {"decode": (8, 1), "prefill": (1, 1024)}
 # last tokens. Two H100 calls read 4 of 12 (0.118-0.254), the same bits
 # both times; the MoE block itself is held by MOE_BLOCK_ROW_TOL.
 MOE_TP_FIRST_OVER_MAX = 4
+# dp x tp serving replicas (serving_replicated_tp): 2 replicas of tp=2, four
+# ranks (one a card over NCCL with four cards; all on card 0 over gloo with
+# one), on main_path's weights cut to BREADTH_CUT_LAYERS and its traffic
+REPLICAS = 2
+# training under a mesh on two ranks (train_tp, train_mesh), the transport
+# of the tp phases: train_tp is train_path at tp=2 (Llama-3-8B widths,
+# TRAIN_LAYERS, batch 2 x 1024 of numpy seed 6, TRAIN_STEPS steps, the same
+# seed-10 masters), held to train_path's losses; train_mesh is one step at
+# each of dp=2 and fsdp=2 (Llama-3-8B widths, 2 layers) and ep=2 (Mixtral
+# widths, 2 layers), each held to the single-card step on the same masters
+# and batch. One step each: the dp gradient sum moves ~6 GB of f32 over
+# gloo's host staging at these widths.
+TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS = 2, 1
+TRAIN_MESH_CASES = {
+    "dp": ({"dp": 2}, "llama3_8b"),
+    "fsdp": ({"fsdp": 2}, "llama3_8b"),
+    "ep": ({"ep": 2}, "mixtral_8x7b"),
+}
+# K3/K4 at a tp=2 rank's heads (H=16, KVH=4): train_tp's shape
+BWD_TP_CASES = [BWD_MAIN_CASE]
 # the MoE aux loss, bf16 on the card against f32 on the CPU: relative error
 # (a top-1 flip moves it by ~E/tokens x a probability gap; bf16 rounding of
 # the mean probabilities by ~1e-3)
@@ -570,13 +633,13 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / want.abs().max().item()
 
 
-def check_flash_bwd(timer, dev) -> list[dict]:
+def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES) -> list[dict]:
     """K3 and K4 on K1's own out/lse and a random dO, against their plain
-    versions in f32 and against SDPA's backward."""
-    H, KVH, D = 32, 8, 128
+    versions in f32 and against SDPA's backward, at ``heads`` (H, KVH)."""
+    (H, KVH), D = heads, 128
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = []
-    for B, Lq, Lk, causal, window, with_g_lse in BWD_CASES:
+    for B, Lq, Lk, causal, window, with_g_lse in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.bfloat16)
@@ -630,7 +693,8 @@ def check_flash_bwd(timer, dev) -> list[dict]:
         dkdv_bound = bound(8.0 * B * H * pairs * D, io + 2.0 * 2 * k.numel())
         dq_bound = bound(6.0 * B * H * pairs * D, io + 2.0 * q.numel())
         rows.append({
-            "B": B, "Lq": Lq, "Lk": Lk, "causal": causal, "window": window,
+            "B": B, "H": H, "KVH": KVH, "Lq": Lq, "Lk": Lk, "causal": causal,
+            "window": window,
             "g_lse": with_g_lse, "pairs": pairs, "dkdv_deterministic": True,
             "dq_deterministic": True,
             "dkdv": {"max_abs_err": max(errs["dk"][0], errs["dv"][0]),
@@ -1802,23 +1866,22 @@ def moe_config(n_layers: int, **kw) -> TransformerConfig:
 
 
 class AuxLog:
-    """Records the aux loss of each ``transformer.forward(...,
-    return_aux=True)`` (``loss_fn`` makes one) while installed."""
+    """Records the aux loss of each pass over the layers
+    (``transformer._trunk``: ``loss_fn`` makes one) while installed."""
 
     def __init__(self) -> None:
         self.values: list[float] = []
-        self._forward = transformer.forward
+        self._trunk = transformer._trunk
 
         def logged(*args, **kwargs):
-            out = self._forward(*args, **kwargs)
-            if kwargs.get("return_aux"):
-                self.values.append(out[-1].item())
+            out = self._trunk(*args, **kwargs)
+            self.values.append(out[2].item())
             return out
 
-        transformer.forward = logged
+        transformer._trunk = logged
 
     def close(self) -> None:
-        transformer.forward = self._forward
+        transformer._trunk = self._trunk
 
 
 class RoutingLog:
@@ -2331,6 +2394,66 @@ def train_path(dev) -> dict:
         "peak_memory_gb": peak_gb, "launches": launches,
         "leaves_with_finite_nonzero_grad": len(grad_norms),
     }
+
+def tp_split_qeinsum(spec: str, x, leaf, dtype):
+    """``transformer.qeinsum`` with the roundings of a tp=``TP`` mesh, on
+    one card: a row-parallel product (``wo``, ``w_down``) as ``TP`` bf16
+    partial products over blocks of its contraction, added in f32 and
+    rounded once (``all_reduce_partial``); a column-parallel one (``wq``,
+    ``wk``, ``wv``, ``w_gate``, ``w_up``, ``lm_head``) as ``TP`` column
+    blocks, so that its input's gradient is the sum of ``TP`` rounded
+    partials, as ``copy_to_group``'s backward adds them. The blocks are the
+    ranks' shards of ``shard_params`` (heads, K/V heads, d_ff and
+    vocabulary in order)."""
+    if spec in ("blk,kd->bld", "blf,fd->bld"):
+        n = leaf.shape[0] // TP
+        parts = [PLAIN_QEINSUM(spec, x[..., r * n:(r + 1) * n],
+                               leaf[r * n:(r + 1) * n], dtype).float()
+                 for r in range(TP)]
+        return sum(parts[1:], parts[0]).to(dtype)
+    if spec in ("bld,dk->blk", "bld,df->blf", "bld,dv->blv"):
+        n = leaf.shape[1] // TP
+        return torch.cat([PLAIN_QEINSUM(spec, x, leaf[:, r * n:(r + 1) * n],
+                                        dtype) for r in range(TP)], dim=-1)
+    return PLAIN_QEINSUM(spec, x, leaf, dtype)
+
+
+PLAIN_QEINSUM = transformer.qeinsum
+
+
+def train_tp_rounding_control(dev) -> dict:
+    """train_path's masters, batch and steps on one card with tp=2's
+    roundings (``tp_split_qeinsum`` in place of ``qeinsum``): the drift
+    that tp's rounding alone makes, the yardstick of ``train_tp``'s later
+    losses. Also each leaf's first gradient against one card's plain
+    products on the same masters (train_tp's is held the same way)."""
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              n_layers=TRAIN_LAYERS)
+    model = transformer.Transformer(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(10), dev)
+    batch = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L, dev)
+    leaves = transformer.param_leaves(params)
+    transformer.loss_fn(params, batch, cfg).backward()
+    plain = [w.grad for w in leaves]  # kept on the card until step 1's
+    step = model.make_train_step()
+    state, losses, first = None, [], []
+    transformer.qeinsum = tp_split_qeinsum
+    try:
+        for i in range(TRAIN_STEPS):
+            params, state, loss = step(params, state, batch)
+            losses.append(loss.item())
+            if i == 0:  # the step's gradients stay on the leaves
+                first = [(torch.linalg.vector_norm(w.grad - g)
+                          / torch.linalg.vector_norm(g)).item()
+                         for w, g in zip(leaves, plain)]
+                del plain
+    finally:
+        transformer.qeinsum = PLAIN_QEINSUM
+    return {"phase": "train_tp_rounding_control", "layers": TRAIN_LAYERS,
+            "B": TRAIN_B, "L": TRAIN_L, "tp_emulated": TP, "losses": losses,
+            "first_grad_max_rel_err": max(first),
+            "first_grad_rel_err_by_leaf": first}
+
 
 # ------------------------------------- tensor-parallel and replicated serving
 
@@ -3142,6 +3265,449 @@ def tp_breadth_phases(dev, how) -> list[dict]:
     return out
 
 
+# ------------------------------------------ dp x tp replicas; training on a mesh
+
+
+def transport4() -> dict:
+    """How this machine runs four ranks: one a card over NCCL with four
+    cards or more, all on card 0 over gloo otherwise."""
+    cards = torch.cuda.device_count()
+    return {"world": REPLICAS * TP, "cards": cards,
+            "backend": "nccl" if cards >= REPLICAS * TP else "gloo"}
+
+
+def replicated_tp_rank(rank: int) -> dict:
+    """One rank of ``serving_replicated_tp``: the 2 x 2 mesh, this rank's
+    replica batcher built in turns (main_path's seed-0 weights cut to
+    BREADTH_CUT_LAYERS, this rank's tp shard kept), then rank 0 serves
+    main_path's traffic through the front end while the others follow.
+    Every rank reports its own launches, decode steps, admissions' first
+    logits (by replica-local ticket) and live bytes; rank 0 the streams,
+    the routing, the clocks and the front end's exchange time."""
+    mesh, dev = sp_rank_setup({"dp": REPLICAS, "tp": TP})
+    sub = replica_mesh(mesh)
+
+    def make():
+        params, cfg = llama_cut(dev, BREADTH_CUT_LAYERS)
+        return ContinuousBatcher(params, cfg, mesh=sub, **SERVE_GEOMETRY)
+
+    batcher = build_in_turns(rank, REPLICAS * TP, make)
+    live = torch.cuda.memory_allocated(dev)
+    admissions = capture_admissions(batcher)
+    eng = ReplicatedEngine.over_mesh(Engine(batcher), mesh)
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_DECODE.launches = 0
+    steps, undo = count_decode_steps()
+    out = {"replica": eng.rounds.replica, "leader": eng.rounds.is_leader,
+           "live_bytes": live}
+    try:
+        if eng.is_front_end:
+            requests = main_requests(batcher.config.vocab_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tickets = [eng.submit(p, n, sampling=s, **kw)
+                       for p, n, s, kw in requests]
+            ttft, decode_only_ms = {}, []
+            while eng.pending or eng.busy:
+                k1, n_steps = fa.FLASH_FWD.launches, steps[0]
+                t = time.perf_counter()
+                eng.step()
+                dt = time.perf_counter() - t
+                if fa.FLASH_FWD.launches == k1 and steps[0] > n_steps:
+                    decode_only_ms.append(dt * 1e3)
+                now = time.perf_counter() - t0
+                for tk in tickets:
+                    if tk not in ttft and eng.partial_result(tk):
+                        ttft[tk] = now
+            torch.cuda.synchronize()
+            out.update(
+                wall_s=time.perf_counter() - t0,
+                tokens=[eng.result(t) for t in tickets],
+                finish=[eng.finish_reason(t) for t in tickets],
+                replica_of=[eng.replica_of(t) for t in tickets],
+                where=[eng._where[t] for t in tickets],
+                ttft_s=[ttft[t] for t in tickets],
+                decode_only_step_ms=decode_only_ms,
+                exchange_ms=list(eng.rounds.exchange_ms))
+            eng.close()
+        else:
+            eng.follow()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    rids = {local: rid for local, rid in eng.rounds.engine._state.items()
+            if isinstance(rid, int)}
+    out.update(
+        k1_launches=fa.FLASH_FWD.launches, k2_launches=pa.PAGED_DECODE.launches,
+        decode_steps=steps[0], admissions=len(admissions),
+        first_logits={local: admissions[rid][0] for local, rid in rids.items()})
+    return out
+
+
+def in_process_routing(params, cfg, requests) -> list[int]:
+    """``replica_of`` of each request on an in-process ``ReplicatedEngine``
+    of two single-device replicas on card 0, on the submit and step order
+    of ``serving_replicated_tp``'s front end (all submitted at t=0, then
+    steps)."""
+    eng = ReplicatedEngine.build(params, cfg, REPLICAS,
+                                 devices=["cuda:0"] * REPLICAS,
+                                 **SERVE_GEOMETRY)
+    tickets = [eng.submit(p, n, sampling=s, **kw) for p, n, s, kw in requests]
+    eng.run_to_completion()
+    return [eng.replica_of(t) for t in tickets]
+
+
+def serving_replicated_tp(dev, how4) -> dict:
+    """``ReplicatedEngine.build(meshes=...)`` as 2 replicas x tp=2 over four
+    ranks, main_path's traffic on main_path's weights cut to
+    BREADTH_CUT_LAYERS, against the single-device batcher on the same cut
+    and traffic (each request's first-token logits within PATH_LOGIT_TOL,
+    their argmax) and an in-process ReplicatedEngine of two single-device
+    replicas (``replica_of`` of every request, printed beside the front
+    end's: a stream that ends at another step changes the loads). Each
+    rank launches K1 once per layer and admission of its replica and K2
+    once per layer and decode step; ranks of one replica agree bitwise."""
+    params, cfg = llama_cut(dev, BREADTH_CUT_LAYERS)
+    requests = main_requests(cfg.vocab_size)
+    ref = single_device_run(params, cfg, requests, **SERVE_GEOMETRY)
+    routing = in_process_routing(params, cfg, requests)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn(replicated_tp_rank, REPLICAS * TP, device_type="cuda",
+                  backend=how4["backend"], timeout=900)
+    spawn_s = time.perf_counter() - t
+    front = ranks[0]
+    n_l, n_req = BREADTH_CUT_LAYERS, len(requests)
+    check(all(f == "length" for f in front["finish"]),
+          f"serving_replicated_tp: finish reasons {front['finish']}")
+    check(sum(r["admissions"] for r in ranks if r["leader"]) == n_req,
+          "serving_replicated_tp: admissions "
+          f"{[r['admissions'] for r in ranks]} do not add to {n_req}")
+    for r, rec in enumerate(ranks):
+        check(rec["k1_launches"] == n_l * rec["admissions"],
+              f"serving_replicated_tp rank {r}: K1 {rec['k1_launches']}, "
+              f"predicted {n_l} x {rec['admissions']} admissions")
+        check(rec["decode_steps"] > 0
+              and rec["k2_launches"] == n_l * rec["decode_steps"],
+              f"serving_replicated_tp rank {r}: K2 {rec['k2_launches']} over "
+              f"{rec['decode_steps']} decode steps")
+        lead = next(x for x in ranks
+                    if x["leader"] and x["replica"] == rec["replica"])
+        check(rec["first_logits"].keys() == lead["first_logits"].keys()
+              and all(np.array_equal(rec["first_logits"][k], v)
+                      for k, v in lead["first_logits"].items()),
+              f"serving_replicated_tp: rank {r}'s first-token logits differ "
+              "from its replica's tp rank 0's")
+    got = np.stack([
+        next(x for x in ranks if x["leader"] and x["replica"] == i)[
+            "first_logits"][local] for i, local in front["where"]])
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, ref["first_logits"])]
+    check(bool(np.isfinite(got).all()), "serving_replicated_tp: non-finite")
+    check(max(errs) <= PATH_LOGIT_TOL,
+          f"serving_replicated_tp: first-token logits {errs} from the "
+          f"single-device run's, over {PATH_LOGIT_TOL}")
+    generated = sum(len(x) for x in front["tokens"])
+    exchange = front["exchange_ms"]
+    return {
+        "phase": "serving_replicated_tp", **how4, "replicas": REPLICAS,
+        "tp": TP, "mesh": f"dp={REPLICAS},tp={TP}", "config": "llama3_8b",
+        "layers": n_l, "requests": n_req, "spawn_s": spawn_s,
+        "tokens_per_s": generated / front["wall_s"], "wall_s": front["wall_s"],
+        "ttft_p50_ms": float(np.median(front["ttft_s"])) * 1e3,
+        "decode_step_p50_ms": (float(np.median(front["decode_only_step_ms"]))
+                               if front["decode_only_step_ms"] else None),
+        "exchange_ms_per_step_p50": float(np.median(exchange)),
+        "exchange_ms_total": float(np.sum(exchange)), "rounds": len(exchange),
+        "live_gb_per_rank": [r["live_bytes"] / 1e9 for r in ranks],
+        "admissions_per_replica": [
+            next(x for x in ranks if x["leader"] and x["replica"] == i)[
+                "admissions"] for i in range(REPLICAS)],
+        "decode_steps_per_rank": [r["decode_steps"] for r in ranks],
+        "k1_launches_per_rank": [r["k1_launches"] for r in ranks],
+        "k2_launches_per_rank": [r["k2_launches"] for r in ranks],
+        "replica_of": front["replica_of"],
+        "replica_of_in_process": routing,
+        "replica_of_equal": front["replica_of"] == routing,
+        "first_token_rel_err_vs_single_device": errs,
+        "first_token_tolerance": PATH_LOGIT_TOL,
+        "first_token_argmax_agreement": float(np.mean(
+            got.argmax(-1) == ref["first_logits"].argmax(-1))),
+        "greedy_agreement_with_single_device": token_agreement(
+            front["tokens"], ref["tokens"], greedy_rows(requests)),
+        "streams_equal_single_device": front["tokens"] == ref["tokens"],
+        "single_device": {
+            "ttft_p50_ms": float(np.median(ref["ttft_s"])) * 1e3,
+            "decode_step_p50_ms": float(np.median(ref["decode_only_step_ms"])),
+            "tokens_per_s": sum(len(x) for x in ref["tokens"]) / ref["wall_s"]},
+    }
+
+
+class CollectiveClock:
+    """Host milliseconds of the mesh collectives while installed: the f32
+    sums (``all_reduce_partial``, ``copy_to_group``'s backward, the
+    gradient sums and, on gloo, the fsdp reduce-scatter) and the gathers;
+    each timed between two ``torch.cuda.synchronize()``."""
+
+    def __init__(self) -> None:
+        self.ms = {"sum": 0.0, "gather": 0.0}
+        self._undo = []
+        for attr, key in (("_sum_f32", "sum"), ("_gather", "gather")):
+            fn = getattr(mesh_mod, attr)
+            setattr(mesh_mod, attr, self._timed(fn, key))
+            self._undo.append((attr, fn))
+
+    def _timed(self, fn, key):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[key] += (time.perf_counter() - t) * 1e3
+            return out
+        return timed
+
+    def close(self) -> None:
+        for attr, fn in self._undo:
+            setattr(mesh_mod, attr, fn)
+
+
+def train_cfg(name: str, n_layers: int) -> TransformerConfig:
+    base = (TransformerConfig.llama3_8b() if name == "llama3_8b"
+            else TransformerConfig.mixtral_8x7b())
+    return dataclasses.replace(base, n_layers=n_layers)
+
+
+def train_steps(model, params, batch, n: int, after_first=None) -> dict:
+    """``n`` steps of ``model.make_train_step()``: the losses, each step's
+    wall ms, the collectives' ms, K1/K3/K4 launches and the peak bytes;
+    ``after_first(params)`` reads the first step's gradients (they stay on
+    the leaves until the next step)."""
+    step = model.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
+        kernel.launches = 0
+    clock = CollectiveClock()
+    ms = dict.fromkeys(clock.ms, 0.0)
+    state, losses, step_ms, first = None, [], [], None
+    try:
+        for i in range(n):
+            t = time.perf_counter()
+            params, state, loss = step(params, state, batch)
+            losses.append(loss.item())  # waits for the step
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0 and after_first is not None:
+                clock.close()  # the check's own reads are not the step's
+                ms = {k: ms[k] + v for k, v in clock.ms.items()}
+                first = after_first(params)
+                clock = CollectiveClock()
+    finally:
+        clock.close()
+    ms = {k: ms[k] + v for k, v in clock.ms.items()}
+    return {"params": params, "losses": losses, "step_ms": step_ms,
+            "collective_ms": ms, "first": first,
+            "launches": {"flash_fwd": fa.FLASH_FWD.launches,
+                         "flash_bwd_dkdv": fa.FLASH_BWD_DKDV.launches,
+                         "flash_bwd_dq": fa.FLASH_BWD_DQ.launches},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def replicated_spread(params, cfg, mesh) -> float:
+    """The largest |difference| across the ranks of a leaf that ``mesh``
+    replicates (every rank of an axis the leaf's spec does not name holds
+    the same bits): 0.0 when every rank's bits hash alike, else the max
+    of (max - min) over the ranks of the leaves that differ."""
+    axes = set(axis_sizes(mesh))
+    spread = 0.0
+    for leaf, spec in transformer.leaf_specs(params, param_specs(cfg, mesh)):
+        if axes <= {a for a in spec if a}:
+            continue  # sharded over every axis: no replica
+        bits = leaf.detach().contiguous().view(torch.int32).flatten()
+        digest = torch.zeros(2, dtype=torch.int64, device=bits.device)
+        for start in range(0, bits.numel(), 1 << 26):  # bounded temporaries
+            chunk = bits[start:start + (1 << 26)].long()
+            weights = (torch.arange(chunk.numel(), device=bits.device)
+                       + start) % 65521 + 1
+            digest += torch.stack([chunk.sum(), (chunk * weights).sum()])
+        digests = [torch.empty_like(digest) for _ in range(dist.get_world_size())]
+        dist.all_gather(digests, digest)
+        if all(torch.equal(d, digests[0]) for d in digests):
+            continue
+        hi, lo = leaf.detach().clone(), leaf.detach().clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        spread = max(spread, (hi - lo).abs().max().item())
+    return spread
+
+
+def single_card_reference(cfg, seed, mesh, batch, dev) -> dict:
+    """One card's loss and gradient on the masters of ``seed`` and the whole
+    batch (``loss_fn`` and one backward, as a train step's first), and of
+    each leaf's gradient the block this rank holds under ``mesh``, on the
+    host; with the forward and backward's ms."""
+    params = transformer.Transformer(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = transformer.loss_fn(params, batch, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    specs = param_specs(cfg, mesh)
+    blocks = [shard_tensor(w.grad, spec, mesh, "cpu")
+              for w, spec in transformer.leaf_specs(params, specs)]
+    return {"loss": loss.item(), "grad_blocks": blocks, "ms": ms}
+
+
+def grad_errors(params, cfg, mesh, blocks) -> list[float]:
+    """Each leaf's ||g - g_one_card|| / ||g_one_card|| on this rank's block
+    (the gradients after ``reduce_gradients``, before the update)."""
+    errs = []
+    for (w, _), want in zip(transformer.leaf_specs(
+            params, param_specs(cfg, mesh)), blocks):
+        diff = torch.linalg.vector_norm(w.grad.float().cpu() - want)
+        errs.append((diff / torch.linalg.vector_norm(want)).item())
+    return errs
+
+
+def train_mesh_rank(rank: int) -> dict:
+    """One rank of the two-rank training spawn: train_tp (train_path at
+    tp=2), then each TRAIN_MESH_CASES step. For each, the ranks first take
+    turns computing one card's loss and gradient on the whole batch from
+    the same seed (keeping their blocks of it on the host), then train
+    under the mesh on their shard of those masters and their rows of the
+    batch; the first step's gradients are held to the blocks."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    runs = [("train_tp", {"tp": TP}, "llama3_8b", TRAIN_LAYERS, TRAIN_STEPS,
+             10)]
+    runs += [(f"train_mesh_{name}", axes, model_name, TRAIN_MESH_LAYERS,
+              TRAIN_MESH_STEPS, 50 + i)
+             for i, (name, (axes, model_name)) in
+             enumerate(TRAIN_MESH_CASES.items())]
+    for key, axes, model_name, n_layers, n_steps, seed in runs:
+        cfg = train_cfg(model_name, n_layers)
+        mesh = make_mesh(axes, device_type="cuda")
+        whole = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L,
+                            dev)
+        ref = build_in_turns(rank, TP, lambda: single_card_reference(
+            cfg, seed, mesh, whole, dev))
+        model = transformer.Transformer(cfg, mesh)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+        batch = model.batch_slice(whole)
+        run = train_steps(model, params, batch, n_steps,
+                          lambda p: grad_errors(p, cfg, mesh,
+                                                ref["grad_blocks"]))
+        run["spread"] = replicated_spread(run.pop("params"), cfg, mesh)
+        run["rows"] = batch["tokens"].shape[0]
+        run["mesh"] = mesh_shape_key(mesh)
+        run["single_card"] = {"loss": ref["loss"], "fwd_bwd_ms": ref["ms"]}
+        out[key] = run
+        del params, model, batch, ref, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_phases(dev, how, train, control) -> list[dict]:
+    """``train_tp`` and ``train_mesh``: two ranks (the transport of the tp
+    phases) train under a mesh. Each case's first loss (the same masters
+    and batch as one card's) within TRAIN_LOSS_TOL of one card's, and each
+    leaf's first gradient within TRAIN_GRAD_TOL of one card's on the
+    rank's block; the replicated leaves' spread across the ranks 0 after
+    the last step; K1/K3/K4 once per layer and step on each rank. train_tp
+    runs train_path's steps on train_path's masters and batch: each of its
+    losses, and each of ``control``'s (train_tp_rounding_control), within
+    TRAIN_TP_LOSS_TOL of train_path's at that step."""
+    drift = [abs(g - w) / abs(w)
+             for g, w in zip(control["losses"], train["losses"])]
+    check(all(d <= tol for d, tol in zip(drift, TRAIN_TP_LOSS_TOL)),
+          f"train_tp_rounding_control: losses {control['losses']} against "
+          f"train_path's {train['losses']} (rel {drift}), over "
+          f"{TRAIN_TP_LOSS_TOL}")
+    t = time.perf_counter()
+    ranks = spawn(train_mesh_rank, TP, device_type="cuda",
+                  backend=how["backend"], timeout=900)
+    spawn_s = time.perf_counter() - t
+    out = []
+    cases = [("train_tp", {"tp": TP}, "llama3_8b", TRAIN_LAYERS,
+              TRAIN_STEPS)]
+    cases += [(f"train_mesh_{name}", axes, model_name, TRAIN_MESH_LAYERS,
+               TRAIN_MESH_STEPS)
+              for name, (axes, model_name) in TRAIN_MESH_CASES.items()]
+    for key, axes, model_name, n_layers, n_steps in cases:
+        runs = [r[key] for r in ranks]
+        single = runs[0]["single_card"]["loss"]
+        for r, run in enumerate(runs):
+            first_rel = abs(run["losses"][0] - single) / abs(single)
+            check(all(np.isfinite(run["losses"]))
+                  and first_rel <= TRAIN_LOSS_TOL,
+                  f"{key} rank {r}: first loss {run['losses'][0]} against "
+                  f"one card's {single} (rel {first_rel})")
+            check(run["losses"] == runs[0]["losses"],
+                  f"{key}: rank {r}'s losses differ from rank 0's")
+            check(max(run["first"]) <= TRAIN_GRAD_TOL,
+                  f"{key} rank {r}: first gradients {run['first']} against "
+                  f"one card's, over {TRAIN_GRAD_TOL}")
+            check(run["spread"] == 0.0,
+                  f"{key} rank {r}: replicated leaves differ across the ranks "
+                  f"by {run['spread']}")
+            want_k = n_layers * n_steps
+            check(all(n == want_k for n in run["launches"].values()),
+                  f"{key} rank {r}: launches {run['launches']}, predicted "
+                  f"{want_k} each")
+        lead = runs[0]
+        p50 = float(np.median(lead["step_ms"][1:] or lead["step_ms"]))
+        tokens = TRAIN_B * TRAIN_L
+        rec = {
+            "phase": key if key == "train_tp" else "train_mesh",
+            "case": key, "mesh": lead["mesh"], "config": model_name,
+            "layers": n_layers, "steps": n_steps, "backend": how["backend"],
+            "cards": how["cards"], "B": TRAIN_B, "L": TRAIN_L,
+            "losses": lead["losses"], "single_card_first_loss": single,
+            "first_loss_rel_err": abs(lead["losses"][0] - single) / abs(single),
+            "loss_tolerance": TRAIN_LOSS_TOL,
+            "first_grad_max_rel_err": max(max(r["first"]) for r in runs),
+            "grad_tolerance": TRAIN_GRAD_TOL,
+            "step_ms": lead["step_ms"], "step_ms_p50": p50,
+            "tokens_per_s": tokens / p50 * 1e3,
+            "collective_ms_per_step": {k: v / n_steps for k, v in
+                                       lead["collective_ms"].items()},
+            "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in runs],
+            "rows_per_rank": [r["rows"] for r in runs],
+            "replicated_leaf_max_abs_diff": max(r["spread"] for r in runs),
+            "launches_per_rank": [r["launches"] for r in runs],
+            "single_card_fwd_bwd_ms": lead["single_card"]["fwd_bwd_ms"],
+            "spawn_s": spawn_s,
+        }
+        if key == "train_tp":
+            rel = [abs(g - w) / abs(w)
+                   for g, w in zip(lead["losses"], train["losses"])]
+            check(all(d <= tol for d, tol in zip(rel, TRAIN_TP_LOSS_TOL)),
+                  f"train_tp: losses {lead['losses']} against train_path's "
+                  f"{train['losses']} (rel {rel}), over {TRAIN_TP_LOSS_TOL}")
+            rec.update(
+                train_path_losses=train["losses"],
+                loss_rel_err_vs_train_path=rel,
+                loss_tolerance_vs_train_path=list(TRAIN_TP_LOSS_TOL),
+                control_losses=control["losses"],
+                control_rel_err_vs_train_path=drift,
+                control_first_grad_max_rel_err=control[
+                    "first_grad_max_rel_err"],
+                loss_rel_err_vs_control=[
+                    abs(g - w) / abs(w)
+                    for g, w in zip(lead["losses"], control["losses"])],
+                train_path_step_ms_p50=train["step_ms_p50_2_to_4"],
+                train_path_peak_gb=train["peak_memory_gb"])
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3239,7 +3805,8 @@ def main() -> int:
     ):
         run_phase(name, phase)
     # the Llama weights go before the MoE phases and the training phases
-    del params
+    # (the breadth cut holds their first layers, the embedding and the head)
+    del params, cut
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3279,6 +3846,10 @@ def main() -> int:
             rec["group_seconds"] = time.perf_counter() - t
             emit(rec)
         mesh_runs += [r for r in results if "k1_launches_per_rank" in r]
+    # dp x tp replicas behind rank 0's front end (four ranks)
+    how4 = transport4()
+    mesh_runs.append(run_phase("serving_replicated_tp",
+                               lambda: serving_replicated_tp(dev, how4)))
     k1_per_rank, k2_per_rank = {}, {}
     for rec in mesh_runs:
         name = rec["phase"]
@@ -3291,6 +3862,10 @@ def main() -> int:
     bwd_rows = check_flash_bwd(timer, dev)
     emit({"phase": "flash_bwd", "tolerance": BWD_TOL, "H": 32, "KVH": 8,
           "D": 128, "cases": bwd_rows})
+    # the same kernels at a tp=2 rank's heads (train_tp's shape)
+    bwd_tp_rows = check_flash_bwd(timer, dev, TP_HEADS, BWD_TP_CASES)
+    emit({"phase": "flash_bwd_rank_local", "heads": list(TP_HEADS),
+          "tolerance": BWD_TOL, "D": 128, "cases": bwd_tp_rows})
     del timer
     torch.cuda.empty_cache()
     emit(check_train_reference(dev))
@@ -3305,6 +3880,17 @@ def main() -> int:
     emit(train)
     gc.collect()
     torch.cuda.empty_cache()
+    control = run_phase("train_tp_rounding_control",
+                        lambda: train_tp_rounding_control(dev))
+    # training under a mesh, held to train_path's losses and to single-card
+    # steps; each rank counts its own launches
+    t = time.perf_counter()
+    train_meshes = train_mesh_phases(dev, how, train, control)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rec in train_meshes:
+        rec["group_seconds"] = time.perf_counter() - t
+        emit(rec)
     train_m = run_phase("train_moe", lambda: train_moe(dev))
     run_phase("hf_load", lambda: hf_load(dev))
 
@@ -3325,8 +3911,16 @@ def main() -> int:
     main_bwd = next(r for r in bwd_rows
                     if (r["B"], r["Lq"], r["Lk"], r["causal"], r["window"],
                         r["g_lse"]) == BWD_MAIN_CASE)
+    (bwd_tp,) = bwd_tp_rows
     bwd_shape = (f"B={TRAIN_B} H=32 KVH=8 L={TRAIN_L} D=128 causal bf16, "
                  "lse/delta f32")
+    # each training phase under a mesh: rank 0's launches, and every rank's
+    train_mesh_launches = {rec["case"]: rec["launches_per_rank"]
+                           for rec in train_meshes}
+
+    def train_launches(name) -> dict:
+        return {case: per_rank[0][name]
+                for case, per_rank in train_mesh_launches.items()}
 
     def bwd_entry(name, key, replaces):
         row = main_bwd[key]
@@ -3337,9 +3931,24 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_by_phase": {"train": train["launches"][name],
                                   "lora_train": lora["launches"][name],
-                                  "train_moe": train_m["launches"][name]},
-            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows),
-            "max_rel_err": max(r[key]["rel_err"] for r in bwd_rows),
+                                  "train_moe": train_m["launches"][name],
+                                  **train_launches(name)},
+            "launches_per_rank": {
+                case: [r[name] for r in per_rank]
+                for case, per_rank in train_mesh_launches.items()},
+            "rank_local": {
+                "shape": f"B={TRAIN_B} H={TP_HEADS[0]} KVH={TP_HEADS[1]} "
+                         f"L={TRAIN_L} D=128 causal bf16, lse/delta f32",
+                "ms": bwd_tp[key]["ms"], "plain_ms": bwd_tp[key]["plain_ms"],
+                "bound_ms": bwd_tp[key]["bound_ms"],
+                "bound_by": bwd_tp[key]["bound_by"],
+                "library_ms": bwd_tp["library_ms"],
+                "max_abs_err": bwd_tp[key]["max_abs_err"],
+                "rel_err": bwd_tp[key]["rel_err"]},
+            "max_abs_err": max(r[key]["max_abs_err"]
+                               for r in bwd_rows + bwd_tp_rows),
+            "max_rel_err": max(r[key]["rel_err"]
+                               for r in bwd_rows + bwd_tp_rows),
             "ms": row["ms"], "kernel_ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -3358,7 +3967,8 @@ def main() -> int:
             "launches_by_phase": {**k1_by_phase,
                                   "lora_train": lora["launches"]["flash_fwd"],
                                   "train": train["launches"]["flash_fwd"],
-                                  "train_moe": train_m["launches"]["flash_fwd"]},
+                                  "train_moe": train_m["launches"]["flash_fwd"],
+                                  **train_launches("flash_fwd")},
             "max_abs_err": max(r["max_abs_err"]
                                for r in flash_rows + flash_sp_rows),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],
@@ -3366,7 +3976,10 @@ def main() -> int:
             "bound_by": main_k1["bound_by"],
             "library_ms": main_k1["library_ms"],
             "shape": "B=1 H=32 KVH=8 L=1024 D=128 causal bf16",
-            "launches_per_rank": k1_per_rank,
+            "launches_per_rank": {
+                **k1_per_rank,
+                **{case: [r["flash_fwd"] for r in per_rank]
+                   for case, per_rank in train_mesh_launches.items()}},
             "rank_local": rank_local(
                 main_k1_tp, f"B=1 H={TP_HEADS[0]} KVH={TP_HEADS[1]} L=1024 "
                 "D=128 causal bf16"),

@@ -422,6 +422,33 @@ def test_sp_generate_matches_jax(spawned, inputs, key):
                                           np.asarray(tokens), err_msg=name)
 
 
+@pytest.mark.parametrize("name", tuple(W.SP_PADDING_CASES))
+def test_sp_prompt_padding_stays_out_of_moe_routing(spawned, name):
+    """ROADMAP Queue 3, fixed: ``generate_cached`` pads a 13-token
+    prompt to a multiple of sp; the pads are kept out of the MoE routing
+    pool, so the capacity-routed tiny_moe (f32, 2 K/V heads, capacity
+    factor 0.5, port params from seed 0) gives the unsharded run's tokens
+    on sp=4, where it gave others while the pads routed (row 1 of these
+    prompts). The controls (L=12, nothing padded; the default capacity;
+    sp=2) and the padding that stays, dense and ``moe_exact``, give the
+    unsharded tokens too."""
+    for rec in spawned[4]:
+        got = rec[f"sp_padding {name}"]
+        np.testing.assert_array_equal(got["mesh"], got["unsharded"])
+
+
+def test_jax_refuses_the_prompt_the_port_pads(inputs):
+    """The padding that stays is an intended divergence (ROADMAP Queue 3):
+    JAX's sp mesh refuses a 13-token prompt (the sequence axis does not
+    divide over sp=4), where the port pads it and gives the unsharded
+    tokens (the dense and moe_exact cases above)."""
+    mesh = jax_mesh.make_mesh({"sp": 4}, devices=jax.devices()[:4])
+    prompt = jnp.asarray(inputs["sp_tokens"])[:, :13]
+    with pytest.raises(ValueError):
+        jax_t.Transformer(kv2_config(), mesh).generate_cached(
+            inputs["jax_kv2"], prompt, max_new_tokens=2)
+
+
 MOE_MESHES = ("ep=2,tp=2", "tp=4", "ep=4", "sp=4", "sp=2,ep=2")
 
 

@@ -5,11 +5,17 @@ The JAX engine places its replicas on the virtual devices of
 ``tests/conftest.py``; the port's are given ``devices=["cpu", "cpu"]``.
 Checklist: the cases of the JAX package's tests/test_replicated.py, each
 with ``replica_of`` per ticket, ``stats()`` and the streams equal to
-JAX's and to solo decode. Two cases change: "live on distinct devices"
-becomes "each replica's weights and pool lie on the device it was given",
-and dp x tp (``meshes=``) is refused until it is ported."""
+JAX's and to solo decode. One case changes: "live on distinct devices"
+becomes "each replica's weights and pool lie on the device it was given".
+
+dp x tp (``meshes=``): four gloo CPU ranks as 2 replicas x tp=2 (one
+spawn, ``tests/torch_tp_worker.py::replicated_cases``), rank 0 the front
+end, against JAX's ``ReplicatedEngine`` over two tp=2 sub-meshes of the
+virtual devices on the same calls: every ticket's tokens (and JAX's solo
+decode), ``replica_of``, finish reasons, logprobs and ``stats``."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -22,11 +28,15 @@ from bee_code_interpreter_tpu.models import transformer as jax_t
 from bee_code_interpreter_tpu.models.text import TextEngine as JaxTextEngine
 from bee_code_interpreter_tpu_torch.models import replicated as torch_replicated
 from bee_code_interpreter_tpu_torch.models.text import TextEngine
+from bee_code_interpreter_tpu_torch.parallel import mesh as M
+from jax.sharding import Mesh
+from tests import torch_tp_worker as W
 from tests.torch_parity import tiny_configs, tiny_params
 
 JCFG, TCFG = tiny_configs()
 JPARAMS, TPARAMS = tiny_params(JCFG, TCFG)
 DEVICES = ["cpu", "cpu"]
+LOGPROB_TOL = 1e-5
 
 
 def solo(prompt, n):
@@ -88,11 +98,106 @@ def test_replicas_live_on_the_devices_given():
     assert a.cache["k"].data_ptr() != b.cache["k"].data_ptr()
 
 
-def test_dp_times_tp_replicas_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="dp x tp"):
-        torch_replicated.ReplicatedEngine.build(
-            TPARAMS, TCFG, 2, meshes=[object(), object()], max_batch=2,
-            n_pages=24, page_size=4, max_pages_per_seq=6)
+@pytest.fixture(scope="module")
+def mesh_ranks():
+    """Every rank's records of the 2 replicas x tp=2 spawn."""
+    return M.spawn(W.replicated_cases, 4, device_type="cpu",
+                   args=({"params": jax.tree.map(np.asarray, JPARAMS)},),
+                   timeout=600)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_records():
+    """The same scenarios on JAX's dp x tp ReplicatedEngine."""
+    devices = jax.devices()
+    meshes = [Mesh(np.array(devices[0:2]), ("tp",)),
+              Mesh(np.array(devices[2:4]), ("tp",))]
+
+    class Front:
+        """JAX's engine with the port front end's context manager."""
+
+        def __init__(self, eng):
+            self.eng, self.is_front_end = eng, True
+            self.rounds = types.SimpleNamespace(exchange_ms=[])
+
+        def __getattr__(self, name):
+            return getattr(self.eng, name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+    def build(**kw):
+        return Front(jax_replicated.ReplicatedEngine.build(
+            JPARAMS, JCFG, 2, meshes=meshes, **{**W.REPLICA_GEOMETRY, **kw}))
+
+    return W._replicated_scenarios(build)
+
+
+def without_exchanges(rec):
+    return {k: v for k, v in rec.items() if k != "exchanges"}
+
+
+def test_dp_times_tp_replicas(mesh_ranks, jax_mesh_records):
+    """JAX's test_dp_times_tp_replicas: two tp=2 replicas over four ranks
+    give the solo stream of each ticket, on the replicas JAX's engine
+    picks."""
+    got = mesh_ranks[0]["dp_times_tp"]
+    assert without_exchanges(got) == without_exchanges(
+        jax_mesh_records["dp_times_tp"])
+    assert got["results"] == [solo([5, 3, 7, 2, 9, 4, 1, 8], 5),
+                              solo([1, 2, 3], 5)]
+    assert got["exchanges"] > 0
+
+
+@pytest.mark.parametrize("scenario", ["spread", "affinity",
+                                      "streaming_and_cancel", "full_queue",
+                                      "logprobs"])
+def test_dp_times_tp_front_end_matches_jax(mesh_ranks, jax_mesh_records,
+                                           scenario):
+    """Each of JAX's replicated scenarios through rank 0's front end:
+    routing (least outstanding, prefix affinity, the full queue's spill),
+    streaming, cancel and release, logprobs, and every stat, equal to
+    JAX's dp x tp engine on the same calls (logprobs within LOGPROB_TOL:
+    f32 log-softmaxes of logits the two frameworks sum in other orders)."""
+    got = without_exchanges(mesh_ranks[0][scenario])
+    want = without_exchanges(jax_mesh_records[scenario])
+    if "logprobs" in want:
+        for g, w in zip(got.pop("logprobs"), want.pop("logprobs")):
+            np.testing.assert_allclose(g, w, atol=LOGPROB_TOL, rtol=0)
+    assert got == want
+
+
+def test_dp_times_tp_affinity_and_cancel_through_the_front_end(mesh_ranks):
+    aff = mesh_ranks[0]["affinity"]
+    assert aff["replicas"][0] == aff["replicas"][1]
+    hits = aff["stats"]["per_replica"][aff["replicas"][1]]["prefix_cache"]
+    assert hits["hits"] >= 1  # the repeat reused pages on its replica
+    assert aff["results"] == [solo([7] * 9, 3)] * 2
+    rec = mesh_ranks[0]["streaming_and_cancel"]
+    assert rec["seen"] == rec["result"] == solo([5, 3, 7, 2], 6)
+    assert rec["finish"] == "cancelled"
+    assert rec["released"][0] == "KeyError"
+    # a queued ticket answers as a queued Engine ticket does
+    assert rec["queued"][0][0] == rec["queued"][1][0] == "RuntimeError"
+    assert rec["queued"][2:] == [[], False]
+
+
+def test_dp_times_tp_ranks_hold_their_replica(mesh_ranks):
+    """Rank r is replica r // 2's tp rank r % 2: a tp=2 shard and pool;
+    only rank 0 serves, and a mesh of the wrong dp size is refused."""
+    for r, rec in enumerate(mesh_ranks):
+        place = rec["placement"]
+        assert place["replica"] == r // 2 and place["tp_rank"] == r % 2
+        assert place["is_leader"] == (r % 2 == 0)
+        assert place["front"] == (r == 0)
+        assert place["pool_heads"] == JCFG.kv_heads // 2
+        assert place["wq_shape"] == (JCFG.d_model, JCFG.d_model // 2)
+        assert place["wrong_dp"][0] == "ValueError"
+        if r:
+            assert place["follower_refuses"][0] == "RuntimeError"
 
 
 def test_prefix_affinity_routes_repeats_to_same_replica():

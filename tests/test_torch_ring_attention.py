@@ -10,8 +10,8 @@ of the 8 virtual CPU devices. Checklist: the forward cases of the JAX
 package's tests/test_parallel.py:44-211 (causal and not, bf16, GQA-compact
 K/V, sliding windows in global positions, flash hops against the
 reference and against the einsum hops, the two window validations); the
-gradient cases wait for training under a mesh (ROADMAP Queue 1, item 4,
-slice 11), and the port's ring refuses inputs that require grad.
+gradient cases wait for the sp backward (ROADMAP Queue 1, item 1,
+slice 11b), and the port's ring refuses inputs that require grad.
 
 Tolerances: the f32 cases 2e-5 (einsum hops, JAX's own bound) and 2e-4
 (flash hops, JAX's own bound: hops merged on their log-sum-exp), bf16 3e-2
@@ -171,5 +171,5 @@ def test_ring_refuses_inputs_that_require_grad(ranks):
     for rec in ranks:
         kind, msg = rec["grad_refused"]
         assert kind == "NotImplementedError"
-        assert "ROADMAP Queue 1, item 4, slice 11" in msg
+        assert "ROADMAP Queue 1, item 1, slice 11b" in msg
         assert rec["no_grad_runs"] is None

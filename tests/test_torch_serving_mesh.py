@@ -489,12 +489,26 @@ def test_engine_admission_error_fails_the_rank_under_a_mesh(weights):
 
 
 def test_unported_paths_refuse(ranks):
-    """JAX serves or trains these under a mesh through GSPMD; the port
-    refuses them until they are ported, naming the slice (ROADMAP Queue 1,
-    item 4): dp and fsdp axes inside one batcher, training under a mesh,
-    dp x tp replicas."""
+    """One batcher serves over tp, sp and ep: a dp axis inside it is
+    refused (data-parallel serving is ``ReplicatedEngine.build(meshes=)``),
+    and so is fsdp (a training axis); the pipeline is not ported yet and
+    names its slice (ROADMAP Queue 1, item 1, slice 11b); replicas need a
+    dp x tp mesh. Training under the tp mesh, which this refused until
+    slice 11a, now builds (tests/test_torch_train_mesh.py holds it to
+    JAX)."""
+    expect = {
+        "dp": ("NotImplementedError", "ReplicatedEngine.build(meshes=...)"),
+        "fsdp": ("NotImplementedError", "Transformer.make_train_step"),
+        "pp": ("NotImplementedError", "ROADMAP Queue 1, item 1, slice 11b"),
+        "pp_model": ("NotImplementedError",
+                     "ROADMAP Queue 1, item 1, slice 11b"),
+        "replicas_over_a_tp_mesh": ("ValueError", "dp and tp"),
+    }
     for rec in ranks:
+        assert set(rec["refusals"]) == set(expect)
         for what, err in rec["refusals"].items():
             assert err is not None, what
-            assert err[0] == "NotImplementedError", (what, err)
-            assert "ROADMAP Queue 1, item 4" in err[1], what
+            assert err[0] == expect[what][0], (what, err)
+            assert expect[what][1] in err[1], (what, err)
+        assert rec["ported"] == {"train_step": True, "init": True,
+                                 "lora_train_step": True}

@@ -198,25 +198,34 @@ def test_resume_from_checkpoint_is_bitwise_equal_to_straight_run(tmp_path):
         assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
 
 
-def test_moe_and_mesh_still_raise():
-    """Training under meshes still raises, for MoE configs too (a mesh now
-    serves: tests/test_torch_serving_mesh.py); MoE itself no longer does:
-    its masters init and train (tests/test_torch_moe.py holds them to
-    JAX), and a dense tree is not an MoE tree."""
+def test_moe_and_a_one_rank_mesh_train():
+    """MoE trains (its masters init and the loss differentiates;
+    tests/test_torch_moe.py holds them to JAX) and a dense tree is not an
+    MoE tree. Training under a mesh no longer raises (multi-rank meshes
+    are held to JAX in tests/test_torch_train_mesh.py): on a one-rank
+    mesh of every training axis, ``init`` and a step give the bits of the
+    same calls without a mesh, for MoE configs too."""
     from tests.torch_tp_worker import single_rank_mesh
 
     jcfg, tcfg = configs()
     _, tparams = tiny_params(jcfg, tcfg)
     moe = dataclasses.replace(tcfg, n_experts=4)
-    with single_rank_mesh({"tp": 1}) as mesh:
+    batch = torch_batch(make_batch())
+    with single_rank_mesh({"dp": 1, "fsdp": 1, "tp": 1, "ep": 1}) as mesh:
         for cfg in (tcfg, moe):
-            model = torch_t.Transformer(cfg, mesh=mesh)
-            with pytest.raises(NotImplementedError, match="meshes"):
-                model.make_train_step()
-            with pytest.raises(NotImplementedError, match="meshes"):
-                model.init(torch.Generator(), device="cpu")
+            runs = []
+            for m in (None, mesh):
+                model = torch_t.Transformer(cfg, mesh=m)
+                params = model.init(torch.Generator().manual_seed(5),
+                                    device="cpu")
+                params, _, loss = model.make_train_step()(
+                    params, None, model.batch_slice(batch))
+                runs.append((loss, torch_t.param_leaves(params)))
+            (loss_a, leaves_a), (loss_b, leaves_b) = runs
+            assert torch.equal(loss_a, loss_b)
+            assert all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b))
     params = torch_t.Transformer(moe).init(torch.Generator(), device="cpu")
-    loss = torch_t.loss_fn(params, torch_batch(make_batch()), moe)
+    loss = torch_t.loss_fn(params, batch, moe)
     assert torch.isfinite(loss) and loss.requires_grad
     with pytest.raises(KeyError, match="moe"):
-        torch_t.loss_fn(tparams, torch_batch(make_batch()), moe)
+        torch_t.loss_fn(tparams, batch, moe)

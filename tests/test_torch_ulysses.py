@@ -9,8 +9,8 @@ The JAX side runs the same numpy inputs on the 8 virtual CPU devices.
 Checklist: the forward cases of the JAX package's tests/test_ulysses.py
 (causal and not, windows, ``use_flash``, GQA-compact K/V, fewer K/V heads
 than sp, the ``lcm(KVH, sp)`` broadcast, the head-divisibility error, the
-model-level ring/Ulysses switch); ``test_grad_flows`` waits for training
-under a mesh (ROADMAP Queue 1, item 4, slice 11), and the port's exchange
+model-level ring/Ulysses switch); ``test_grad_flows`` waits for the sp
+backward (ROADMAP Queue 1, item 1, slice 11b), and the port's exchange
 refuses inputs that require grad.
 
 Tolerances: 2e-5 for the attention cases (JAX's own: the exchange moves
@@ -140,5 +140,5 @@ def test_ulysses_refuses_inputs_that_require_grad(ranks):
     for rec in ranks:
         kind, msg = rec["grad_refused"]
         assert kind == "NotImplementedError"
-        assert "ROADMAP Queue 1, item 4, slice 11" in msg
+        assert "ROADMAP Queue 1, item 1, slice 11b" in msg
         assert rec["no_grad_runs"] is None

@@ -270,6 +270,7 @@ def mesh_forward_cases(rank: int, inputs: dict) -> dict:
             "cached": model.generate_cached(shard, prompt, max_new_tokens=5),
             "plain": model.generate(shard, prompt, max_new_tokens=3)})
 
+    out.update(sp_padding_cases(tokens))
     mcfg = tiny_config(n_experts=4)
     mfull = params_from_jax(inputs["params_moe"], mcfg, device="cpu")
     for axes in ({"ep": 2, "tp": 2}, {"tp": 4}, {"ep": 4}, {"sp": 4},
@@ -291,6 +292,40 @@ def mesh_forward_cases(rank: int, inputs: dict) -> dict:
             "loader_equal": same,
             "shapes": {n: tuple(x.shape)
                        for n, x in shard["layers"][0]["moe"].items()}})
+    return out
+
+
+# ROADMAP Queue 3's capacity-routed MoE under sp with a prompt padded to sp
+# (fixed): name -> (mesh axes, config overrides, prompt length)
+SP_PADDING_CASES = {
+    "capacity sp=4 L=13": ({"sp": 4}, dict(n_experts=4,
+                                           moe_capacity_factor=0.5), 13),
+    "capacity sp=4 L=12": ({"sp": 4}, dict(n_experts=4,
+                                           moe_capacity_factor=0.5), 12),
+    "default capacity sp=4 L=13": ({"sp": 4}, dict(n_experts=4), 13),
+    "capacity sp=2 L=13": ({"sp": 2, "ep": 2},
+                           dict(n_experts=4, moe_capacity_factor=0.5), 13),
+    "dense sp=4 L=13": ({"sp": 4}, {}, 13),
+    "moe_exact sp=4 L=13": ({"sp": 4}, dict(n_experts=4, moe_dropless=True,
+                                            moe_group_size=1), 13),
+}
+
+
+def sp_padding_cases(tokens) -> dict:
+    """``generate_cached`` of port params from seed 0 on each
+    ``SP_PADDING_CASES`` mesh, and the same without a mesh: the pads that
+    round the prompt up to a multiple of sp stay out of MoE routing."""
+    out = {}
+    for name, (axes, extra, L) in SP_PADDING_CASES.items():
+        cfg = tiny_config(**extra)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        mesh = M.make_mesh(axes, device_type="cpu")
+        prompt = tokens[:, :L]
+        out[f"sp_padding {name}"] = to_np({
+            "mesh": T.Transformer(cfg, mesh).generate_cached(
+                T.shard_params(params, cfg, mesh), prompt, max_new_tokens=6),
+            "unsharded": T.Transformer(cfg).generate_cached(
+                params, prompt, max_new_tokens=6)})
     return out
 
 
@@ -486,20 +521,163 @@ def serving_cases(rank: int, inputs: dict) -> dict:
                      "moe_shapes": {k: tuple(x.shape) for k, x in
                                     b.params["layers"][0]["moe"].items()}}
 
-    # what is not ported under a mesh yet
+    # what one batcher does not serve over, and what is not ported yet; the
+    # training entry points under tp now run (tests/test_torch_train_mesh.py)
     dp_mesh = M.make_mesh({"dp": 2, "tp": 1}, device_type="cpu")
     fsdp_mesh = M.make_mesh({"fsdp": 2}, device_type="cpu")
+    pp_mesh = M.make_mesh({"pp": 2}, device_type="cpu")
     kw = dict(max_batch=2, n_pages=16, page_size=4, max_pages_per_seq=4)
     out["refusals"] = {
         "dp": error_of(lambda: _batcher(full, cfg, dp_mesh, **kw)),
         "fsdp": error_of(lambda: _batcher(full, cfg, fsdp_mesh, **kw)),
-        "train_step": error_of(
-            lambda: T.Transformer(cfg, mesh).make_train_step()),
-        "init": error_of(lambda: T.Transformer(cfg, mesh).init(
-            torch.Generator(), device="cpu")),
-        "lora_train_step": error_of(
-            lambda: make_lora_train_step(cfg, mesh=mesh)),
-        "replicas_over_meshes": error_of(lambda: ReplicatedEngine.build(
-            full, cfg, 1, meshes=[mesh], **kw)),
+        "pp": error_of(lambda: _batcher(full, cfg, pp_mesh, **kw)),
+        "pp_model": error_of(lambda: T.Transformer(cfg, pp_mesh)),
+        "replicas_over_a_tp_mesh": error_of(lambda: ReplicatedEngine.build(
+            full, cfg, 1, meshes=mesh, **kw)),
     }
+    out["ported"] = {
+        "train_step": callable(T.Transformer(cfg, mesh).make_train_step()),
+        "init": T.Transformer(cfg, mesh).init(
+            torch.Generator(), device="cpu")["layers"][0]["wq"].requires_grad,
+        "lora_train_step": callable(
+            make_lora_train_step(cfg, mesh=mesh)[0]),
+    }
+    return out
+
+
+# ------------------------------------------------------- dp x tp replicas
+
+
+REPLICA_GEOMETRY = dict(max_batch=2, n_pages=24, page_size=4,
+                        max_pages_per_seq=6)
+
+
+def _replicated_scenarios(build) -> dict:
+    """JAX's tests/test_replicated.py scenarios, on the surface
+    ``ReplicatedEngine`` gives rank 0 (``build(**kw)`` makes one, on every
+    rank)."""
+    out = {}
+
+    def serve(name, scenario, **kw):
+        eng = build(**kw)
+        if not eng.is_front_end:
+            eng.follow()
+            return
+        with eng:
+            out[name] = scenario(eng)
+            out[name]["exchanges"] = len(eng.rounds.exchange_ms)
+
+    def dp_times_tp(eng):
+        p1, p2 = [5, 3, 7, 2, 9, 4, 1, 8], [1, 2, 3]
+        t1, t2 = eng.submit(p1, 5), eng.submit(p2, 5)
+        eng.run_to_completion()
+        return {"results": [eng.result(t1), eng.result(t2)],
+                "replicas": [eng.replica_of(t1), eng.replica_of(t2)]}
+
+    def spread(eng):
+        prompts = [[int(x) for x in
+                    np.random.default_rng(i).integers(0, 200, 4 + i)]
+                   for i in range(6)]
+        tickets = [eng.submit(p, 4) for p in prompts]
+        eng.run_to_completion()
+        return {"replicas": [eng.replica_of(t) for t in tickets],
+                "results": [eng.result(t) for t in tickets],
+                "finish": [eng.finish_reason(t) for t in tickets],
+                "stats": eng.stats}
+
+    def affinity(eng):
+        prompt = [7] * 9
+        t1 = eng.submit(prompt, 3)
+        eng.run_to_completion()
+        t2 = eng.submit(prompt, 3)
+        eng.run_to_completion()
+        return {"replicas": [eng.replica_of(t1), eng.replica_of(t2)],
+                "results": [eng.result(t1), eng.result(t2)],
+                "stats": eng.stats}
+
+    def streaming_and_cancel(eng):
+        t = eng.submit([5, 3, 7, 2], 6)
+        seen: list[int] = []
+        for _ in range(60):
+            eng.step()
+            seen += eng.new_tokens(t)
+            if eng.is_done(t):
+                break
+        seen += eng.new_tokens(t)
+        rec = {"seen": seen, "result": eng.result(t)}
+        t2 = eng.submit([1, 2, 3], 15)
+        rec["queued"] = [error_of(lambda: eng.result(t2)),
+                         error_of(lambda: eng.release(t2)),
+                         eng.partial_result(t2), eng.is_done(t2)]
+        eng.step()
+        eng.cancel(t2)
+        eng.run_to_completion()
+        rec.update(finish=eng.finish_reason(t2), partial=eng.result(t2))
+        eng.release(t2)
+        rec["released"] = error_of(lambda: eng.result(t2))
+        rec["replica"] = eng.replica_of(t)
+        rec["stats"] = eng.stats
+        return rec
+
+    def full_queue(eng):
+        t1 = eng.submit([1, 2, 3], 3)
+        t2 = eng.submit([1, 2, 3], 3)
+        rec = {"replicas": [eng.replica_of(t1), eng.replica_of(t2)],
+               "third": error_of(lambda: eng.submit([1, 2, 3], 3))}
+        eng.run_to_completion()
+        rec.update(results=[eng.result(t1), eng.result(t2)],
+                   stats=eng.stats)
+        return rec
+
+    def logprobs(eng):
+        tickets = [eng.submit(p, 5, sampling=SamplingParams(logprobs=True))
+                   for p in ([5, 3, 7, 2, 9], [1, 2, 3], [4, 4, 4, 4])]
+        rec = {"validation": error_of(lambda: eng.submit([1, 2, 3], 99))}
+        eng.run_to_completion()
+        rec.update(results=[eng.result(t) for t in tickets],
+                   logprobs=[eng.result_logprobs(t) for t in tickets],
+                   errors=[eng.ticket_error(t) for t in tickets],
+                   replicas=[eng.replica_of(t) for t in tickets])
+        return rec
+
+    serve("dp_times_tp", dp_times_tp)
+    serve("spread", spread)
+    serve("affinity", affinity, prefix_affinity=True, prefix_cache=True)
+    serve("streaming_and_cancel", streaming_and_cancel)
+    serve("full_queue", full_queue, max_queue=1)
+    serve("logprobs", logprobs)
+    return out
+
+
+def replicated_cases(rank: int, inputs: dict) -> dict:
+    """Four ranks as 2 replicas x tp=2 (``ReplicatedEngine.build(meshes=
+    ...)``): rank 0 runs JAX's replicated scenarios through the front end,
+    the others follow; rank 0's records, and what each rank's replica
+    is."""
+    cfg = tiny_config()
+    full = params_from_jax(inputs["params"], cfg, device="cpu")
+    mesh = M.make_mesh({"dp": 2, "tp": 2}, device_type="cpu")
+
+    def build(**kw):
+        return ReplicatedEngine.build(full, cfg, 2, meshes=mesh,
+                                      **{**REPLICA_GEOMETRY, **kw})
+
+    out = _replicated_scenarios(build)
+    eng = build()
+    out["placement"] = {
+        "replica": eng.rounds.replica, "is_leader": eng.rounds.is_leader,
+        "front": eng.is_front_end,
+        "tp_rank": M.axis_index(M.replica_mesh(mesh), "tp"),
+        "pool_heads": tuple(eng.rounds.engine.batcher.cache["k"].shape)[2],
+        "wq_shape": tuple(
+            eng.rounds.engine.batcher.params["layers"][0]["wq"].shape),
+        "follower_refuses": None if eng.is_front_end else error_of(
+            lambda: eng.submit([1, 2, 3], 2)),
+        "wrong_dp": error_of(lambda: ReplicatedEngine.build(
+            full, cfg, 3, meshes=mesh, **REPLICA_GEOMETRY)),
+    }
+    if eng.is_front_end:
+        eng.close()
+    else:
+        eng.follow()
     return out
