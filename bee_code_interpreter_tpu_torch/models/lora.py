@@ -178,17 +178,13 @@ def make_lora_train_step(
     optimizer)``: ``optimizer(lora)`` gives the state (an AdamW over the
     factors, by default with ``optax.adamw(1e-3)``'s settings) and
     ``step(lora, opt_state, params, batch) -> (lora, opt_state, loss)``
-    updates the factors in place. Under ``mesh`` (dp, fsdp, tp, ep)
+    updates the factors in place. Under ``mesh`` (dp, fsdp, tp, sp, ep)
     ``params`` are the rank's shard, ``lora`` the rank's factors
-    (``shard_lora``) and ``batch`` its rows (``Transformer.batch_slice``);
-    the loss is the global batch's and each factor's gradient is summed
-    over the batch axes it is whole on, as ``Transformer.make_train_step``
-    does."""
-    if mesh is not None and mesh_groups(mesh).sp is not None:
-        raise NotImplementedError(
-            "training with sp > 1 is not ported yet (ROADMAP Queue 1, item "
-            "1, slice 11b: the backward of the ring and of Ulysses)"
-        )
+    (``shard_lora``) and ``batch`` its block (``Transformer.batch_slice``:
+    its rows, and under sp its positions); the loss is the global batch's
+    and each factor's gradient is summed over the batch axes and sp where
+    it is whole, as ``Transformer.make_train_step`` does."""
+    groups = mesh_groups(mesh)  # a mesh is checked here, not at the step
     optimizer = optimizer or functools.partial(_lora_adamw, lr=1e-3)
 
     def step(lora, opt_state, params, batch):
@@ -208,7 +204,7 @@ def make_lora_train_step(
             specs = lora_specs(lora, config, mesh)
             reduce_gradients(
                 [(lora[t][k], specs[t][k]) for t in sorted(lora)
-                 for k in ("A", "B")], mesh_groups(mesh))
+                 for k in ("A", "B")], groups)
         opt_state.step()
         return lora, opt_state, loss.detach()
 

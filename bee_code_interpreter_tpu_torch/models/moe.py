@@ -51,7 +51,10 @@ rank keeps its own tokens' choices; a prompt padded to a multiple of sp
 routes its real positions only (``valid_len``), so its groups and capacity
 are the unpadded prompt's. In training under batch axes (``batch_group``)
 a routing group that spans the ranks' rows routes from the router logits
-gathered over them, so the capacity and the drops are JAX's.
+gathered over them, so the capacity and the drops are JAX's. Training
+under sp routes the same way (the gathered logits differentiable,
+``gather_shards``): every sp rank computes the whole sequence's aux, and
+the loss takes a 1/sp share of it on each (``transformer.loss_fn``).
 """
 
 from __future__ import annotations
@@ -63,7 +66,6 @@ import torch
 import torch.nn.functional as F
 
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
-    all_gather_cat,
     batch_shard_of,
     copy_to_group,
     gather_shards,
@@ -246,7 +248,8 @@ def moe_mlp(
     through ``copy_to_group`` (their gradients are partial on each rank).
     ``sp_group``: ``x`` is this rank's block of a sequence sharded over sp,
     of which the positions from ``valid_len`` on are padding, kept out of
-    the routing pool (their output is zero). ``batch_group`` (dp, fsdp or a
+    the routing pool (their output is zero); the aux is then the whole
+    sequence's on every sp rank. ``batch_group`` (dp, fsdp or a
     tuple, in that order): ``x`` is this rank's block of rows of a batch
     sharded over it (``parallel.mesh.batch_shard_of``). JAX routes the flat
     global batch in groups of ``group_size``: a group that lies inside the
@@ -266,7 +269,9 @@ def moe_mlp(
     C = expert_capacity(g, n_experts, top_k, capacity_factor, dropless)
     xf = x.reshape(B * L, D)
     local = torch.einsum("bld,de->ble", x.float(), params["router"].float())
-    logits = all_gather_cat(local, sp_group, dim=1)[:, :Ls]  # [B, Ls, E]
+    # under autograd the gather's backward sums every sp rank's gradient of
+    # the whole sequence's logits and keeps the rank's block
+    logits = gather_shards(local, sp_group, dim=1)[:, :Ls]  # [B, Ls, E]
     span = (B * Ls) % g != 0  # a routing group spans batch shards
     if span:
         logits = gather_shards(logits, batch_group, dim=0)

@@ -72,8 +72,10 @@ position's logits of them); the logits are never gathered over sp, where
 they would be ``[B, L, vocab]`` f32 on every rank. Decode ignores sp.
 
 Training under a mesh (``loss_fn(mesh=...)``, ``Transformer.init`` and
-``make_train_step``) runs over dp, fsdp, tp and ep. The batch is sharded
-over dp then fsdp (``Transformer.batch_slice``); the weights by
+``make_train_step``) runs over dp, fsdp, tp, sp and ep, and through the
+pipeline over pp. The batch is sharded over dp then fsdp, and under sp its
+positions too (``Transformer.batch_slice``: JAX's ``P(batch, "sp")``); the
+weights by
 ``param_specs``, fsdp gathered one layer at a time (``gather_shards``,
 whose backward reduce-scatters the weight's gradient). The collectives are
 differentiable: Megatron's ``f`` (``copy_to_group``) where a tensor that is
@@ -83,9 +85,21 @@ adds ``f`` over tp and ep on its tokens and combine weights. The loss
 stays sharded over the vocabulary (``_token_losses``: the logsumexp and
 the target logit from all-reduces, never the ``[B, L, V]`` logits), each
 rank's loss is its share of the global batch's, and after the backward
-``reduce_gradients`` sums each gradient over the batch axes its leaf is
-whole on. Training with sp > 1 is not ported yet (ROADMAP Queue 1, item 1,
-slice 11b) and raises ``NotImplementedError``.
+``reduce_gradients`` sums each gradient over the batch axes and sp, where
+its leaf is whole. Under sp a rank runs its block of positions at their
+global positions (rope offset by the block), attends across the sp ranks
+through the differentiable ring or Ulysses, and holds the loss of its
+positions; an MoE layer routes the whole sequence's tokens (its aux, the
+same on every sp rank, enters the loss as a 1/sp share on each).
+
+The pipeline (``forward_pipelined``, JAX's :533): under a ``pp`` mesh a
+rank holds its block of the layers (``init_params`` / ``shard_params``
+keep only it) plus the replicated embedding, final norm and head, which
+run outside the pipeline on every stage; the layers run through
+``parallel/pipeline.py::spmd_pipeline`` over microbatches of the rank's
+rows (the batch sharded over dp/fsdp), an MoE layer routing each
+microbatch on its own. ``loss_fn(mesh=, n_microbatches=)`` and
+``make_train_step(n_microbatches=)`` train through it.
 """
 
 from __future__ import annotations
@@ -130,6 +144,11 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (
     mesh_groups,
     reduce_gradients,
     shard_tensor,
+    split_to_group,
+)
+from bee_code_interpreter_tpu_torch.parallel.pipeline import (
+    spmd_pipeline,
+    stage_block,
 )
 from bee_code_interpreter_tpu_torch.parallel.ring_attention import (
     ring_attention,
@@ -282,7 +301,9 @@ def init_params(
     ``weights.params_from_jax`` instead. With ``mesh`` every leaf is drawn
     whole, as without one (every rank the same draws from the same
     generator), and only the rank's shard under ``param_specs`` is kept
-    (``shard_params``' slice), so no rank holds the whole tree at once."""
+    (``shard_params``' slice), so no rank holds the whole tree at once;
+    under pp only the rank's block of layers is kept (each other layer is
+    drawn and dropped)."""
     c = config
     device = resolve_device(device)
     dtype = dtype or c.dtype
@@ -319,9 +340,15 @@ def init_params(
         return keep(w, spec)
 
     d = c.d_model
-    layers = [{name: make(name, shape)
-               for name, shape in layer_shapes(c).items()}
-              for _ in range(c.n_layers)]
+    mine = (range(c.n_layers) if mesh is None
+            else stage_block(range(c.n_layers), mesh))
+    layers = []
+    for i in range(c.n_layers):  # every layer drawn, in order
+        layer = {name: make(name, shape)
+                 for name, shape in layer_shapes(c).items()}
+        if i in mine:
+            layers.append(layer)
+        del layer
     params = {
         "embed": keep(dense(d, c.vocab_size, d), specs and specs["embed"]),
         "layers": layers,
@@ -448,7 +475,8 @@ def shard_params(params: Params, config: TransformerConfig, mesh,
     columns and a row-parallel leaf's stay whole. Where tp does not divide
     ``kv_heads``, ``wk``/``wv`` (and their scales) take the columns of
     ``kv_columns`` instead of an even column block: the rank's K/V heads
-    of the ``lcm(kv_heads, tp)`` broadcast."""
+    of the ``lcm(kv_heads, tp)`` broadcast. Under pp only the rank's block
+    of layers is kept (``parallel.pipeline.stage_block``)."""
     specs = param_specs(config, mesh)
     device = resolve_device(device if device is not None
                             else mesh.device_type)
@@ -473,7 +501,7 @@ def shard_params(params: Params, config: TransformerConfig, mesh,
         "embed": place(params["embed"], specs["embed"]),
         "layers": [{name: place(leaf, specs["layers"][name], name)
                     for name, leaf in layer.items()}
-                   for layer in params["layers"]],
+                   for layer in stage_block(params["layers"], mesh)],
         "ln_f": place(params["ln_f"], specs["ln_f"]),
         "lm_head": place(params["lm_head"], specs["lm_head"]),
     }
@@ -635,20 +663,26 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
     return h + mlp, ((k, v) if return_kv else None), aux
 
 
+def _sequence_block(x: torch.Tensor, sp_group) -> torch.Tensor:
+    """The rank's contiguous block of positions (dim 1) of ``x`` under sp:
+    positions ``[r L/sp, (r+1) L/sp)``, JAX's sequence sharding."""
+    sp = group_size(sp_group)
+    if sp == 1:
+        return x
+    if x.shape[1] % sp:
+        raise ValueError(
+            f"sequence length {x.shape[1]} not divisible by sp={sp}")
+    return split_to_group(x, sp_group, 1)
+
+
 def _trunk(params: Params, tokens: torch.Tensor, config: TransformerConfig,
            return_kv: bool, tp_group, sp_group, ep_group, fsdp_group,
            batch_group, valid_len):
-    """Every layer of ``forward``: ``(h, (K, V) | None, aux)``."""
+    """Every layer of ``forward``: ``(h, (K, V) | None, aux)``. Under sp
+    ``tokens`` are the rank's block of positions."""
     c = config
     B, L = tokens.shape
-    start = 0
-    sp = group_size(sp_group)
-    if sp > 1:
-        if L % sp:
-            raise ValueError(f"sequence length {L} not divisible by sp={sp}")
-        L //= sp
-        start = group_rank(sp_group) * L
-        tokens = tokens[:, start:start + L]
+    start = group_rank(sp_group) * L
     positions = (start + torch.arange(L, device=tokens.device)).expand(B, L)
     h = _embed(params, tokens, c, tp_group)
     ks, vs = [], []
@@ -686,6 +720,7 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
     a batch sharded over them: MoE routes them with the other ranks' rows
     where JAX's routing groups span ranks, and the aux is the rank's share
     (the shares sum to the aux of the whole batch)."""
+    tokens = _sequence_block(tokens, sp_group)
     h, kv, aux = _trunk(params, tokens, config, return_kv, tp_group,
                         sp_group, ep_group, fsdp_group, batch_group,
                         valid_len)
@@ -698,6 +733,67 @@ def forward(params: Params, tokens: torch.Tensor, config: TransformerConfig,
     if extras:
         return (logits, *extras)
     return logits
+
+
+def _pipelined_trunk(params: Params, tokens: torch.Tensor,
+                     config: TransformerConfig, mesh, n_microbatches: int,
+                     return_aux: bool):
+    """The embedding and the rank's block of layers through the pipeline:
+    ``(h, aux)`` of the rank's rows."""
+    c = config
+    if c.n_experts and not return_aux:
+        # training MoE without the load-balancing term drives the experts
+        # toward collapse (JAX :560-566)
+        raise ValueError(
+            "MoE configs require return_aux=True on forward_pipelined: the "
+            "load-balancing aux loss must reach the objective"
+        )
+    B = tokens.shape[0]
+    if B % n_microbatches != 0:
+        raise ValueError(
+            f"batch {B} not divisible into {n_microbatches} microbatches"
+        )
+    g = mesh_groups(mesh)
+    inside = [a for a in ("tp", "sp", "ep") if g.size(a) > 1]
+    if inside:
+        raise NotImplementedError(
+            f"forward_pipelined over {inside}: a stage runs whole layers (as "
+            "JAX's, whose tp/sp inside stages would need a nested shard_map); "
+            "use forward / loss_fn for those axes"
+        )
+    h = _embed(params, tokens, c, None)
+
+    def stage(h, layer):
+        # microbatches split the batch: every row's positions are 0..L-1
+        pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        h, _, aux = _layer_apply(h, layer, c, pos, fsdp_group=g.fsdp)
+        return h, aux
+
+    batch_axes = tuple(a for a in ("dp", "fsdp") if g.size(a) > 1)
+    return spmd_pipeline(stage, params["layers"], h, mesh=mesh,
+                         n_microbatches=n_microbatches,
+                         batch_axes=batch_axes, with_aux=True)
+
+
+def forward_pipelined(params: Params, tokens: torch.Tensor,
+                      config: TransformerConfig, mesh, n_microbatches: int,
+                      return_aux: bool = False):
+    """Pipeline-parallel forward (JAX's ``forward_pipelined``): the rank's
+    block of layers (``shard_params`` / ``Transformer.init`` under the
+    ``pp`` mesh) as its stage, microbatches (splits of the batch dim)
+    streamed through ``spmd_pipeline``; the embedding, final norm and
+    lm_head run outside the pipeline on every stage. ``tokens`` ``[B, L]``
+    are the rank's rows of a batch sharded over dp/fsdp (``batch_slice``).
+    Returns f32 logits ``[B, L, vocab]``, the same on every stage, and
+    with ``return_aux`` the MoE aux averaged over the microbatches and the
+    batch axes. MoE configs require ``return_aux`` (ValueError); routing
+    pools are per microbatch, so logits equal ``forward``'s only drop-free.
+    Differentiable: a loss that every stage computes from the logits
+    counts once (``parallel/pipeline.py``)."""
+    h, aux = _pipelined_trunk(params, tokens, config, mesh, n_microbatches,
+                              return_aux)
+    logits = _logits(h, params, config, None)
+    return (logits, aux) if return_aux else logits
 
 
 def gather_prefill(logits: torch.Tensor, kv, last: int, sp_group):
@@ -1068,31 +1164,44 @@ def _token_losses(h: torch.Tensor, params: Params, targets: torch.Tensor,
 
 
 def loss_fn(params: Params, batch: dict[str, torch.Tensor],
-            config: TransformerConfig, mesh=None) -> torch.Tensor:
+            config: TransformerConfig, mesh=None,
+            n_microbatches: int | None = None) -> torch.Tensor:
     """Mean next-token NLL over f32 logits plus the z-loss
     ``z_loss * logz**2`` and the MoE aux term, as the JAX ``loss_fn``
-    (tokens and targets ``[B, L]``). Under a ``mesh`` (dp, fsdp, tp, ep)
-    ``params`` are the rank's shard and ``batch`` its rows of the global
-    batch (``Transformer.batch_slice``): the value is the loss of the
-    global batch, the same bits on every rank (the ranks' shares summed in
-    f32), and its gradient is the rank's share of the global gradient,
-    which ``reduce_gradients`` sums over the batch axes."""
+    (tokens and targets ``[B, L]``). Under a ``mesh`` (dp, fsdp, tp, sp,
+    ep) ``params`` are the rank's shard and ``batch`` its block of the
+    global batch (``Transformer.batch_slice``: its rows, and under sp its
+    positions): the value is the loss of the global batch, the same bits on
+    every rank (the ranks' shares summed in f32), and its gradient is the
+    rank's share of the global gradient, which ``reduce_gradients`` sums
+    over the batch axes and sp. Under a ``pp`` mesh the layers run through
+    the pipeline in ``n_microbatches`` (``forward_pipelined``), and the
+    same value and gradients come out on every stage."""
     g = mesh_groups(mesh)
-    if g.sp is not None:
-        raise NotImplementedError(
-            "training with sp > 1 is not ported yet (ROADMAP Queue 1, item "
-            "1, slice 11b: the backward of the ring and of Ulysses)"
-        )
     batch_group = g.batch or None
-    h, _, aux = _trunk(params, batch["tokens"], config, False, g.tp, None,
+    if g.pp is not None:
+        if n_microbatches is None:
+            raise ValueError("a pp mesh trains through the pipeline: pass "
+                             "n_microbatches")
+        h, aux = _pipelined_trunk(params, batch["tokens"], config, mesh,
+                                  n_microbatches, True)
+        losses = _token_losses(h, params, batch["targets"], config, None)
+        n_shards = batch_shard_of(batch_group)[1]
+        share = losses.sum() / (losses.numel() * n_shards)
+        # the aux is already the global batch's on every rank
+        return (all_reduce_partial(share, batch_group)
+                + config.moe_aux_weight * aux)
+    h, _, aux = _trunk(params, batch["tokens"], config, False, g.tp, g.sp,
                        g.ep, g.fsdp, batch_group, None)
     losses = _token_losses(h, params, batch["targets"], config, g.tp)
-    if batch_group is None:
+    shards = tuple(x for x in (*g.batch, g.sp) if x is not None)
+    if not shards:
         return losses.mean() + config.moe_aux_weight * aux
-    n_shards = batch_shard_of(batch_group)[1]
+    n_shards = batch_shard_of(shards)[1]
     share = losses.sum() / (losses.numel() * n_shards)
-    return all_reduce_partial(share + config.moe_aux_weight * aux,
-                              batch_group)
+    # the aux is a share over the batch axes and whole on every sp rank
+    aux = aux / g.size("sp")
+    return all_reduce_partial(share + config.moe_aux_weight * aux, shards)
 
 
 def _adamw(params: Params, *, lr: float) -> torch.optim.AdamW:
@@ -1114,11 +1223,13 @@ class Transformer:
     ``apply`` gives the rank's block of positions under sp, the generators
     the same tokens on every rank (their prefill runs sequence-parallel,
     the decode steps ignore sp). Training (``init``, ``make_train_step``)
-    runs over dp, fsdp, tp and ep: ``init`` draws the f32 masters and keeps
-    the rank's shard (``param_specs``), ``batch_slice`` gives the rank's
-    rows of a global batch, and the step's loss is the global batch's on
-    every rank; ``apply`` then takes the rank's rows too. Training with
-    sp > 1 is not ported yet (ROADMAP Queue 1, item 1, slice 11b)."""
+    runs over dp, fsdp, tp, sp and ep, and through the pipeline over pp:
+    ``init`` draws the f32 masters and keeps the rank's shard
+    (``param_specs``; under pp its block of layers), ``batch_slice`` gives
+    the rank's rows of a global batch (under sp, its block of positions of
+    them), and the step's loss is the global batch's on every rank;
+    ``apply`` then takes the rank's rows too. Under pp the forward is
+    ``forward_pipelined`` (``apply`` and the generators raise)."""
 
     def __init__(self, config: TransformerConfig, mesh=None) -> None:
         self.config = config
@@ -1127,14 +1238,9 @@ class Transformer:
         self.tp_group = self.groups.tp
 
     def _check_training(self, what: str) -> None:
-        """What a mesh must be for training: no sp, and even K/V shards."""
+        """What a mesh must be for training: even K/V shards."""
         if self.mesh is None:
             return
-        if self.groups.sp is not None:
-            raise NotImplementedError(
-                f"{what} with sp > 1 is not ported yet (ROADMAP Queue 1, "
-                "item 1, slice 11b: the backward of the ring and of Ulysses)"
-            )
         tp = self.groups.size("tp")
         if self.config.kv_heads % tp:
             raise ValueError(
@@ -1145,13 +1251,19 @@ class Transformer:
     def _check_generation(self) -> None:
         if self.groups.batch:
             raise NotImplementedError(
-                "generation over the batch axes (dp, fsdp) is not ported; "
-                "data-parallel serving is ReplicatedEngine.build(meshes=...)"
+                "generation over the batch axes (dp, fsdp) is not ported yet "
+                "(ROADMAP Queue 1, item 1, slice 13); data-parallel serving "
+                "is ReplicatedEngine.build(meshes=...)"
             )
 
     def _forward(self, params: Params, tokens: torch.Tensor,
                  return_kv: bool = False, valid_len: int | None = None):
         g = self.groups
+        if g.pp is not None:
+            raise NotImplementedError(
+                "a rank of a pp mesh holds its block of layers: its forward "
+                "is forward_pipelined"
+            )
         return forward(params, tokens, self.config, return_kv=return_kv,
                        tp_group=g.tp, sp_group=g.sp, ep_group=g.ep,
                        fsdp_group=g.fsdp, batch_group=g.batch or None,
@@ -1197,12 +1309,16 @@ class Transformer:
         return self._forward(params, tokens)
 
     def batch_slice(self, batch: dict[str, torch.Tensor]) -> dict:
-        """This rank's rows of a global batch (each value's dim 0) over the
-        batch axes, dp then fsdp, dp major: the counterpart of JAX's
-        ``batch_sharding()``. The whole batch without a mesh."""
+        """This rank's block of a global batch: the rows (each value's dim
+        0) over the batch axes, dp then fsdp, dp major, and under sp its
+        contiguous block of positions (dim 1): the counterpart of JAX's
+        ``batch_sharding()``, ``P(batch, "sp")``. The whole batch without a
+        mesh."""
         if self.mesh is None:
             return dict(batch)
-        return {name: batch_slice(x, self.mesh) for name, x in batch.items()}
+        return {name: _sequence_block(batch_slice(x, self.mesh),
+                                      self.groups.sp)
+                for name, x in batch.items()}
 
     def make_optimizer(self, learning_rate: float = 3e-4):
         """The JAX ``optax.adamw`` as a factory: called on the params it
@@ -1211,18 +1327,23 @@ class Transformer:
         moments are sharded as the masters are)."""
         return functools.partial(_adamw, lr=learning_rate)
 
-    def make_train_step(self, optimizer=None):
+    def make_train_step(self, optimizer=None,
+                        n_microbatches: int | None = None):
         """``train_step(params, opt_state, batch) -> (params, opt_state,
         loss)`` with the JAX signature. ``opt_state`` is ``optimizer(params)``
         (None makes it on the first step). The update is in place, where
         JAX donates params and state; the gradients stay on the leaves
         (``.grad``) until the next step. Under a mesh ``params`` are the
-        rank's shard and ``batch`` its rows (``batch_slice``); ``loss`` is
+        rank's shard and ``batch`` its block (``batch_slice``); ``loss`` is
         the global batch's on every rank, and each gradient is summed over
-        the batch axes its leaf is whole on before the step
+        the batch axes and sp where its leaf is whole before the step
         (``reduce_gradients``), so a leaf replicated over an axis stays the
-        same bits on every rank of it."""
+        same bits on every rank of it. Under a pp mesh the step runs the
+        pipeline in ``n_microbatches`` (required there)."""
         self._check_training("make_train_step")
+        if self.groups.pp is not None and n_microbatches is None:
+            raise ValueError("a pp mesh trains through the pipeline: pass "
+                             "n_microbatches")
         optimizer = optimizer or self.make_optimizer()
         config, mesh = self.config, self.mesh
 
@@ -1230,7 +1351,7 @@ class Transformer:
             if opt_state is None:
                 opt_state = optimizer(params)
             opt_state.zero_grad(set_to_none=True)
-            loss = loss_fn(params, batch, config, mesh)
+            loss = loss_fn(params, batch, config, mesh, n_microbatches)
             loss.backward()
             if mesh is not None:
                 reduce_gradients(

@@ -285,6 +285,30 @@ def _on_cuda(*tensors) -> bool:
     )
 
 
+def flash_fwd(q, k, v, causal: bool, sm_scale: float,
+              window: int | None = None):
+    """``(out, lse)`` outside autograd: K1 on CUDA tensors, its plain
+    version on CPU tensors (the forward of ``FlashAttention`` and of the
+    ring's hops)."""
+    if _on_cuda(q, k, v):
+        return _flash_fwd_cuda(q, k, v, causal, sm_scale, window)
+    return flash_attention_fwd_plain(q, k, v, causal, sm_scale, window)
+
+
+def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+              window: int | None = None):
+    """``(dQ, dK, dV)`` from the softmax statistics ``lse`` and ``delta``
+    (``[B, H, L]`` f32): K3 and K4 on CUDA tensors, their plain versions on
+    CPU tensors (the backward of ``FlashAttention`` and of the ring's
+    hops, which pass the merged lse)."""
+    args = (q, k, v, do, lse, delta, causal, sm_scale, window)
+    if _on_cuda(q, k, v, do):
+        dk, dv = flash_bwd_dkdv_cuda(*args)
+        return flash_bwd_dq_cuda(*args), dk, dv
+    dk, dv = flash_bwd_dkdv_plain(*args)
+    return flash_bwd_dq_plain(*args), dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """``(out, lse)`` with its backward: the JAX ``custom_vjp`` pair of
     ``flash_attention_with_lse`` (:599-641). The forward saves the
@@ -294,11 +318,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float,
                 window: int | None):
-        if _on_cuda(q, k, v):
-            out, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale, window)
-        else:
-            out, lse = flash_attention_fwd_plain(q, k, v, causal, sm_scale,
-                                                 window)
+        out, lse = flash_fwd(q, k, v, causal, sm_scale, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, sm_scale, window)
         ctx.set_materialize_grads(False)
@@ -313,12 +333,7 @@ class FlashAttention(torch.autograd.Function):
         delta = (g_out.float() * out.float()).sum(dim=-1)
         if g_lse is not None:
             delta = delta - g_lse.float()
-        if _on_cuda(q, k, v, g_out):
-            dk, dv = flash_bwd_dkdv_cuda(q, k, v, g_out, lse, delta, *ctx.args)
-            dq = flash_bwd_dq_cuda(q, k, v, g_out, lse, delta, *ctx.args)
-        else:
-            dk, dv = flash_bwd_dkdv_plain(q, k, v, g_out, lse, delta, *ctx.args)
-            dq = flash_bwd_dq_plain(q, k, v, g_out, lse, delta, *ctx.args)
+        dq, dk, dv = flash_bwd(q, k, v, g_out, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -4,10 +4,11 @@ one rank per device (``parallel/mesh.py``).
 Axis conventions, as in the JAX package: ``dp`` data parallel, ``fsdp``
 parameter sharding within data parallel, ``tp`` tensor parallel (Megatron
 column/row splits), ``sp`` sequence parallel (ring attention or Ulysses),
-``ep`` expert parallel. The port serves over ``tp``, ``sp`` and ``ep``
-(``dp`` as replicas, ``models/replicated.py``) and trains over ``dp``,
-``fsdp``, ``tp`` and ``ep``; training over ``sp`` and the pipeline are not
-ported yet (ROADMAP Queue 1, item 1, slice 11b).
+``ep`` expert parallel, ``pp`` pipeline parallel (the GPipe schedule over
+point-to-point exchanges, ``parallel/pipeline.py``). The port serves over
+``tp``, ``sp`` and ``ep`` (``dp`` as replicas, ``models/replicated.py``)
+and trains over ``dp``, ``fsdp``, ``tp``, ``sp`` and ``ep``, and through
+the pipeline over ``pp`` (``models/transformer.py::forward_pipelined``).
 """
 
 from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -19,6 +20,9 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_descriptor,
     mesh_shape_key,
     spawn,
+)
+from bee_code_interpreter_tpu_torch.parallel.pipeline import (  # noqa: F401
+    spmd_pipeline,
 )
 from bee_code_interpreter_tpu_torch.parallel.ring_attention import (  # noqa: F401
     ring_attention,

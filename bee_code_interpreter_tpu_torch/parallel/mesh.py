@@ -32,7 +32,25 @@ backward), ``copy_to_group`` its ``f`` (the identity forward, a sum
 backward), and ``gather_shards`` is the fsdp
 gather, whose backward sums every rank's gradient and keeps the rank's
 block (a reduce-scatter). Every sum adds in f32 and rounds once, so the
-ranks agree bit for bit.
+ranks agree bit for bit. Under ``sp`` a rank holds a block of positions:
+the exchanges of the ring and of Ulysses are differentiable
+(``all_to_all_tiled``'s backward is the inverse all-to-all; the ring owns
+its backward, ``parallel/ring_attention.py``), and ``reduce_gradients``
+sums every gradient over sp, where each leaf is whole. Under ``pp`` a rank
+holds a block of layers and the pipeline (``parallel/pipeline.py``) moves
+activations and their gradients between neighbouring stages with
+``send_to`` / ``recv_from``.
+
+Two conventions for a loss. A loss that each rank holds a share of (its
+batch rows, its positions) is summed by ``all_reduce_partial``, whose
+backward hands every rank the whole gradient of its share; the parameter
+gradients are then partial and ``reduce_gradients`` sums them. A loss
+that every rank computes whole from a replicated tensor (the standalone
+sp entries' gathered output, the pipeline's output on every stage) counts
+once on each rank: ``gather_from_group``'s backward keeps the rank's own
+block of the gradient, and ``split_to_group``'s (a replicated input cut to
+the rank's block) gathers the blocks' gradients, so every rank holds the
+whole gradient of the replicated input, not sp copies of it.
 
 Ranks come from a launcher (``torchrun``, or a pod group that bakes the JAX
 names ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
@@ -365,15 +383,12 @@ def mesh_descriptor(mesh) -> dict:
 # the axes one batcher serves over, the axes training shards over, and what
 # the others wait for or are instead
 SERVING_AXES = ("tp", "sp", "ep")
-TRAINING_AXES = ("dp", "fsdp", "tp", "ep")
+TRAINING_AXES = ("dp", "fsdp", "tp", "sp", "ep", "pp")
 _SERVING_ELSEWHERE = {
     "dp": "data-parallel serving is ReplicatedEngine.build(meshes=...), one "
           "batcher per dp coordinate",
     "fsdp": "fsdp shards training state (Transformer.make_train_step)",
-}
-_UNPORTED_AXES = {
-    "pp": "not ported yet (ROADMAP Queue 1, item 1, slice 11b: the "
-          "pipeline, parallel/pipeline.py)",
+    "pp": "pp pipelines training (transformer.forward_pipelined)",
 }
 
 
@@ -381,14 +396,15 @@ _UNPORTED_AXES = {
 class MeshGroups:
     """The process groups of a mesh's axes, each None where its axis is
     absent or of size 1 (no collective to make): tensor parallelism
-    (``tp``), sequence-parallel admission (``sp``), expert parallelism
-    (``ep``) and the batch axes (``dp``, ``fsdp``)."""
+    (``tp``), sequence parallelism (``sp``), expert parallelism (``ep``),
+    the batch axes (``dp``, ``fsdp``) and the pipeline's stages (``pp``)."""
 
     tp: object = None
     sp: object = None
     ep: object = None
     dp: object = None
     fsdp: object = None
+    pp: object = None
 
     def size(self, axis: str) -> int:
         return group_size(getattr(self, axis))
@@ -405,16 +421,15 @@ def _axis_group(mesh, axis: str):
 
 def mesh_groups(mesh) -> MeshGroups:
     """The ``MeshGroups`` of a mesh the port runs a model on. An axis of
-    size > 1 that no path runs (``pp``) raises ``NotImplementedError``
-    naming the slice of ROADMAP Queue 1, item 1 that ports it."""
+    size > 1 that no path runs raises ``NotImplementedError``."""
     if mesh is None:
         return MeshGroups()
     for axis, size in axis_sizes(mesh).items():
-        if size > 1 and axis not in (*TRAINING_AXES, "sp"):
-            why = _UNPORTED_AXES.get(axis, "no path runs it")
-            raise NotImplementedError(f"mesh axis {axis}={size}: {why}")
+        if size > 1 and axis not in TRAINING_AXES:
+            raise NotImplementedError(
+                f"mesh axis {axis}={size}: no path runs it")
     return MeshGroups(**{axis: _axis_group(mesh, axis)
-                         for axis in ("tp", "sp", "ep", "dp", "fsdp")})
+                         for axis in TRAINING_AXES})
 
 
 def serving_groups(mesh) -> MeshGroups:
@@ -425,8 +440,7 @@ def serving_groups(mesh) -> MeshGroups:
         return MeshGroups()
     for axis, size in axis_sizes(mesh).items():
         if axis not in SERVING_AXES and size > 1:
-            why = _SERVING_ELSEWHERE.get(axis) or _UNPORTED_AXES.get(
-                axis, "no path runs it")
+            why = _SERVING_ELSEWHERE.get(axis, "no path runs it")
             raise NotImplementedError(
                 f"serving over mesh axis {axis}={size} inside one batcher: "
                 f"{why}"
@@ -582,10 +596,65 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order (the
     column-parallel lm_head's vocabulary, a head-sharded pool's heads).
     Identity without a group. Outside autograd: training keeps the logits
-    sharded (``transformer._token_losses``)."""
+    sharded (``transformer._token_losses``); ``gather_from_group`` is the
+    differentiable gather."""
     if group is None:
         return x
     return _gather(x, group, dim % x.dim())
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """The blocks gathered forward; backward, every rank holds the whole
+    gradient of a loss it computed whole, and keeps its own block."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _block(grad, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _SplitToGroup(torch.autograd.Function):
+    """A replicated tensor cut to the rank's block forward; backward, the
+    blocks' gradients gathered, so every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.group, ctx.dim), None, None
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``all_gather_cat`` under autograd for a loss that every rank of
+    ``group`` computes whole from the gathered tensor: the backward keeps
+    the rank's block of the gradient (the loss counts once, not once per
+    rank). Identity without a group."""
+    if group is None:
+        return x
+    dim = dim % x.dim()
+    if _differentiable(x):
+        return _GatherFromGroup.apply(x, group, dim)
+    return _gather(x, group, dim)
+
+
+def split_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The rank's contiguous block of a tensor replicated over ``group``
+    (a tensor of its own); under autograd its backward gathers the blocks'
+    gradients, the transpose of ``gather_from_group``. Identity without a
+    group."""
+    if group is None:
+        return x
+    dim = dim % x.dim()
+    if _differentiable(x):
+        return _SplitToGroup.apply(x, group, dim)
+    return _block(x, group, dim).contiguous()
 
 
 def reduce_scatter_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -636,12 +705,16 @@ def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def reduce_gradients(pairs, groups: MeshGroups) -> None:
     """After a backward under a mesh: each ``(leaf, spec)``'s gradient
-    summed over the batch axes it is whole on (each rank's is its batch
-    shard's share): ``dp``, and ``fsdp`` unless ``spec`` shards the leaf
-    over it (``gather_shards``' backward summed those). In f32, rounded
-    once, in place; every rank then holds the same bits."""
+    summed over the axes it is whole on whose ranks each hold a share of
+    the loss: ``dp``, ``sp`` (a rank's positions), and ``fsdp`` unless
+    ``spec`` shards the leaf over it (``gather_shards``' backward summed
+    those). Not over ``pp``: a stage's layers live on it alone, and every
+    stage computes the replicated embedding's and head's whole gradient
+    from the same loss. In f32, rounded once, in place; every rank then
+    holds the same bits."""
     for leaf, spec in pairs:
-        gs = [g for g in (groups.dp, None if "fsdp" in spec else groups.fsdp)
+        gs = [g for g in (groups.dp, groups.sp,
+                          None if "fsdp" in spec else groups.fsdp)
               if g is not None]
         if gs and leaf.grad is not None:
             total = _sum_f32(leaf.grad, gs, copy=False)
@@ -665,10 +738,14 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) or (
 # takes them as they are.
 
 
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def _wire(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as a point-to-point exchange takes it: contiguous, and on the
     host for a CUDA tensor on a gloo group."""
-    if x.is_cuda and dist.get_backend(group) == "gloo":
+    if _staged(x, group):
         return x.detach().to("cpu").contiguous()
     return x.contiguous()
 
@@ -695,18 +772,26 @@ def ring_shift(tensors, group) -> list[torch.Tensor]:
     return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 
-def all_to_all_tiled(x: torch.Tensor, group, split_dim: int,
-                     concat_dim: int) -> torch.Tensor:
-    """The counterpart of ``lax.all_to_all(x, split_axis, concat_axis,
-    tiled=True)``: ``x`` is cut into ``n`` blocks along ``split_dim``, block
-    j goes to rank j of ``group``, and the blocks received are concatenated
-    along ``concat_dim`` in the senders' rank order. Identity without a
-    group."""
-    n = group_size(group)
-    if n == 1:
-        return x
-    split_dim %= x.dim()
-    concat_dim %= x.dim()
+def send_to(x: torch.Tensor, peer: int, group) -> None:
+    """``x`` sent to rank ``peer`` of ``group`` (an index within it),
+    blocking until the transport has it; staged through host memory for a
+    CUDA tensor on gloo, as ``ring_shift`` does. The pipeline's stage-to-
+    stage exchange: every send meets one ``recv_from`` on the peer."""
+    dist.send(_wire(x, group), dist.get_global_rank(group, peer), group=group)
+
+
+def recv_from(like: torch.Tensor, peer: int, group) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device received from rank
+    ``peer`` of ``group``."""
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if _staged(like, group) else like.device)
+    dist.recv(buf, dist.get_global_rank(group, peer), group=group)
+    return buf.to(like.device)
+
+
+def _all_to_all(x: torch.Tensor, group, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
     if x.shape[split_dim] % n:
         raise ValueError(
             f"dim {split_dim} of {tuple(x.shape)} does not split {n} ways"
@@ -715,6 +800,37 @@ def all_to_all_tiled(x: torch.Tensor, group, split_dim: int,
     recv = torch.empty_like(blocks)
     dist.all_to_all_single(recv, blocks, group=group)
     return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its transpose is the same exchange with the
+    split and concatenated dims swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, concat_dim, split_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad.contiguous(), *ctx.args), None, None, None
+
+
+def all_to_all_tiled(x: torch.Tensor, group, split_dim: int,
+                     concat_dim: int) -> torch.Tensor:
+    """The counterpart of ``lax.all_to_all(x, split_axis, concat_axis,
+    tiled=True)``: ``x`` is cut into ``n`` blocks along ``split_dim``, block
+    j goes to rank j of ``group``, and the blocks received are concatenated
+    along ``concat_dim`` in the senders' rank order. Differentiable: the
+    backward is the inverse exchange. Identity without a group."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    split_dim %= x.dim()
+    concat_dim %= x.dim()
+    if _differentiable(x):
+        return _AllToAll.apply(x, group, split_dim, concat_dim)
+    return _all_to_all(x, group, split_dim, concat_dim)
 
 
 def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -10,8 +10,7 @@ block of rank ``r - step``. Each rank accumulates its queries' attention
 over the blocks it sees:
 
 - ``use_flash`` (the default for CUDA tensors): each hop is one call of the
-  flash forward kernel (``ops/flash_attention.py::flash_attention_with_lse``,
-  K1), causal on the own block and non-causal on an earlier one, and the
+  flash forward kernel (``ops/flash_attention.py::flash_fwd``, K1), causal on the own block and non-causal on an earlier one, and the
   hops merge on their log-sum-exp from a -1e30 start;
 - otherwise (the default for CPU tensors, as JAX's off-TPU default): the
   online-softmax einsum accumulation of ``_block_attend``.
@@ -20,15 +19,29 @@ Under ``causal`` a block later than the rank's own is skipped; under a
 ``window`` (global positions: a query at p sees keys in (p - window, p]) so
 is a block wholly below the window, and a block the window boundary
 straddles is masked in global offsets (the flash ring attends it through
-``boundary_block``, a torch-level masked block that merges like a kernel
+``_boundary_block``, a torch-level masked block that merges like a kernel
 hop). The ring still makes its sp - 1 exchanges; the last hop's, whose
 result nothing reads, is not sent.
 
-Every rank of the group must call these functions alike (SPMD). The ring
-is not differentiable here: ``torch.distributed``'s point-to-point calls
-are not autograd-aware, so an input that requires grad under grad mode
-raises ``NotImplementedError`` (the sp backward is ROADMAP Queue 1, item
-1, slice 11b).
+Every rank of the group must call these functions alike (SPMD).
+
+The ring is differentiable on both paths through one
+``torch.autograd.Function`` that owns its backward. The forward keeps q,
+k, v, the merged output and the merged log-sum-exp. The backward runs the
+ring again on every rank, K/V going round with their dK/dV accumulators:
+on each hop the forward attended it adds that block's share of the
+gradient, taken against the merged statistics (``P = exp(S - lse)`` and
+``delta = rowsum(dO * O)``, the per-hop VJP of JAX's transpose with the
+lse cotangent folded into delta): the flash path calls the dK/dV and dQ
+kernels (K3, K4; their plain versions on the CPU) directly, causal on the
+own block and not on an earlier one, and a ``_boundary_block`` or an
+einsum hop takes the same formula in torch. dQ accumulates on the rank;
+the dK/dV accumulators, after the last hop, move once more to reach the
+rank that owns their block. Every rank makes the same exchanges in the
+same order whatever it attended: a ring built from a differentiable shift
+would leave the exchanges of a rank whose shifted blocks never reach the
+loss (rank 0 under ``causal``) out of its backward, and its neighbour
+would wait for them forever.
 """
 
 from __future__ import annotations
@@ -36,31 +49,21 @@ from __future__ import annotations
 import torch
 
 from bee_code_interpreter_tpu_torch.ops.flash_attention import (
-    flash_attention_with_lse,
+    flash_bwd,
+    flash_fwd,
 )
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
-    all_gather_cat,
+    gather_from_group,
     group_rank,
     group_size,
     ring_shift,
-    shard_tensor,
+    split_to_group,
     sp_group,
 )
 
 # the flash ring's running max starts here, not at -inf: (-inf) - (-inf)
 # would NaN the rescale of a row no hop has reached yet
 NEG = -1e30
-
-
-def refuse_grad(what: str, *tensors) -> None:
-    """The sequence-parallel exchanges are not autograd-aware: raise where
-    a caller would differentiate through them."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} is not differentiable in the port yet: its exchanges "
-            "are torch.distributed calls outside autograd (ROADMAP Queue 1, "
-            "item 1, slice 11b: the backward of the ring and of Ulysses)"
-        )
 
 
 def _check_window(causal: bool, window: int | None) -> None:
@@ -104,6 +107,188 @@ def _skipped(causal, window, my_idx, k_idx, Lq) -> bool:
     return window is not None and (my_idx - k_idx) * Lq - (Lq - 1) >= window
 
 
+def _hop_kind(causal, window, my_idx, k_idx, Lq) -> str | None:
+    """How a rank attends the block of rank ``k_idx``: None (skipped),
+    ``"own"`` (causal, with the window), ``"full"`` (every pair visible)
+    or ``"boundary"`` (the window's edge straddles the block)."""
+    if _skipped(causal, window, my_idx, k_idx, Lq):
+        return None
+    if causal and k_idx == my_idx:
+        return "own"
+    if window is None or (my_idx - k_idx) * Lq + Lq - 1 < window:
+        return "full"
+    return "boundary"
+
+
+def _visible(kind, window, my_idx, k_idx, Lq, Lk, device):
+    """``[Lq, Lk]`` bool of a hop's visible pairs in global offsets, None
+    where every pair is visible."""
+    if kind == "full":
+        return None
+    offset = _offsets(Lq, Lk, device)
+    if kind == "own":  # local offsets are global ones
+        visible = offset >= 0
+        return visible if window is None else visible & (offset < window)
+    return offset < window - (my_idx - k_idx) * Lq
+
+
+def _grouped(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """``[B, H, L, ...]`` as f32 ``[B, KVH, H / KVH, L, ...]``."""
+    return x.float().reshape(x.shape[0], kvh, -1, *x.shape[2:])
+
+
+def _boundary_block(q, k, v, visible, scale):
+    """A masked softmax block as (normalized out in q's dtype, lse ``[B,
+    H, Lq]``): a fully masked row comes out with lse ~ -1e30 and merges
+    with weight 0."""
+    B, H, Lq, D = q.shape
+    scores = torch.einsum("bgrqd,bgkd->bgrqk", _grouped(q, k.shape[1]),
+                          k.float()) * scale
+    scores = torch.where(visible, scores, torch.tensor(NEG, device=q.device))
+    m_b = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m_b)
+    l_b = p.sum(dim=-1, keepdim=True)  # >= 1: some e^0 survives
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float()) / l_b
+    lse = (m_b + torch.log(l_b))[..., 0]
+    return out.reshape(B, H, Lq, D).to(q.dtype), lse.reshape(B, H, Lq)
+
+
+def _hop_grads(q, k, v, do, lse, delta, scale, visible):
+    """One hop's share of ``(dQ, dK, dV)``, f32, against the merged ``lse``
+    and ``delta`` (``[B, H, Lq]``): ``P = exp(S - lse)`` on the visible
+    pairs, ``dS = P (dP - delta) scale``; dK/dV compact, summed over each
+    K/V head's query heads. The torch formula of K3/K4's work, for the
+    einsum hops and the boundary blocks."""
+    B, H, Lq, D = q.shape
+    KVH = k.shape[1]
+    qg, dog = _grouped(q, KVH), _grouped(do, KVH)
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bgrqd,bgkd->bgrqk", qg, kf) * scale
+    p = torch.exp(scores - _grouped(lse, KVH)[..., None])
+    if visible is not None:
+        p = torch.where(visible, p, 0.0)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dog, vf)
+    ds = p * (dp - _grouped(delta, KVH)[..., None]) * scale
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, kf).reshape(B, H, Lq, D)
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, qg)
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dog)
+    return dq, dk, dv
+
+
+def _ring_einsum(q, k, v, group, causal, scale, window):
+    """The einsum ring (JAX's off-TPU default): ``(out, lse)``."""
+    B, H, Lq, D = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    n, my_idx = group_size(group), group_rank(group)
+    qf = _grouped(q, KVH)
+    m = torch.full_like(qf[..., :1], float("-inf"))
+    l = torch.zeros_like(qf[..., :1])
+    o = torch.zeros_like(qf)
+    k_blk, v_blk = k, v
+    for step in range(n):
+        k_idx = (my_idx - step) % n
+        kind = _hop_kind(causal, window, my_idx, k_idx, Lq)
+        if kind is not None:
+            visible = _visible(kind, window, my_idx, k_idx, Lq, Lk, q.device)
+            mask = None if visible is None else torch.zeros(
+                Lq, Lk, device=q.device).masked_fill(~visible, float("-inf"))
+            m, l, o = _block_attend(qf, k_blk, v_blk, m, l, o, scale, mask)
+        if step < n - 1:
+            k_blk, v_blk = ring_shift((k_blk, v_blk), group)
+    # every query sees its own block, so l > 0; the floor is JAX's guard
+    l = torch.clamp(l, min=1e-30)
+    out = (o / l).reshape(B, H, Lq, D).to(q.dtype)
+    return out, (m + torch.log(l)).reshape(B, H, Lq)
+
+
+def _ring_flash(q, k, v, group, causal, scale, window):
+    """The flash ring: the flash forward kernel (K1) per hop, hops merged
+    on their log-sum-exp: running ``m = max lse``, ``s = sum e^(lse - m)``,
+    ``o = sum out e^(lse - m)``, the result ``o / s``. Each hop's ``out``
+    is in q's dtype, as the kernel returns it; the merge runs in f32. The
+    own block is causal (with the window), an earlier block wholly inside
+    the window non-causal, a straddled block a ``_boundary_block``.
+    Returns ``(out, lse)``."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    n, my_idx = group_size(group), group_rank(group)
+    m = torch.full((B, H, Lq, 1), NEG, dtype=torch.float32, device=q.device)
+    s = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    k_blk, v_blk = k, v
+    for step in range(n):
+        k_idx = (my_idx - step) % n
+        kind = _hop_kind(causal, window, my_idx, k_idx, Lq)
+        if kind is not None:
+            if kind == "boundary":
+                out_blk, lse_blk = _boundary_block(q, k_blk, v_blk, _visible(
+                    kind, window, my_idx, k_idx, Lq, Lk, q.device), scale)
+            else:
+                own = kind == "own"
+                out_blk, lse_blk = flash_fwd(q, k_blk, v_blk, own, scale,
+                                             window if own else None)
+            lse_blk = lse_blk[..., None]
+            m_new = torch.maximum(m, lse_blk)
+            scale_old = torch.exp(m - m_new)
+            scale_blk = torch.exp(lse_blk - m_new)
+            o = o * scale_old + out_blk.float() * scale_blk
+            s = s * scale_old + scale_blk
+            m = m_new
+        if step < n - 1:
+            k_blk, v_blk = ring_shift((k_blk, v_blk), group)
+    s = torch.clamp(s, min=1e-30)
+    return (o / s).to(q.dtype), (m + torch.log(s))[..., 0]
+
+
+class _Ring(torch.autograd.Function):
+    """The ring's forward on either path, and its backward: the ring run
+    again (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale, window, use_flash):
+        run = _ring_flash if use_flash else _ring_einsum
+        out, lse = run(q, k, v, group, causal, scale, window)
+        ctx.save_for_backward(q, k, v, out, lse.contiguous())
+        ctx.args = (group, causal, scale, window, use_flash)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, causal, scale, window, use_flash = ctx.args
+        n, my_idx = group_size(group), group_rank(group)
+        Lq, Lk = q.shape[2], k.shape[2]
+        do = g_out.contiguous()
+        delta = (do.float() * out.float()).sum(dim=-1)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        k_blk, v_blk = k, v
+        for step in range(n):
+            k_idx = (my_idx - step) % n
+            kind = _hop_kind(causal, window, my_idx, k_idx, Lq)
+            if kind is not None:
+                if use_flash and kind != "boundary":
+                    own = kind == "own"
+                    gq, gk, gv = flash_bwd(q, k_blk, v_blk, do, lse, delta,
+                                           own, scale, window if own else None)
+                else:
+                    gq, gk, gv = _hop_grads(q, k_blk, v_blk, do, lse, delta,
+                                            scale, _visible(
+                                                kind, window, my_idx, k_idx,
+                                                Lq, Lk, q.device))
+                dq += gq.float()
+                dk += gk.float()
+                dv += gv.float()
+            if step < n - 1:
+                k_blk, v_blk, dk, dv = ring_shift((k_blk, v_blk, dk, dv),
+                                                  group)
+        # rank r holds block r + 1's accumulators: one more hop to its owner
+        dk, dv = ring_shift((dk, dv), group)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
+
+
 def ring_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -120,115 +305,19 @@ def ring_attention(
 
     Per rank: q ``[B, H, L_local, D]``, k/v ``[B, KVH, L_local, D]`` with
     ``H % KVH == 0``, the rank's contiguous block of the sequence. Returns
-    ``[B, H, L_local, D]`` in q's dtype. ``use_flash`` defaults to the
-    tensors' device: the flash forward kernel per hop on CUDA, the einsum
-    accumulation on the CPU. ``window`` (requires ``causal``) is a sliding
-    window in global positions."""
+    ``[B, H, L_local, D]`` in q's dtype, differentiable in q, k and v.
+    ``use_flash`` defaults to the tensors' device: the flash kernels per
+    hop on CUDA, the einsum accumulation on the CPU. ``window`` (requires
+    ``causal``) is a sliding window in global positions."""
     _check_window(causal, window)
-    refuse_grad("ring_attention", q, k, v)
     if use_flash is None:
         use_flash = q.is_cuda
-    if use_flash:
-        return _ring_attention_flash(q, k, v, group=group, causal=causal,
-                                     sm_scale=sm_scale, window=window)
-    B, H, Lq, D = q.shape
-    KVH, Lk = k.shape[1], k.shape[2]
-    if H % KVH:
-        raise ValueError(f"n_heads {H} not a multiple of kv_heads {KVH}")
-    scale = sm_scale if sm_scale is not None else D ** -0.5
-    n, my_idx = group_size(group), group_rank(group)
-
-    qf = q.float().reshape(B, KVH, H // KVH, Lq, D)
-    m = torch.full_like(qf[..., :1], float("-inf"))
-    l = torch.zeros_like(qf[..., :1])
-    o = torch.zeros_like(qf)
-    offset = _offsets(Lq, Lk, q.device)
-    own_mask = None
-    if causal:
-        visible = offset >= 0
-        if window is not None:  # own block: local offsets are global ones
-            visible &= offset < window
-        own_mask = torch.zeros(Lq, Lk, device=q.device).masked_fill(
-            ~visible, float("-inf"))
-
-    k_blk, v_blk = k, v
-    for step in range(n):
-        k_idx = (my_idx - step) % n
-        if not _skipped(causal, window, my_idx, k_idx, Lq):
-            if causal and k_idx == my_idx:
-                mask = own_mask
-            elif window is not None:
-                delta = (my_idx - k_idx) * Lq  # global row - col shift
-                mask = torch.zeros(Lq, Lk, device=q.device).masked_fill(
-                    ~(offset < window - delta), float("-inf"))
-            else:
-                mask = None
-            m, l, o = _block_attend(qf, k_blk, v_blk, m, l, o, scale, mask)
-        if step < n - 1:
-            k_blk, v_blk = ring_shift((k_blk, v_blk), group)
-    # every query sees its own block, so l > 0; the floor is JAX's guard
-    out = o / torch.clamp(l, min=1e-30)
-    return out.reshape(B, H, Lq, D).to(q.dtype)
-
-
-def _ring_attention_flash(q, k, v, *, group, causal: bool,
-                          sm_scale: float | None,
-                          window: int | None = None) -> torch.Tensor:
-    """Ring attention with the flash forward kernel (K1) per hop, hops
-    merged on their log-sum-exp: running ``m = max lse``, ``s = sum
-    e^(lse - m)``, ``o = sum out e^(lse - m)``, the result ``o / s``. Each
-    hop's ``out`` is in q's dtype, as the kernel returns it; the merge runs
-    in f32. The own block is causal (with the window), an earlier block
-    wholly inside the window non-causal, a straddled block a
-    ``boundary_block``."""
-    B, H, Lq, D = q.shape
-    KVH, Lk = k.shape[1], k.shape[2]
-    n, my_idx = group_size(group), group_rank(group)
-    scale = sm_scale if sm_scale is not None else D ** -0.5
-
-    m = torch.full((B, H, Lq, 1), NEG, dtype=torch.float32, device=q.device)
-    s = torch.zeros_like(m)
-    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-
-    def boundary_block(k_idx, k_blk, v_blk):
-        """A masked softmax block (row - col < window - delta in global
-        offsets) as (normalized out in q's dtype, lse): a fully masked row
-        comes out with lse ~ -1e30 and merges with weight 0."""
-        delta = (my_idx - k_idx) * Lq
-        qf = q.float().reshape(B, KVH, H // KVH, Lq, D)
-        scores = torch.einsum("bgrqd,bgkd->bgrqk", qf, k_blk.float()) * scale
-        visible = _offsets(Lq, Lk, q.device) < window - delta
-        scores = torch.where(visible, scores, torch.tensor(NEG, device=q.device))
-        m_b = scores.amax(dim=-1, keepdim=True)
-        p = torch.exp(scores - m_b)
-        l_b = p.sum(dim=-1, keepdim=True)  # >= 1: some e^0 survives
-        out = torch.einsum("bgrqk,bgkd->bgrqd", p, v_blk.float()) / l_b
-        lse = (m_b + torch.log(l_b))[..., 0]
-        return out.reshape(B, H, Lq, D).to(q.dtype), lse.reshape(B, H, Lq)
-
-    k_blk, v_blk = k, v
-    for step in range(n):
-        k_idx = (my_idx - step) % n
-        if not _skipped(causal, window, my_idx, k_idx, Lq):
-            if causal and k_idx == my_idx:
-                out_blk, lse_blk = flash_attention_with_lse(
-                    q, k_blk, v_blk, True, sm_scale, window=window)
-            elif window is None or (my_idx - k_idx) * Lq + Lq - 1 < window:
-                # fully visible: even the largest offset is in the window
-                out_blk, lse_blk = flash_attention_with_lse(
-                    q, k_blk, v_blk, False, sm_scale)
-            else:
-                out_blk, lse_blk = boundary_block(k_idx, k_blk, v_blk)
-            lse_blk = lse_blk[..., None]
-            m_new = torch.maximum(m, lse_blk)
-            scale_old = torch.exp(m - m_new)
-            scale_blk = torch.exp(lse_blk - m_new)
-            o = o * scale_old + out_blk.float() * scale_blk
-            s = s * scale_old + scale_blk
-            m = m_new
-        if step < n - 1:
-            k_blk, v_blk = ring_shift((k_blk, v_blk), group)
-    return (o / torch.clamp(s, min=1e-30)).to(q.dtype)
+    D = q.shape[-1]
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"n_heads {q.shape[1]} not a multiple of kv_heads {k.shape[1]}")
+    scale = float(sm_scale if sm_scale is not None else D ** -0.5)
+    return _Ring.apply(q, k, v, group, causal, scale, window, bool(use_flash))
 
 
 def ring_attention_sharded(
@@ -246,18 +335,19 @@ def ring_attention_sharded(
     """Standalone entry: every rank passes the whole ``[B, H, L, D]``
     q and ``[B, KVH, L, D]`` k/v, takes its block of L over ``axis_name``,
     runs the ring, and gets the whole output back (the blocks all-gathered
-    in rank order), as JAX's entry returns one global array."""
+    in rank order), as JAX's entry returns one global array.
+    Differentiable: a loss every rank computes from the whole output
+    counts once, and every rank gets the whole gradient of q, k and v
+    (``split_to_group`` / ``gather_from_group``)."""
     if axis_name != "sp":
         raise ValueError(f"the ring runs over the sp axis, got {axis_name!r}")
     group = sp_group(mesh)
-    spec = (None, None, "sp", None)
-    dev = q.device
     out = ring_attention(
-        *(shard_tensor(x, spec, mesh, dev) for x in (q, k, v)),
+        *(split_to_group(x, group, 2) for x in (q, k, v)),
         group=group, causal=causal, sm_scale=sm_scale, use_flash=use_flash,
         window=window,
     )
-    return all_gather_cat(out, group, dim=2)
+    return gather_from_group(out, group, 2)
 
 
 def reference_attention(q, k, v, *, causal: bool = True,

@@ -12,9 +12,11 @@ query heads; K/V heads that do not divide over sp are broadcast up to
 ``lcm(KVH, sp)`` first, which keeps the group-major query -> K/V pairing.
 
 ``models/transformer.py`` picks the ring or Ulysses by
-``TransformerConfig.sp_attention``. Like the ring, the exchange is not
-autograd-aware here: an input that requires grad under grad mode raises
-``NotImplementedError``.
+``TransformerConfig.sp_attention``. Ulysses is differentiable: each
+all-to-all's backward is the inverse exchange, the local attention is the
+flash ``autograd.Function`` (K1 forward, K3/K4 backward at H/sp heads over
+the whole sequence, their plain versions on the CPU), and a K/V head
+broadcast up to the lcm gets the sum of its copies' gradients.
 """
 
 from __future__ import annotations
@@ -29,15 +31,14 @@ from bee_code_interpreter_tpu_torch.ops.flash_attention import (
     local_attention as _dispatch,
 )
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
-    all_gather_cat,
     all_to_all_tiled,
+    gather_from_group,
     group_size,
-    shard_tensor,
+    split_to_group,
     sp_group,
 )
 from bee_code_interpreter_tpu_torch.parallel.ring_attention import (
     reference_attention,
-    refuse_grad,
 )
 
 
@@ -76,7 +77,6 @@ def ulysses_attention(
             "window/use_flash with a custom local_attention: fold them into "
             "the callable instead (the default dispatch handles them)"
         )
-    refuse_grad("ulysses_attention", q, k, v)
     sp = group_size(group)
     H, KVH = q.shape[1], k.shape[1]
     if H % sp:
@@ -113,13 +113,14 @@ def ulysses_attention_sharded(
     """Standalone entry: every rank passes the whole ``[B, H, L, D]`` q and
     ``[B, KVH, L, D]`` k/v, takes its block of L over ``axis_name``, runs
     the exchange, and gets the whole output back (gathered in rank order),
-    as JAX's entry returns one global array."""
+    as JAX's entry returns one global array. Differentiable as the ring's
+    entry is: a loss every rank computes from the whole output counts
+    once."""
     if axis_name != "sp":
         raise ValueError(f"Ulysses runs over the sp axis, got {axis_name!r}")
     group = sp_group(mesh)
-    spec = (None, None, "sp", None)
     out = ulysses_attention(
-        *(shard_tensor(x, spec, mesh, q.device) for x in (q, k, v)),
+        *(split_to_group(x, group, 2) for x in (q, k, v)),
         group=group, causal=causal, window=window, use_flash=use_flash,
     )
-    return all_gather_cat(out, group, dim=2)
+    return gather_from_group(out, group, 2)

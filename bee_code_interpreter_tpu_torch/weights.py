@@ -21,8 +21,8 @@ Under a mesh (``mesh=``) the tree feeds ``transformer.shard_params``: the
 rank keeps its shard on its device, the slice of each leaf that JAX's
 ``shard_params`` puts on the device at the rank's mesh coordinates (a
 Mixture-of-Experts layer's experts over ep, each expert's d_ff over tp,
-the other dim of a projection over fsdp), trainable masters with
-``requires_grad``.
+the other dim of a projection over fsdp; under pp only the rank's stage
+block of the layers), trainable masters with ``requires_grad``.
 
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.

@@ -157,7 +157,10 @@ Phases, each printed as one JSON line, any failure exits non-zero:
 9. training kernels (K3 dK/dV, K4 dQ), as in 3, on K1's own out/lse, with
    SDPA's backward as the library call; two K3 calls and two K4 calls on the
    same inputs must give the same bits; again at a tp=2 rank's heads (H=16,
-   KVH=4, B=2, L=1024: ``flash_bwd_rank_local``, train_tp's shape).
+   KVH=4, B=2, L=1024: ``flash_bwd_rank_local``, train_tp's shape), and at
+   the sp backward's per-hop shapes (``flash_bwd_sp``: a ring rank's own
+   block, L=4096 causal, and an earlier hop, 4096 x 4096 non-causal, at
+   H=32 KVH=8; a Ulysses rank's H=16 KVH=4 over L=8192).
 10. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
@@ -188,7 +191,23 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    and the control's within TRAIN_TP_LOSS_TOL of train_path's at each of
    the 4 steps (AdamW turns tp's rounding into a drift the control shows
    on one card). Step ms,
-   tokens/s, the collectives' ms a step and the peak GB a rank.
+   tokens/s, the collectives' ms a step and the peak GB a rank. Then, in
+   the same spawn: ``sp_attention_grad`` (sp=2 on SP_ATTN_SHAPE: the ring
+   causal, the ring with a 1024 window and Ulysses, forward and backward
+   on each rank's block, dq/dk/dv within BWD_TOL of one card's
+   ``FlashAttention`` backward on the whole sequence; K3/K4 per rank r: r +
+   1 under the causal ring, 1 with the window (the earlier hop a boundary
+   block), 1 under Ulysses; the backward's ms and its exchanges' ms);
+   ``train_sp`` (Llama-3-8B widths cut to 2 layers, one row of 8192
+   tokens, sp=2, the ring then Ulysses, 2 AdamW steps each against one
+   card's 2 steps on the same masters and batch: every loss within
+   TRAIN_LOSS_TOL, first gradients within TRAIN_GRAD_TOL, the replicas
+   bitwise, K1/K3/K4 = layers x steps x hops per rank); ``train_pp`` (pp=2
+   through ``forward_pipelined`` and the loss, the 4-layer cut, 2 layers a
+   rank, 4 x 1024 tokens in 4 microbatches, 2 steps against one card's
+   4-layer steps; each rank holds only its layers plus the embedding and
+   head; K1/K3/K4 = 2 x 4 x 2 per rank; the schedule's bubble share and the
+   stage-to-stage exchanges' ms a step).
 12. ``hf_load``: an HF-named Llama state dict (Llama-3-8B widths, 2 layers)
    built on the card from ``init_params``, loaded by ``load_llama_params``:
    every leaf and the logits bitwise equal to the source's.
@@ -275,7 +294,6 @@ from bee_code_interpreter_tpu_torch.observability import (  # noqa: E402
 )
 from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: E402
     all_to_all_tiled,
-    shard_tensor,
     axis_index,
     axis_sizes,
     group_size,
@@ -297,6 +315,8 @@ ulysses_mod = importlib.import_module(
     "bee_code_interpreter_tpu_torch.parallel.ulysses")
 mesh_mod = importlib.import_module(
     "bee_code_interpreter_tpu_torch.parallel.mesh")
+pipeline_mod = importlib.import_module(
+    "bee_code_interpreter_tpu_torch.parallel.pipeline")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -484,6 +504,27 @@ TRAIN_MESH_CASES = {
 }
 # K3/K4 at a tp=2 rank's heads (H=16, KVH=4): train_tp's shape
 BWD_TP_CASES = [BWD_MAIN_CASE]
+# K3/K4 at the shapes of the sp backward's hops (sp=2 over 8192 tokens): a
+# ring rank's own block (causal) and an earlier hop (non-causal) at H=32
+# KVH=8, L_local 4096; a Ulysses rank's H=16 KVH=4 over the whole 8192
+BWD_SP_CASES = [(1, 4096, 4096, True, None, False),
+                (1, 4096, 4096, False, None, False)]
+BWD_ULYSSES_CASES = [(1, 8192, 8192, True, None, False)]
+# sp_attention_grad: the ring with a sliding window of 1024 (its earlier
+# hop a boundary block: no K3/K4 there)
+SP_GRAD_WINDOW = 1024
+# train_sp: Llama-3-8B widths cut to 2 layers (1.50 B parameters: f32
+# masters, gradients and AdamW moments 24 GB a rank, two ranks on one card),
+# one row of 8192 tokens (numpy seed 8), sp=2, the ring then Ulysses, 2
+# steps each, held to one card's 2 steps on the same masters and batch
+TRAIN_SP_LAYERS, TRAIN_SP_L, TRAIN_SP_STEPS = 2, 8192, 2
+# train_pp: pp=2 over Llama-3-8B widths cut to 4 layers (2 a stage: each
+# rank 2 layers plus the replicated embedding and head, 1.50 B parameters),
+# 4 x 1024 tokens (numpy seed 9) in 4 microbatches, 2 steps, held to one
+# card's 4-layer steps on the same masters and batch
+PP = 2
+TRAIN_PP_LAYERS, TRAIN_PP_B, TRAIN_PP_L = 4, 4, 1024
+TRAIN_PP_MICROBATCHES, TRAIN_PP_STEPS = 4, 2
 # the MoE aux loss, bf16 on the card against f32 on the CPU: relative error
 # (a top-1 flip moves it by ~E/tokens x a probability gap; bf16 rounding of
 # the mean probabilities by ~1e-3)
@@ -2914,6 +2955,72 @@ def sp_attention_rank(rank: int, dev) -> dict:
     return out
 
 
+def sp_attention_grad_rank(dev) -> dict:
+    """One sp rank of ``sp_attention_grad``: q/k/v and an output gradient
+    of SP_ATTN_SHAPE from one seed (the same on every rank); the ring
+    (causal, then with a SP_GRAD_WINDOW window) and Ulysses forward and
+    backward on the rank's block of positions, each gradient held against
+    one card's ``FlashAttention`` backward on the whole sequence, on the
+    rank's rows (dq) and its K/V block (dk, dv). Per run: K1/K3/K4
+    launches, the backward's host ms (the second of two calls) and the
+    exchanges' ms inside it."""
+    mesh = make_mesh({"sp": SP}, device_type="cuda")
+    group = serving_groups(mesh).sp
+    c = SP_ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(42)
+
+    def randn(heads):
+        return torch.randn(c["B"], heads, c["L"], c["D"], generator=gen,
+                           device=dev, dtype=torch.bfloat16)
+
+    q, k, v, do = randn(c["H"]), randn(c["KVH"]), randn(c["KVH"]), randn(c["H"])
+    me, Lr = axis_index(mesh, "sp"), c["L"] // SP
+    blk = slice(me * Lr, (me + 1) * Lr)
+    out = {}
+    for name, window in (("ring_causal", None), ("ring_window", SP_GRAD_WINDOW),
+                         ("ulysses", None)):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention(*leaves, True, window=window).backward(do)
+        want = [x.grad[:, :, blk] for x in leaves]
+        del leaves
+
+        def run():
+            xs = [x[:, :, blk].contiguous().requires_grad_() for x in (q, k, v)]
+            if name == "ulysses":
+                o = ulysses_mod.ulysses_attention(*xs, group=group)
+            else:
+                o = ring_mod.ring_attention(*xs, group=group, window=window)
+            torch.cuda.synchronize()
+            dist.barrier()
+            clock = CollectiveClock()
+            t = time.perf_counter()
+            try:
+                o.backward(do[:, :, blk].contiguous())
+                torch.cuda.synchronize()
+            finally:
+                clock.close()
+            return [x.grad for x in xs], (time.perf_counter() - t) * 1e3, clock
+        for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
+            kernel.launches = 0
+        got, _, _ = run()
+        launches = {"flash_fwd": fa.FLASH_FWD.launches,
+                    "flash_bwd_dkdv": fa.FLASH_BWD_DKDV.launches,
+                    "flash_bwd_dq": fa.FLASH_BWD_DQ.launches}
+        _, ms, clock = run()
+        errs = {g: rel_err(a, b.float())[1]
+                for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        out[name] = {
+            "rel_err": errs,
+            "row_rel_err": {g: row_rel_err(a, b) for g, a, b in
+                            zip(("dq", "dk", "dv"), got, want)},
+            "bitwise": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "launches": launches, "backward_ms": ms,
+            "exchange_ms": clock.ms["ring_shift"] + clock.ms["all_to_all"],
+        }
+        del got, want
+    return out
+
+
 def serve_on(batcher, requests, dev) -> dict:
     """``run_batcher`` on a mesh batcher, with this rank's live bytes (its
     shard of the weights and its pool, before the traffic) and mesh key."""
@@ -3448,16 +3555,27 @@ def serving_replicated_tp(dev, how4) -> dict:
 class CollectiveClock:
     """Host milliseconds of the mesh collectives while installed: the f32
     sums (``all_reduce_partial``, ``copy_to_group``'s backward, the
-    gradient sums and, on gloo, the fsdp reduce-scatter) and the gathers;
-    each timed between two ``torch.cuda.synchronize()``."""
+    gradient sums and, on gloo, the fsdp reduce-scatter), the gathers, the
+    ring's hops (forward and backward), Ulysses' all-to-alls (both
+    directions), the pipeline's stage-to-stage sends and receives and its
+    output and input-gradient broadcasts; each timed between two
+    ``torch.cuda.synchronize()`` (a receive's time includes its wait for
+    the sender)."""
+
+    HOOKS = ((mesh_mod, "_sum_f32", "sum"), (mesh_mod, "_gather", "gather"),
+             (ring_mod, "ring_shift", "ring_shift"),
+             (mesh_mod, "_all_to_all", "all_to_all"),
+             (pipeline_mod, "send_to", "p2p"),
+             (pipeline_mod, "recv_from", "p2p"),
+             (pipeline_mod, "broadcast_from", "pp_broadcast"))
 
     def __init__(self) -> None:
-        self.ms = {"sum": 0.0, "gather": 0.0}
+        self.ms = {key: 0.0 for _, _, key in self.HOOKS}
         self._undo = []
-        for attr, key in (("_sum_f32", "sum"), ("_gather", "gather")):
-            fn = getattr(mesh_mod, attr)
-            setattr(mesh_mod, attr, self._timed(fn, key))
-            self._undo.append((attr, fn))
+        for module, attr, key in self.HOOKS:
+            fn = getattr(module, attr)
+            setattr(module, attr, self._timed(fn, key))
+            self._undo.append((module, attr, fn))
 
     def _timed(self, fn, key):
         def timed(*args, **kwargs):
@@ -3470,8 +3588,8 @@ class CollectiveClock:
         return timed
 
     def close(self) -> None:
-        for attr, fn in self._undo:
-            setattr(mesh_mod, attr, fn)
+        for module, attr, fn in self._undo:
+            setattr(module, attr, fn)
 
 
 def train_cfg(name: str, n_layers: int) -> TransformerConfig:
@@ -3480,12 +3598,13 @@ def train_cfg(name: str, n_layers: int) -> TransformerConfig:
     return dataclasses.replace(base, n_layers=n_layers)
 
 
-def train_steps(model, params, batch, n: int, after_first=None) -> dict:
-    """``n`` steps of ``model.make_train_step()``: the losses, each step's
-    wall ms, the collectives' ms, K1/K3/K4 launches and the peak bytes;
-    ``after_first(params)`` reads the first step's gradients (they stay on
-    the leaves until the next step)."""
-    step = model.make_train_step()
+def train_steps(model, params, batch, n: int, after_first=None,
+                **step_kw) -> dict:
+    """``n`` steps of ``model.make_train_step(**step_kw)``: the losses, each
+    step's wall ms, the collectives' ms, K1/K3/K4 launches and the peak
+    bytes; ``after_first(params)`` reads the first step's gradients (they
+    stay on the leaves until the next step)."""
+    step = model.make_train_step(**step_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
@@ -3519,11 +3638,17 @@ def replicated_spread(params, cfg, mesh) -> float:
     """The largest |difference| across the ranks of a leaf that ``mesh``
     replicates (every rank of an axis the leaf's spec does not name holds
     the same bits): 0.0 when every rank's bits hash alike, else the max
-    of (max - min) over the ranks of the leaves that differ."""
+    of (max - min) over the ranks of the leaves that differ. Under pp the
+    layers are each stage's own: only the embedding, ln_f and the head are
+    replicas."""
     axes = set(axis_sizes(mesh))
     spread = 0.0
-    for leaf, spec in transformer.leaf_specs(params, param_specs(cfg, mesh)):
-        if axes <= {a for a in spec if a}:
+    pairs = transformer.leaf_specs(params, param_specs(cfg, mesh))
+    if "pp" in axes:
+        pairs = pairs[:1] + pairs[-2:]
+        axes.discard("pp")
+    for leaf, spec in pairs:
+        if axes and axes <= {a for a in spec if a}:
             continue  # sharded over every axis: no replica
         bits = leaf.detach().contiguous().view(torch.int32).flatten()
         digest = torch.zeros(2, dtype=torch.int64, device=bits.device)
@@ -3556,10 +3681,8 @@ def single_card_reference(cfg, seed, mesh, batch, dev) -> dict:
     loss.backward()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
-    specs = param_specs(cfg, mesh)
-    blocks = [shard_tensor(w.grad, spec, mesh, "cpu")
-              for w, spec in transformer.leaf_specs(params, specs)]
-    return {"loss": loss.item(), "grad_blocks": blocks, "ms": ms}
+    return {"loss": loss.item(), "grad_blocks": grad_blocks(params, cfg, mesh),
+            "ms": ms}
 
 
 def grad_errors(params, cfg, mesh, blocks) -> list[float]:
@@ -3571,6 +3694,88 @@ def grad_errors(params, cfg, mesh, blocks) -> list[float]:
         diff = torch.linalg.vector_norm(w.grad.float().cpu() - want)
         errs.append((diff / torch.linalg.vector_norm(want)).item())
     return errs
+
+
+def grad_blocks(params, cfg, mesh) -> list:
+    """Each leaf's gradient, on the host, in the shard ``mesh`` gives this
+    rank (``shard_params`` of the gradient tree: its blocks under the specs
+    and, under pp, its stage's layers), in ``param_leaves``' order."""
+    def grads(tree):
+        if isinstance(tree, dict):
+            return {k: grads(x) for k, x in tree.items()}
+        if isinstance(tree, list):
+            return [grads(x) for x in tree]
+        return tree.grad
+    return transformer.param_leaves(
+        shard_params(grads(params), cfg, mesh, "cpu"))
+
+
+def single_card_steps(cfg, seed, mesh, batch, dev, n_steps: int,
+                      **step_kw) -> dict:
+    """One card's ``n_steps`` train steps on the masters of ``seed`` and the
+    whole batch: the losses, and of the first step's gradients the blocks
+    this rank holds under ``mesh``, on the host."""
+    model = transformer.Transformer(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    blocks = []
+    run = train_steps(model, params, batch, n_steps,
+                      lambda p: blocks.extend(grad_blocks(p, cfg, mesh)),
+                      **step_kw)
+    return {"losses": run["losses"], "grad_blocks": blocks,
+            "step_ms": run["step_ms"], "peak_bytes": run["peak_bytes"]}
+
+
+def train_sp_rank(rank: int, dev) -> dict:
+    """One rank of ``train_sp``: one card's TRAIN_SP_STEPS steps (in turns),
+    then the same steps at sp=2 with the ring and with Ulysses on the
+    rank's block of positions."""
+    cfg = train_cfg("llama3_8b", TRAIN_SP_LAYERS)
+    mesh = make_mesh({"sp": SP}, device_type="cuda")
+    whole = token_batch(np.random.default_rng(8), cfg, 1, TRAIN_SP_L, dev)
+    ref = build_in_turns(rank, SP, lambda: single_card_steps(
+        cfg, 60, mesh, whole, dev, TRAIN_SP_STEPS))
+    out = {"single_card": {k: ref[k] for k in ("losses", "step_ms")}}
+    for attn in ("ring", "ulysses"):
+        c = dataclasses.replace(cfg, sp_attention=attn)
+        model = transformer.Transformer(c, mesh)
+        params = model.init(torch.Generator(device=dev).manual_seed(60), dev)
+        batch = model.batch_slice(whole)
+        run = train_steps(model, params, batch, TRAIN_SP_STEPS,
+                          lambda p: grad_errors(p, c, mesh,
+                                                ref["grad_blocks"]))
+        run["spread"] = replicated_spread(run.pop("params"), c, mesh)
+        run["positions"] = batch["tokens"].shape[1]
+        run["mesh"] = mesh_shape_key(mesh)
+        out[attn] = run
+        del params, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_pp_rank(rank: int, dev) -> dict:
+    """One rank of ``train_pp``: one card's TRAIN_PP_STEPS steps of the
+    4-layer cut (in turns), then the same steps through the pipeline at
+    pp=2 on the rank's stage (2 layers, the embedding and the head)."""
+    cfg = train_cfg("llama3_8b", TRAIN_PP_LAYERS)
+    mesh = make_mesh({"pp": PP}, device_type="cuda")
+    whole = token_batch(np.random.default_rng(9), cfg, TRAIN_PP_B,
+                        TRAIN_PP_L, dev)
+    ref = build_in_turns(rank, PP, lambda: single_card_steps(
+        cfg, 70, mesh, whole, dev, TRAIN_PP_STEPS))
+    model = transformer.Transformer(cfg, mesh)
+    params = model.init(torch.Generator(device=dev).manual_seed(70), dev)
+    held = {"layers": len(params["layers"]),
+            "parameters": transformer.n_params(params)}
+    run = train_steps(model, params, whole, TRAIN_PP_STEPS,
+                      lambda p: grad_errors(p, cfg, mesh, ref["grad_blocks"]),
+                      n_microbatches=TRAIN_PP_MICROBATCHES)
+    run["spread"] = replicated_spread(run.pop("params"), cfg, mesh)
+    run["mesh"] = mesh_shape_key(mesh)
+    run["held"] = held
+    run["single_card"] = {k: ref[k] for k in ("losses", "step_ms",
+                                              "peak_bytes")}
+    return run
 
 
 def train_mesh_rank(rank: int) -> dict:
@@ -3609,6 +3814,15 @@ def train_mesh_rank(rank: int) -> dict:
         run["single_card"] = {"loss": ref["loss"], "fwd_bwd_ms": ref["ms"]}
         out[key] = run
         del params, model, batch, ref, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the sp backward and the pipeline (PR 12's phases), on the same ranks
+    for key, phase in (("sp_attention_grad", lambda: sp_attention_grad_rank(dev)),
+                       ("train_sp", lambda: train_sp_rank(rank, dev)),
+                       ("train_pp", lambda: train_pp_rank(rank, dev))):
+        t = time.perf_counter()
+        out[key] = phase()
+        out[key]["seconds"] = time.perf_counter() - t
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3705,7 +3919,151 @@ def train_mesh_phases(dev, how, train, control) -> list[dict]:
                 train_path_step_ms_p50=train["step_ms_p50_2_to_4"],
                 train_path_peak_gb=train["peak_memory_gb"])
         out.append(rec)
+    out.append(sp_attention_grad_report([r["sp_attention_grad"] for r in ranks],
+                                        how))
+    out += train_sp_reports([r["train_sp"] for r in ranks], how)
+    out.append(train_pp_report([r["train_pp"] for r in ranks], how))
     return out
+
+
+def sp_attention_grad_report(ranks, how) -> dict:
+    """``sp_attention_grad``: each run's dq/dk/dv on every rank within
+    BWD_TOL of one card's backward (max error over max gradient; per row
+    it is reported, not held: a row whose gradient is small carries the
+    bf16 roundings of both sides at its own scale), and its
+    K3/K4 launches as the ring's geometry gives them: under ``causal`` rank
+    r attends r + 1 hops; with the window the earlier hop is a boundary
+    block (torch), so one each; Ulysses one each."""
+    rec = {"phase": "sp_attention_grad", "shape": SP_ATTN_SHAPE, "sp": SP,
+           "window": SP_GRAD_WINDOW, "tolerance": BWD_TOL,
+           "backend": how["backend"], "cards": how["cards"],
+           "seconds": ranks[0]["seconds"]}
+    for name in ("ring_causal", "ring_window", "ulysses"):
+        runs = [r[name] for r in ranks]
+        for r, run in enumerate(runs):
+            hops = r + 1 if name == "ring_causal" else 1
+            check(max(run["rel_err"].values()) <= BWD_TOL,
+                  f"sp_attention_grad {name} rank {r}: {run['rel_err']} "
+                  f"against one card's backward, over {BWD_TOL}")
+            for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+                check(run["launches"][kernel] == hops,
+                      f"sp_attention_grad {name} rank {r}: launches "
+                      f"{run['launches']}, predicted {hops} each")
+        rec[name] = {
+            "rel_err_per_rank": [run["rel_err"] for run in runs],
+            "row_rel_err_per_rank": [run["row_rel_err"] for run in runs],
+            "bitwise_vs_single_per_rank": [run["bitwise"] for run in runs],
+            "backward_ms_per_rank": [run["backward_ms"] for run in runs],
+            "exchange_ms_per_rank": [run["exchange_ms"] for run in runs],
+            "launches_per_rank": [run["launches"] for run in runs],
+        }
+    return rec
+
+
+def check_mesh_train(name, runs, ref_losses, want_launches) -> None:
+    """A training run under a mesh against one card's steps: every loss
+    within TRAIN_LOSS_TOL, the first gradients within TRAIN_GRAD_TOL, the
+    ranks' losses alike, the replicated leaves alike, and K1/K3/K4 as
+    predicted on each rank (``want_launches[r]``)."""
+    for r, run in enumerate(runs):
+        rel = [abs(g - w) / abs(w) for g, w in zip(run["losses"], ref_losses)]
+        check(all(np.isfinite(run["losses"]))
+              and len(rel) == len(ref_losses)
+              and max(rel) <= TRAIN_LOSS_TOL,
+              f"{name} rank {r}: losses {run['losses']} against one card's "
+              f"{ref_losses} (rel {rel})")
+        check(run["losses"] == runs[0]["losses"],
+              f"{name}: rank {r}'s losses differ from rank 0's")
+        check(max(run["first"]) <= TRAIN_GRAD_TOL,
+              f"{name} rank {r}: first gradients {max(run['first'])} from "
+              f"one card's, over {TRAIN_GRAD_TOL}")
+        check(run["spread"] == 0.0,
+              f"{name} rank {r}: replicated leaves differ by {run['spread']}")
+        check(all(n == want_launches[r] for n in run["launches"].values()),
+              f"{name} rank {r}: launches {run['launches']}, predicted "
+              f"{want_launches[r]} each")
+
+
+def mesh_train_record(phase, case, runs, ref, tokens, how) -> dict:
+    lead = runs[0]
+    p50 = float(np.median(lead["step_ms"][1:] or lead["step_ms"]))
+    n = len(lead["step_ms"])
+    return {
+        "phase": phase, "case": case, "mesh": lead["mesh"],
+        "config": "llama3_8b", "backend": how["backend"],
+        "cards": how["cards"], "steps": n, "losses": lead["losses"],
+        "single_card_losses": ref["losses"],
+        "loss_rel_err": [abs(g - w) / abs(w)
+                         for g, w in zip(lead["losses"], ref["losses"])],
+        "loss_tolerance": TRAIN_LOSS_TOL,
+        "first_grad_max_rel_err": max(max(r["first"]) for r in runs),
+        "grad_tolerance": TRAIN_GRAD_TOL,
+        "step_ms": lead["step_ms"], "step_ms_p50": p50,
+        "tokens_per_s": tokens / p50 * 1e3,
+        "single_card_step_ms": ref["step_ms"],
+        "collective_ms_per_step": {k: v / n for k, v in
+                                   lead["collective_ms"].items()},
+        "collective_ms_per_step_per_rank": [
+            {k: v / n for k, v in r["collective_ms"].items()} for r in runs],
+        "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in runs],
+        "replicated_leaf_max_abs_diff": max(r["spread"] for r in runs),
+        "launches_per_rank": [r["launches"] for r in runs],
+    }
+
+
+def train_sp_reports(ranks, how) -> list[dict]:
+    """``train_sp``: the ring's and Ulysses' steps at sp=2 against one
+    card's (``check_mesh_train``); per rank K1/K3/K4 = layers x steps x
+    the hops it attends (the ring: rank + 1; Ulysses: 1)."""
+    ref = ranks[0]["single_card"]
+    for r, rank in enumerate(ranks):
+        check(rank["single_card"]["losses"] == ref["losses"],
+              f"train_sp: one card's losses differ on rank {r}")
+    out = []
+    for attn in ("ring", "ulysses"):
+        runs = [r[attn] for r in ranks]
+        per = TRAIN_SP_LAYERS * TRAIN_SP_STEPS
+        want = [per * (r + 1 if attn == "ring" else 1)
+                for r in range(len(runs))]
+        check_mesh_train(f"train_sp {attn}", runs, ref["losses"], want)
+        check(all(run["positions"] == TRAIN_SP_L // SP for run in runs),
+              "train_sp: a rank does not hold its block of positions")
+        rec = mesh_train_record("train_sp", f"train_sp_{attn}", runs, ref,
+                                TRAIN_SP_L, how)
+        rec.update(layers=TRAIN_SP_LAYERS, B=1, L=TRAIN_SP_L,
+                   sp_attention=attn, seconds=ranks[0]["seconds"])
+        out.append(rec)
+    return out
+
+
+def train_pp_report(runs, how) -> dict:
+    """``train_pp``: the pipeline's steps against one card's 4-layer steps
+    (``check_mesh_train``); each rank holds its 2 layers; per rank
+    K1/K3/K4 = its layers x microbatches x steps (each stage runs its real
+    microbatches only, no bubble tick); the schedule's bubble share and
+    each rank's share of its steps spent in the stage-to-stage exchanges
+    (waits included)."""
+    ref = runs[0]["single_card"]
+    per_stage = TRAIN_PP_LAYERS // PP
+    want = per_stage * TRAIN_PP_MICROBATCHES * TRAIN_PP_STEPS
+    check_mesh_train("train_pp", runs, ref["losses"], [want] * len(runs))
+    for r, run in enumerate(runs):
+        check(run["held"]["layers"] == per_stage,
+              f"train_pp rank {r}: holds {run['held']['layers']} layers")
+    rec = mesh_train_record("train_pp", "train_pp", runs, ref,
+                            TRAIN_PP_B * TRAIN_PP_L, how)
+    M, S = TRAIN_PP_MICROBATCHES, PP
+    rec.update(
+        layers=TRAIN_PP_LAYERS, layers_per_rank=[r["held"]["layers"]
+                                                 for r in runs],
+        parameters_per_rank=[r["held"]["parameters"] for r in runs],
+        B=TRAIN_PP_B, L=TRAIN_PP_L, microbatches=M,
+        schedule_bubble_share=(S - 1) / (M + S - 1),
+        p2p_share_of_step_per_rank=[
+            r["collective_ms"]["p2p"] / sum(r["step_ms"]) for r in runs],
+        single_card_peak_gb=ref["peak_bytes"] / 1e9,
+        seconds=runs[0]["seconds"])
+    return rec
 
 
 def main() -> int:
@@ -3866,6 +4224,12 @@ def main() -> int:
     bwd_tp_rows = check_flash_bwd(timer, dev, TP_HEADS, BWD_TP_CASES)
     emit({"phase": "flash_bwd_rank_local", "heads": list(TP_HEADS),
           "tolerance": BWD_TOL, "D": 128, "cases": bwd_tp_rows})
+    # the same kernels at the sp backward's per-hop shapes: a ring rank's
+    # own block and an earlier hop, and a Ulysses rank's heads
+    bwd_sp_rows = (check_flash_bwd(timer, dev, (32, 8), BWD_SP_CASES)
+                   + check_flash_bwd(timer, dev, (16, 4), BWD_ULYSSES_CASES))
+    emit({"phase": "flash_bwd_sp", "tolerance": BWD_TOL, "D": 128,
+          "cases": bwd_sp_rows})
     del timer
     torch.cuda.empty_cache()
     emit(check_train_reference(dev))
@@ -3915,8 +4279,14 @@ def main() -> int:
     bwd_shape = (f"B={TRAIN_B} H=32 KVH=8 L={TRAIN_L} D=128 causal bf16, "
                  "lse/delta f32")
     # each training phase under a mesh: rank 0's launches, and every rank's
-    train_mesh_launches = {rec["case"]: rec["launches_per_rank"]
-                           for rec in train_meshes}
+    train_mesh_launches = {}
+    for rec in train_meshes:
+        if rec["phase"] == "sp_attention_grad":
+            for name in ("ring_causal", "ring_window", "ulysses"):
+                train_mesh_launches[f"sp_attention_grad_{name}"] = rec[
+                    name]["launches_per_rank"]
+        else:
+            train_mesh_launches[rec["case"]] = rec["launches_per_rank"]
 
     def train_launches(name) -> dict:
         return {case: per_rank[0][name]
@@ -3945,10 +4315,20 @@ def main() -> int:
                 "library_ms": bwd_tp["library_ms"],
                 "max_abs_err": bwd_tp[key]["max_abs_err"],
                 "rel_err": bwd_tp[key]["rel_err"]},
+            "sp_shapes": [{
+                "shape": f"B={r['B']} H={r['H']} KVH={r['KVH']} "
+                         f"Lq={r['Lq']} Lk={r['Lk']} causal={r['causal']} "
+                         "D=128 bf16",
+                "ms": r[key]["ms"], "plain_ms": r[key]["plain_ms"],
+                "bound_ms": r[key]["bound_ms"],
+                "bound_by": r[key]["bound_by"],
+                "library_ms": r["library_ms"],
+                "max_abs_err": r[key]["max_abs_err"],
+                "rel_err": r[key]["rel_err"]} for r in bwd_sp_rows],
             "max_abs_err": max(r[key]["max_abs_err"]
-                               for r in bwd_rows + bwd_tp_rows),
+                               for r in bwd_rows + bwd_tp_rows + bwd_sp_rows),
             "max_rel_err": max(r[key]["rel_err"]
-                               for r in bwd_rows + bwd_tp_rows),
+                               for r in bwd_rows + bwd_tp_rows + bwd_sp_rows),
             "ms": row["ms"], "kernel_ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

@@ -9,9 +9,9 @@ its flash-hop ring under ``shard_map`` (Pallas in interpret mode) on four
 of the 8 virtual CPU devices. Checklist: the forward cases of the JAX
 package's tests/test_parallel.py:44-211 (causal and not, bf16, GQA-compact
 K/V, sliding windows in global positions, flash hops against the
-reference and against the einsum hops, the two window validations); the
-gradient cases wait for the sp backward (ROADMAP Queue 1, item 1,
-slice 11b), and the port's ring refuses inputs that require grad.
+reference and against the einsum hops, the two window validations), and
+the rank-level ring under grad mode; the gradient cases of
+tests/test_parallel.py are tests/test_torch_sp_backward.py's.
 
 Tolerances: the f32 cases 2e-5 (einsum hops, JAX's own bound) and 2e-4
 (flash hops, JAX's own bound: hops merged on their log-sum-exp), bf16 3e-2
@@ -164,12 +164,30 @@ def test_window_validations_match_jax(ranks):
                                                          str(err.value))
 
 
-def test_ring_refuses_inputs_that_require_grad(ranks):
-    """P2P exchanges are outside autograd: the ring refuses to be
-    differentiated, naming the slice that ports it, and runs under
-    no_grad."""
-    for rec in ranks:
-        kind, msg = rec["grad_refused"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP Queue 1, item 1, slice 11b" in msg
+def rank_level_grads(c, attention):
+    """JAX's output and gradients of the whole-sequence loss that the
+    ranks' shares ``(out_r ** 2).sum()`` add up to: the first 8 positions
+    a rank over the first 8 x SP of ``c``."""
+    q, k, v = (jnp.asarray(c[n][:, :, :8 * SP]) for n in ("q", "k", "v"))
+    out = attention(q, k, v)
+    grads = jax.grad(lambda *x: (attention(*x) ** 2).sum(),
+                     argnums=(0, 1, 2))(q, k, v)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def test_ring_runs_under_grad_mode(ranks):
+    """The rank-level ring is differentiable (its backward runs the ring
+    again): each rank's output and its block's gradients of the ranks'
+    summed loss match JAX's dense reference within the einsum hops'
+    gradient tolerance; it also runs under no_grad."""
+    want, grads = rank_level_grads(
+        CASES[OUTPUT_CASES[0]],
+        lambda q, k, v: reference_attention(q, k, v, causal=True))
+    for r, rec in enumerate(ranks):
+        blk = slice(8 * r, 8 * (r + 1))
+        got = rec["grad_mode"]
+        np.testing.assert_allclose(got["out"], want[:, :, blk],
+                                   atol=EINSUM_TOL, rtol=EINSUM_TOL)
+        for g, w in zip(got["grads"], grads):
+            np.testing.assert_allclose(g, w[:, :, blk], atol=1e-4, rtol=1e-4)
         assert rec["no_grad_runs"] is None

@@ -491,17 +491,18 @@ def test_engine_admission_error_fails_the_rank_under_a_mesh(weights):
 def test_unported_paths_refuse(ranks):
     """One batcher serves over tp, sp and ep: a dp axis inside it is
     refused (data-parallel serving is ``ReplicatedEngine.build(meshes=)``),
-    and so is fsdp (a training axis); the pipeline is not ported yet and
-    names its slice (ROADMAP Queue 1, item 1, slice 11b); replicas need a
-    dp x tp mesh. Training under the tp mesh, which this refused until
-    slice 11a, now builds (tests/test_torch_train_mesh.py holds it to
-    JAX)."""
+    and so are fsdp (a training axis) and pp (the pipeline trains,
+    ``forward_pipelined``); generation over dp is not ported yet and names
+    its slice (ROADMAP Queue 1, item 1, slice 13); replicas need a dp x tp
+    mesh. Training under the tp mesh (slice 11a) and a model over pp (slice
+    11b) now build (tests/test_torch_train_mesh.py and
+    tests/test_torch_pipeline_transformer.py hold them to JAX)."""
     expect = {
         "dp": ("NotImplementedError", "ReplicatedEngine.build(meshes=...)"),
         "fsdp": ("NotImplementedError", "Transformer.make_train_step"),
-        "pp": ("NotImplementedError", "ROADMAP Queue 1, item 1, slice 11b"),
-        "pp_model": ("NotImplementedError",
-                     "ROADMAP Queue 1, item 1, slice 11b"),
+        "pp": ("NotImplementedError", "forward_pipelined"),
+        "generate_dp": ("NotImplementedError",
+                        "ROADMAP Queue 1, item 1, slice 13"),
         "replicas_over_a_tp_mesh": ("ValueError", "dp and tp"),
     }
     for rec in ranks:
@@ -511,4 +512,4 @@ def test_unported_paths_refuse(ranks):
             assert err[0] == expect[what][0], (what, err)
             assert expect[what][1] in err[1], (what, err)
         assert rec["ported"] == {"train_step": True, "init": True,
-                                 "lora_train_step": True}
+                                 "lora_train_step": True, "pp_model": True}

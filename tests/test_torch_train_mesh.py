@@ -12,8 +12,8 @@ them. The 8-device shapes of the JAX tests get 4-rank analogues: ``{"dp":
 ``{"tp": 2}``, ``{"fsdp": 4, "tp": 2}`` -> ``{"fsdp": 2, "tp": 2}``, the MoE
 ``{"dp": 2, "ep": 2, "tp": 2}`` -> ``{"ep": 2, "tp": 2}`` and ``{"dp": 2,
 "ep": 2}`` (one routing group of 128 tokens spanning the dp ranks) and
-``{"dp": 2}`` with groups of 32 (each inside a rank). The ``{"dp": 2, "sp":
-2, "tp": 2}`` case stays a refusal naming slice 11b.
+``{"dp": 2}`` with groups of 32 (each inside a rank). The meshes with
+``sp`` are tests/test_torch_train_sp.py's, on the helpers here.
 
 Every case runs four steps in f32 on the same weights and the same global
 batch: each step's loss and every updated leaf (each rank's shard against
@@ -77,7 +77,9 @@ def jax_moe_config(group_size=1024):
 
 
 JAX_CONFIGS = {"dense": jax_dense_config, "moe": jax_moe_config,
-               "moe_local": lambda: jax_moe_config(32)}
+               "moe_local": lambda: jax_moe_config(32),
+               "dense_ulysses": lambda: dataclasses.replace(
+                   jax_dense_config(), sp_attention="ulysses")}
 CASES = {**{name: (axes, "dense") for name, axes in W.DENSE_CASES.items()},
          **W.MOE_CASES}
 
@@ -136,8 +138,8 @@ def jax_train(axes, which, inputs):
     batch = jax.device_put({k: jnp.asarray(v)
                             for k, v in inputs["batch"].items()},
                            model.batch_sharding())
-    grads = jax.tree.map(np.asarray, jax.grad(jax_t.loss_fn)(
-        params, batch, cfg, mesh))
+    grads = jax.tree.map(np.asarray, jax.jit(
+        lambda p, b: jax.grad(jax_t.loss_fn)(p, b, cfg, mesh))(params, batch))
     return jax_steps(model, params, batch, model.make_train_step(optimizer),
                      optimizer.init(params)), grads, cfg
 
@@ -214,10 +216,10 @@ def check_replicas(recs, step, cfg, axes):
                 first[where] = shard
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_jax_on_the_same_mesh(case, spawned, inputs):
-    axes, which = CASES[case]
-    recs = spawned[W.world_of(axes)]
+def assert_matches_jax(recs, case, axes, which, inputs):
+    """Every rank's record of ``case`` against JAX's ``STEPS`` steps on the
+    same mesh shape: losses, first gradients on the rank's block, updated
+    leaves by block, replicas bitwise, one loss on every rank, falling."""
     (losses, trees), grads, cfg = jax_train(axes, which, inputs)
     specs = port_specs(cfg, axes)
     for r, rec in enumerate(recs):
@@ -251,6 +253,12 @@ def test_train_step_matches_jax_on_the_same_mesh(case, spawned, inputs):
     assert losses[1] < losses[0]
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_step_matches_jax_on_the_same_mesh(case, spawned, inputs):
+    axes, which = CASES[case]
+    assert_matches_jax(spawned[W.world_of(axes)], case, axes, which, inputs)
+
+
 def test_each_rank_trains_on_its_rows(spawned):
     """The batch splits over dp then fsdp; tp and ep ranks share rows."""
     for case, (axes, _) in CASES.items():
@@ -259,8 +267,10 @@ def test_each_rank_trains_on_its_rows(spawned):
             assert rec[case]["rows"] == 4 // n, case
 
 
-def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
-    axes = {"dp": 2, "tp": 2}
+def assert_lora_matches_jax(recs, case, axes, inputs):
+    """Every rank's LoRA record of ``case`` against JAX's
+    ``make_lora_train_step`` on the same mesh shape: losses, factors by
+    block after each step, first gradients, replicas bitwise."""
     cfg = jax_dense_config()
     mesh = jax_mesh(axes)
     model = jax_t.Transformer(cfg, mesh)
@@ -271,10 +281,10 @@ def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
                             for k, v in inputs["batch"].items()},
                            model.batch_sharding())
     lora = inputs["jax_lora"]
-    grads = jax.tree.map(np.asarray, jax.grad(
+    grads = jax.tree.map(np.asarray, jax.jit(jax.grad(
         lambda factors: jax_t.loss_fn(
             jax_merge_lora(params, factors, LORA_SCALE), batch, cfg, mesh)
-    )(lora))
+    ))(lora))
     state = optimizer.init(lora)
     losses, trees = [], []
     for _ in range(STEPS):
@@ -282,8 +292,8 @@ def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
         losses.append(float(loss))
         trees.append(jax.tree.map(np.asarray, lora))
     base = port_specs(cfg, axes)["layers"]
-    for r, rec in enumerate(spawned[4]):
-        rec = rec["lora_dp2_tp2"]
+    for r, rec in enumerate(recs):
+        rec = rec[case]
         np.testing.assert_allclose(rec["losses"], losses, atol=TOL, rtol=TOL)
         for s in range(STEPS):
             for t, ab in trees[s].items():
@@ -303,7 +313,7 @@ def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
                             atol=GRAD_TOL * np.abs(want).max(),
                             err_msg=f"rank {r} gradient of {t}.{k}")
     # ranks holding the same block of a factor hold the same bits
-    recs = [rec["lora_dp2_tp2"] for rec in spawned[4]]
+    recs = [rec[case] for rec in recs]
     for t in trees[0]:
         for k, axis in (("A", base[t][0]), ("B", base[t][1])):
             held = {}
@@ -315,14 +325,20 @@ def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
                 held[where] = got
 
 
-def test_training_with_sp_is_refused_and_names_slice_11b(spawned):
-    refusals = spawned[4][0]["refusals"]
-    for what in ("train_step", "init", "lora"):
-        kind, msg = refusals[what]
-        assert kind == "NotImplementedError", what
-        assert "ROADMAP Queue 1, item 1, slice 11b" in msg, what
-    kind, msg = refusals["generate_dp"]
-    assert kind == "NotImplementedError" and "ReplicatedEngine" in msg
+def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
+    assert_lora_matches_jax(spawned[4], "lora_dp2_tp2", {"dp": 2, "tp": 2},
+                            inputs)
+
+
+def test_generation_over_the_batch_axes_is_refused_and_names_slice_13(
+        spawned):
+    """What stays refused under a training mesh: generation over dp/fsdp
+    (data-parallel serving is the replica engine)."""
+    for rec in spawned[4]:
+        kind, msg = rec["refusals"]["generate_dp"]
+        assert kind == "NotImplementedError"
+        assert "ROADMAP Queue 1, item 1, slice 13" in msg
+        assert "ReplicatedEngine" in msg
 
 
 def test_init_under_a_mesh_keeps_the_rank_shard(spawned):

@@ -9,9 +9,8 @@ The JAX side runs the same numpy inputs on the 8 virtual CPU devices.
 Checklist: the forward cases of the JAX package's tests/test_ulysses.py
 (causal and not, windows, ``use_flash``, GQA-compact K/V, fewer K/V heads
 than sp, the ``lcm(KVH, sp)`` broadcast, the head-divisibility error, the
-model-level ring/Ulysses switch); ``test_grad_flows`` waits for the sp
-backward (ROADMAP Queue 1, item 1, slice 11b), and the port's exchange
-refuses inputs that require grad.
+model-level ring/Ulysses switch), and the rank-level exchange under grad
+mode; ``test_grad_flows`` is tests/test_torch_sp_backward.py's.
 
 Tolerances: 2e-5 for the attention cases (JAX's own: the exchange moves
 values exactly, the local attention is dense f32), 2e-4 for the
@@ -136,9 +135,27 @@ def test_forward_ulysses_matches_ring_and_jax(ranks, forward_inputs):
                                    atol=FORWARD_TOL, rtol=FORWARD_TOL)
 
 
-def test_ulysses_refuses_inputs_that_require_grad(ranks):
-    for rec in ranks:
-        kind, msg = rec["grad_refused"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP Queue 1, item 1, slice 11b" in msg
+def test_ulysses_runs_under_grad_mode(ranks):
+    """The rank-level exchange is differentiable (each all-to-all's
+    backward is the inverse one): each rank's output and its block's
+    gradients of the ranks' summed loss match JAX's dense reference
+    (JAX's Ulysses gradient tolerance, 5e-4); it also runs under
+    no_grad."""
+    c = CASES[next(n for n, x in CASES.items() if not x.get("expect_error"))]
+    q, k, v = (jnp.asarray(c[n][:, :, :8 * SP]) for n in ("q", "k", "v"))
+
+    def attention(q, k, v):
+        return reference_attention(q, k, v, causal=True)
+
+    want = np.asarray(attention(q, k, v))
+    grads = jax.grad(lambda *x: (attention(*x) ** 2).sum(),
+                     argnums=(0, 1, 2))(q, k, v)
+    for r, rec in enumerate(ranks):
+        blk = slice(8 * r, 8 * (r + 1))
+        got = rec["grad_mode"]
+        np.testing.assert_allclose(got["out"], want[:, :, blk],
+                                   atol=TOL, rtol=TOL)
+        for g, w in zip(got["grads"], grads):
+            np.testing.assert_allclose(g, np.asarray(w)[:, :, blk],
+                                       atol=5e-4, rtol=5e-4)
         assert rec["no_grad_runs"] is None

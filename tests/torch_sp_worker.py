@@ -75,15 +75,44 @@ def attention_cases(rank: int, fn_name: str, cases: dict) -> dict:
         got = sharded(mesh, q, k, v, **kw)
         out[name] = {"dtype": str(got.dtype),
                      "out": got.float().numpy()}
-    # the exchanges are outside autograd: differentiating through them
-    # must refuse, never give wrong gradients
+    # the rank-level op under grad mode: its output and the gradients of
+    # its rank's block (tests/test_torch_sp_backward.py holds the whole
+    # gradients to JAX's); and under no_grad
     group = M.sp_group(mesh)
-    q, k, v = (x.narrow(2, 0, 8).clone().requires_grad_()
+    q, k, v = (x.narrow(2, 8 * rank, 8).clone().requires_grad_()
                for x in _tensors(next(iter(cases.values()))))
     local = {"ring": ring_attention, "ulysses": ulysses_attention}[fn_name]
-    out["grad_refused"] = error_of(lambda: local(q, k, v, group=group))
+    o = local(q, k, v, group=group)
+    (o ** 2).sum().backward()
+    out["grad_mode"] = {"out": o.detach().numpy(),
+                        "grads": [x.grad.numpy() for x in (q, k, v)]}
     with torch.no_grad():
         out["no_grad_runs"] = error_of(lambda: local(q, k, v, group=group))
+    return out
+
+
+def grad_cases(rank: int, cases: dict) -> dict:
+    """Each case (q/k/v numpy arrays, ``sp``, the entry's name and keyword
+    arguments) through ``ring_attention_sharded`` or
+    ``ulysses_attention_sharded`` on an ``{"sp": sp}`` mesh over the first
+    sp ranks: the whole output and the whole gradients of q, k and v of
+    the loss ``(out ** 2).sum()`` (``out.sum()`` where ``loss == "sum"``),
+    which every rank computes from the gathered output."""
+    entries = {"ring": ring_attention_sharded,
+               "ulysses": ulysses_attention_sharded}
+    meshes = {sp: M.make_mesh({"sp": sp}, device_type="cpu")
+              for sp in sorted({c["sp"] for c in cases.values()})}
+    out: dict = {}
+    for name, case in cases.items():
+        if rank >= case["sp"]:
+            continue
+        q, k, v = (x.requires_grad_() for x in _tensors(case))
+        got = entries[case["entry"]](meshes[case["sp"]], q, k, v,
+                                     **case.get("kw", {}))
+        loss = got.sum() if case.get("loss") == "sum" else (got ** 2).sum()
+        loss.backward()
+        out[name] = {"out": got.detach().numpy(),
+                     "grads": [x.grad.numpy() for x in (q, k, v)]}
     return out
 
 

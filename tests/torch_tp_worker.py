@@ -522,7 +522,8 @@ def serving_cases(rank: int, inputs: dict) -> dict:
                                     b.params["layers"][0]["moe"].items()}}
 
     # what one batcher does not serve over, and what is not ported yet; the
-    # training entry points under tp now run (tests/test_torch_train_mesh.py)
+    # training entry points under tp (tests/test_torch_train_mesh.py) and a
+    # model over pp (tests/test_torch_pipeline_transformer.py) now build
     dp_mesh = M.make_mesh({"dp": 2, "tp": 1}, device_type="cpu")
     fsdp_mesh = M.make_mesh({"fsdp": 2}, device_type="cpu")
     pp_mesh = M.make_mesh({"pp": 2}, device_type="cpu")
@@ -531,7 +532,9 @@ def serving_cases(rank: int, inputs: dict) -> dict:
         "dp": error_of(lambda: _batcher(full, cfg, dp_mesh, **kw)),
         "fsdp": error_of(lambda: _batcher(full, cfg, fsdp_mesh, **kw)),
         "pp": error_of(lambda: _batcher(full, cfg, pp_mesh, **kw)),
-        "pp_model": error_of(lambda: T.Transformer(cfg, pp_mesh)),
+        "generate_dp": error_of(lambda: T.Transformer(
+            cfg, dp_mesh).generate_cached(full, torch.zeros(
+                1, 4, dtype=torch.long), max_new_tokens=2)),
         "replicas_over_a_tp_mesh": error_of(lambda: ReplicatedEngine.build(
             full, cfg, 1, meshes=mesh, **kw)),
     }
@@ -541,6 +544,8 @@ def serving_cases(rank: int, inputs: dict) -> dict:
             torch.Generator(), device="cpu")["layers"][0]["wq"].requires_grad,
         "lora_train_step": callable(
             make_lora_train_step(cfg, mesh=mesh)[0]),
+        "pp_model": callable(T.Transformer(cfg, pp_mesh).make_train_step(
+            n_microbatches=2)),
     }
     return out
 

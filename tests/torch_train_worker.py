@@ -65,7 +65,18 @@ def moe_config(group_size: int = 1024) -> T.TransformerConfig:
 
 
 CONFIGS = {"dense": dense_config, "moe": moe_config,
-           "moe_local": lambda: moe_config(32)}
+           "moe_local": lambda: moe_config(32),
+           "dense_ulysses": lambda: dense_config(sp_attention="ulysses")}
+# training under sp (tests/test_torch_train_sp.py): case -> (mesh axes,
+# config name)
+SP_CASES = {
+    "sp2_ring": ({"sp": 2}, "dense"),
+    "sp2_ulysses": ({"sp": 2}, "dense_ulysses"),
+    "moe_sp2": ({"sp": 2}, "moe"),
+    "dp2_sp2": ({"dp": 2, "sp": 2}, "dense"),
+    "sp2_tp2": ({"sp": 2, "tp": 2}, "dense"),
+    "moe_dp2_sp2": ({"dp": 2, "sp": 2}, "moe"),
+}
 
 
 def snapshot(tree):
@@ -102,7 +113,8 @@ def train(cfg, mesh, params_np, batch_np) -> dict:
         if grads is None:  # the first step's, summed over the batch axes
             grads = snapshot(grad_tree(params))
     return {"losses": losses, "shards": shards, "grads": grads,
-            "coords": coords(mesh), "rows": batch["tokens"].shape[0]}
+            "coords": coords(mesh), "rows": batch["tokens"].shape[0],
+            "positions": batch["tokens"].shape[1]}
 
 
 def grad_tree(tree):
@@ -137,7 +149,7 @@ def lora_train(cfg, mesh, params_np, lora_np, batch_np, scale) -> dict:
 
 def train_mesh_cases(rank: int, world: int, inputs: dict) -> dict:
     """Every case of ``world`` ranks: the dense and MoE train steps, the
-    LoRA step at dp=2 x tp=2, and the refusals of sp > 1."""
+    LoRA step at dp=2 x tp=2, and the refusal of generation over dp."""
     out = {}
     for name, axes in DENSE_CASES.items():
         if world_of(axes) == world:
@@ -153,13 +165,7 @@ def train_mesh_cases(rank: int, world: int, inputs: dict) -> dict:
         out["lora_dp2_tp2"] = lora_train(dense_config(), mesh, inputs["dense"],
                                          inputs["lora"], inputs["batch"],
                                          inputs["lora_scale"])
-        sp = M.make_mesh({"sp": 2, "tp": 2}, device_type="cpu")
-        model = T.Transformer(dense_config(), sp)
         out["refusals"] = {
-            "train_step": error_of(model.make_train_step),
-            "init": error_of(lambda: model.init(torch.Generator(), "cpu")),
-            "lora": error_of(lambda: make_lora_train_step(dense_config(),
-                                                          mesh=sp)),
             "generate_dp": error_of(lambda: T.Transformer(
                 dense_config(), M.make_mesh({"dp": 2, "tp": 2},
                                             device_type="cpu")
@@ -177,6 +183,24 @@ def train_mesh_cases(rank: int, world: int, inputs: dict) -> dict:
         out["init_is_shard"] = all(
             torch.equal(a, b) and a.requires_grad
             for a, b in zip(T.param_leaves(got), T.param_leaves(want)))
+    return out
+
+
+def train_sp_cases(rank: int, world: int, inputs: dict) -> dict:
+    """Every ``SP_CASES`` case of ``world`` ranks, and at four ranks the
+    LoRA step at sp=2 x tp=2."""
+    out = {}
+    for name, (axes, which) in SP_CASES.items():
+        if world_of(axes) == world:
+            key = "moe" if which.startswith("moe") else "dense"
+            out[name] = train(CONFIGS[which](),
+                              M.make_mesh(axes, device_type="cpu"),
+                              inputs[key], inputs["batch"])
+    if world == 4:
+        mesh = M.make_mesh({"sp": 2, "tp": 2}, device_type="cpu")
+        out["lora_sp2_tp2"] = lora_train(dense_config(), mesh, inputs["dense"],
+                                         inputs["lora"], inputs["batch"],
+                                         inputs["lora_scale"])
     return out
 
 
