@@ -92,6 +92,16 @@ through the differentiable ring or Ulysses, and holds the loss of its
 positions; an MoE layer routes the whole sequence's tokens (its aux, the
 same on every sp rank, enters the loss as a 1/sp share on each).
 
+Generation over the batch axes (``Transformer.generate`` and
+``generate_cached`` under dp or fsdp, JAX's batch-sharded ``forward`` in
+its generators): each batch coordinate prefills and decodes its rows with a
+cache of its rows, fsdp gathering a layer's weights at a time
+(``decode_window`` / ``decode_step`` / ``prefill_chunked`` take the fsdp
+group), and each step's last logits are gathered into the whole batch
+before the next tokens are drawn, so every rank draws for the whole batch
+from the same generator and returns the whole ``[B, L + new]`` tokens: the
+tokens one device draws from the same logits.
+
 The pipeline (``forward_pipelined``, JAX's :533): under a ``pp`` mesh a
 rank holds its block of the layers (``init_params`` / ``shard_params``
 keep only it) plus the replicated embedding, final norm and head, which
@@ -610,23 +620,23 @@ def _whole_over_fsdp(layer: Params, config: TransformerConfig,
     return {name: whole(leaf, specs[name]) for name, leaf in layer.items()}
 
 
-def _attention(q, k, v, config: TransformerConfig, sp_group=None):
-    """Causal attention of a layer (JAX's ``_attention``): the rank's own
-    sequence through ``local_attention``, or across the sp ranks by ring
-    attention or Ulysses per ``config.sp_attention``, the sliding window
-    threaded to each."""
-    c = config
-    if c.sp_attention not in ("ring", "ulysses"):
+def _attention(q, k, v, sp_attention: str = "ring", sp_group=None,
+               causal: bool = True, window: int | None = None):
+    """Attention of a layer (JAX's ``_attention``: causal by default,
+    ``causal=False`` for the encoders, the ViT): the rank's own sequence
+    through ``local_attention``, or across the sp ranks by ring attention
+    or Ulysses per ``sp_attention``, the sliding window threaded to each."""
+    if sp_attention not in ("ring", "ulysses"):
         raise ValueError(
-            f"sp_attention must be 'ring' or 'ulysses', got {c.sp_attention!r}"
+            f"sp_attention must be 'ring' or 'ulysses', got {sp_attention!r}"
         )
     if sp_group is None:
-        return local_attention(q, k, v, causal=True, window=c.sliding_window)
-    if c.sp_attention == "ulysses":
-        return ulysses_attention(q, k, v, group=sp_group, causal=True,
-                                 window=c.sliding_window)
-    return ring_attention(q, k, v, group=sp_group, causal=True,
-                          window=c.sliding_window)
+        return local_attention(q, k, v, causal=causal, window=window)
+    if sp_attention == "ulysses":
+        return ulysses_attention(q, k, v, group=sp_group, causal=causal,
+                                 window=window)
+    return ring_attention(q, k, v, group=sp_group, causal=causal,
+                          window=window)
 
 
 def _layer_apply(h, layer, config: TransformerConfig, positions,
@@ -654,7 +664,8 @@ def _layer_apply(h, layer, config: TransformerConfig, positions,
     k = rope(proj(layer["wk"], kvh), positions, c.rope_theta, c.rope_scaling)
     v = proj(layer["wv"], kvh)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    attn = _attention(q, k, v, c, sp_group)
+    attn = _attention(q, k, v, c.sp_attention, sp_group,
+                      window=c.sliding_window)
     attn = attn.transpose(1, 2).reshape(B, L, nh * dh)
     o = qeinsum("blk,kd->bld", attn, layer["wo"], c.dtype)
     h = h + all_reduce_partial(o, tp_group)
@@ -838,7 +849,8 @@ def _grouped_attention(q, kf, vf, positions, config: TransformerConfig):
 
 
 def _decode_layers(params, tokens, positions, cache, config, attend,
-                   lora_delta=None, tp_group=None, ep_group=None):
+                   lora_delta=None, tp_group=None, ep_group=None,
+                   fsdp_group=None):
     """The layer loop both decode families share: ``attend(c_layer, q,
     k_new, v_new)`` writes the new K/V ``[B, kvh, W, dh]`` into one layer's
     cache views and returns the attention ``[B, W, nh * dh]``;
@@ -846,14 +858,17 @@ def _decode_layers(params, tokens, positions, cache, config, attend,
     added to projection ``name`` of layer ``li`` (None for a projection
     without one). With ``tp_group``, nh and kvh are the rank's heads and
     ``wo``/``w_down`` end in an all-reduce (the ``wo`` delta joins the
-    partial sum before it); ``ep_group`` shards the experts. Returns f32
-    logits ``[B, W, vocab]``."""
+    partial sum before it); ``ep_group`` shards the experts; with
+    ``fsdp_group`` each layer's fsdp shards are gathered whole first (as
+    training does, a layer at a time). Returns f32 logits ``[B, W,
+    vocab]``."""
     c = config
     B, W = tokens.shape
     dh = c.head_dim
     nh, kvh = _local_heads(c, tp_group)
     h = _embed(params, tokens, c, tp_group)  # [B, W, D]
     for li, layer in enumerate(params["layers"]):
+        layer = _whole_over_fsdp(layer, c, fsdp_group)
         c_layer = {name: x[li] for name, x in cache.items()}  # views
 
         def project(x_in, name, spec):
@@ -912,10 +927,10 @@ def init_decode_cache(config: TransformerConfig, B: int, total_len: int,
 
 
 def decode_step(params, token, pos, cache, config: TransformerConfig,
-                tp_group=None, ep_group=None):
+                tp_group=None, ep_group=None, fsdp_group=None):
     """One incremental decode step: ``decode_window`` with W = 1."""
     return decode_window(params, token, pos, cache, config, tp_group,
-                         ep_group)
+                         ep_group, fsdp_group)
 
 
 def decode_window(
@@ -926,11 +941,13 @@ def decode_window(
     config: TransformerConfig,
     tp_group=None,
     ep_group=None,
+    fsdp_group=None,
 ):
     """Multi-token cached decode at positions ``pos0 .. pos0 + W - 1``
     against the contiguous cache, bf16 or int8. Returns ``(logits [B, W,
     vocab] f32, cache)``; the cache is written in place. With
-    ``tp_group`` the cache holds the rank's K/V heads."""
+    ``tp_group`` the cache holds the rank's K/V heads; with ``fsdp_group``
+    the params hold their fsdp shards, gathered a layer at a time."""
     B, W = tokens.shape
     pos0 = int(pos0)
     positions = (pos0 + torch.arange(W, device=tokens.device)).expand(B, W)
@@ -941,7 +958,8 @@ def decode_window(
         return _grouped_attention(q, kf, vf, positions, config)
 
     return _decode_layers(params, tokens, positions, cache, config, attend,
-                          tp_group=tp_group, ep_group=ep_group), cache
+                          tp_group=tp_group, ep_group=ep_group,
+                          fsdp_group=fsdp_group), cache
 
 
 def decode_step_paged(params, token, pos, cache, block_table,
@@ -1065,12 +1083,14 @@ def _lora_shards(config: TransformerConfig, tp_group, device) -> dict:
 
 def prefill_chunked(params: Params, prompt: torch.Tensor,
                     config: TransformerConfig, total_len: int,
-                    chunk: int = 512, tp_group=None, ep_group=None):
+                    chunk: int = 512, tp_group=None, ep_group=None,
+                    fsdp_group=None):
     """The decode cache built by streaming the prompt ``[B, L]`` through
     ``decode_window`` in chunks of ``chunk`` tokens (activation memory
     bounded by the chunk), then a remainder chunk of ``L % chunk``.
     Returns ``(last-position logits [B, vocab], cache)``; with ``tp_group``
-    the cache holds the rank's K/V heads."""
+    the cache holds the rank's K/V heads; ``fsdp_group`` as in
+    ``decode_window``."""
     B, L = prompt.shape
     if L == 0:
         raise ValueError("prompt must be non-empty (L >= 1)")
@@ -1086,7 +1106,7 @@ def prefill_chunked(params: Params, prompt: torch.Tensor,
     for start in range(0, L, chunk):
         logits, cache = decode_window(params, prompt[:, start:start + chunk],
                                       start, cache, config, tp_group,
-                                      ep_group)
+                                      ep_group, fsdp_group)
         last_logits = logits[:, -1, :]
     return last_logits, cache
 
@@ -1219,10 +1239,11 @@ class Transformer:
 
     Under a ``mesh`` (``parallel.make_mesh``) every rank calls the entry
     points alike, on its shard of the params. The inference entry points
-    (``apply``, ``generate``, ``generate_cached``) run over tp, sp and ep:
-    ``apply`` gives the rank's block of positions under sp, the generators
-    the same tokens on every rank (their prefill runs sequence-parallel,
-    the decode steps ignore sp). Training (``init``, ``make_train_step``)
+    (``apply``, ``generate``, ``generate_cached``) run over dp, fsdp, tp,
+    sp and ep: ``apply`` gives the rank's block of positions under sp, the
+    generators the same whole ``[B, L + new]`` tokens on every rank (each
+    batch coordinate prefills and decodes its rows, JAX's batch sharding;
+    the prefill runs sequence-parallel, the decode steps ignore sp). Training (``init``, ``make_train_step``)
     runs over dp, fsdp, tp, sp and ep, and through the pipeline over pp:
     ``init`` draws the f32 masters and keeps the rank's shard
     (``param_specs``; under pp its block of layers), ``batch_slice`` gives
@@ -1248,13 +1269,18 @@ class Transformer:
                 f"tp={tp} (a trained K/V head lives on one rank)"
             )
 
-    def _check_generation(self) -> None:
-        if self.groups.batch:
-            raise NotImplementedError(
-                "generation over the batch axes (dp, fsdp) is not ported yet "
-                "(ROADMAP Queue 1, item 1, slice 13); data-parallel serving "
-                "is ReplicatedEngine.build(meshes=...)"
-            )
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch under the batch axes (dp,
+        then fsdp; ValueError when they do not divide it, where JAX's
+        sharding raises too), the batch itself without them."""
+        return batch_slice(x, self.mesh) if self.groups.batch else x
+
+    def _whole_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' rows gathered back into the whole batch (dim 0, dp
+        major: ``batch_shard_of``'s order), on every rank."""
+        for g in reversed(self.groups.batch):
+            x = all_gather_cat(x.contiguous(), g, dim=0)
+        return x
 
     def _forward(self, params: Params, tokens: torch.Tensor,
                  return_kv: bool = False, valid_len: int | None = None):
@@ -1368,16 +1394,18 @@ class Transformer:
                  max_new_tokens: int = 32) -> torch.Tensor:
         """Greedy decode without a cache: a full forward over the whole
         ``[B, L + max_new_tokens]`` buffer per new token (the simple
-        correctness path). Returns the buffer, prompt included."""
-        self._check_generation()
+        correctness path). Returns the buffer, prompt included. Under batch
+        axes each rank runs its rows and the argmax of every row is
+        gathered, so every rank returns the whole buffer."""
         prompt = torch.as_tensor(prompt, device=params["embed"].device)
         B, L = prompt.shape
         tokens = torch.zeros(B, L + max_new_tokens, dtype=torch.long,
                              device=prompt.device)
         tokens[:, :L] = prompt
         for idx in range(L, L + max_new_tokens):
-            row, _ = self._prefill(params, tokens, False, last=idx - 1)
-            tokens[:, idx] = torch.argmax(row, dim=-1)
+            row, _ = self._prefill(params, self._rows(tokens), False,
+                                   last=idx - 1)
+            tokens[:, idx] = self._whole_rows(torch.argmax(row, dim=-1))
         return tokens
 
     def generate_cached(
@@ -1401,33 +1429,38 @@ class Transformer:
         prompt's device), so a fixed generator is deterministic. ``eos_id``
         freezes a row once it emits that token: every later position
         repeats it. The cache layout follows ``config.kv_cache_dtype``.
-        Under a mesh every rank gets the same tokens (the same logits and,
-        sampling, the same generator seed)."""
-        self._check_generation()
-        c, g, ep = self.config, self.tp_group, self.groups.ep
+        Under a mesh every rank gets the same whole tokens: over the batch
+        axes (dp, fsdp; fsdp gathers a layer's weights at a time, as
+        training does) each rank prefills and decodes its rows with a cache
+        of its rows, and each step's last logits are gathered into the
+        whole batch before the draw, so every rank draws for the whole
+        batch from the same generator seed and the tokens are the ones one
+        device draws from the same logits."""
+        c, g = self.config, self.groups
         prompt = torch.as_tensor(prompt, device=params["embed"].device)
         B, L = prompt.shape
         total = L + max_new_tokens
         if generator is None:
             generator = torch.Generator(device=prompt.device).manual_seed(0)
+        rows = self._rows(prompt)
         if prefill_chunk is not None:
-            last_logits, cache = prefill_chunked(params, prompt, c, total,
-                                                 chunk=prefill_chunk,
-                                                 tp_group=g, ep_group=ep)
+            last_logits, cache = prefill_chunked(
+                params, rows, c, total, chunk=prefill_chunk, tp_group=g.tp,
+                ep_group=g.ep, fsdp_group=g.fsdp)
         else:
-            last_logits, (k_pre, v_pre) = self._prefill(params, prompt, True)
-            cache = init_decode_cache(c, B, total, k_pre, v_pre)
-        current = sample_logits(last_logits, generator, temperature, top_k,
-                                top_p)
+            last_logits, (k_pre, v_pre) = self._prefill(params, rows, True)
+            cache = init_decode_cache(c, rows.shape[0], total, k_pre, v_pre)
+        current = sample_logits(self._whole_rows(last_logits), generator,
+                                temperature, top_k, top_p)
         tokens = torch.zeros(B, total, dtype=torch.long, device=prompt.device)
         tokens[:, :L] = prompt
         tokens[:, L:L + 1] = current
         done = current == eos_id if eos_id is not None else None
         for pos in range(L, total - 1):
-            step_logits, cache = decode_step(params, current, pos, cache, c, g,
-                                             ep)
-            current = sample_logits(step_logits[:, -1, :], generator,
-                                    temperature, top_k, top_p)
+            step_logits, cache = decode_step(params, self._rows(current), pos,
+                                             cache, c, g.tp, g.ep, g.fsdp)
+            current = sample_logits(self._whole_rows(step_logits[:, -1, :]),
+                                    generator, temperature, top_k, top_p)
             if eos_id is not None:
                 current = torch.where(done, eos_id, current)
                 done = done | (current == eos_id)

@@ -1,7 +1,13 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a): bf16 inputs, f32
 // statistics and accumulation, GQA-native (dK/dV summed over the query heads
 // of each KV group and written compact), causal or full, optional sliding
-// window.
+// window. Head dim D = 64 or 128: the kernel is a template over NB = D / 64,
+// the 64-column TMA boxes of a tile (entry points bci_flash_bwd_dkdv_bf16_d64
+// and bci_flash_bwd_dkdv_bf16; D = 128 is the design below, D = 64 the same
+// with the K/V, Q and dO tiles, the ring and the dK/dV accumulators halved,
+// S^T and dP^T in 4 k16 steps and dV/dK at N = 64). At ViT-B/16's shape
+// (L = 196, D = 64, one head a group, non-causal) the work is bound by bytes
+// (~234 MB against 30 GFLOP); the padded query rows' P is forced to 0.
 //
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/flash_attention.py
 // `_bwd_dkdv_kernel` (:291), reached through `_flash_bwd_pallas` (:409). What
@@ -65,34 +71,41 @@ constexpr int BLOCK_Q = 64;   // query rows per ring stage
 constexpr int STAGES = 3;
 constexpr int THREADS = 384;            // producer warpgroup + 2 consumers
 constexpr int KV_BOX = BLOCK_K * 128;   // one [128 keys][64] bf16 box
-constexpr int KV_TILE = 2 * KV_BOX;     // [128][128] bf16
 constexpr int Q_BOX = BLOCK_Q * 128;    // one [64 rows][64] bf16 box
-constexpr int Q_TILE = 2 * Q_BOX;       // [64][128] bf16
-constexpr int STAGE_BYTES = 2 * Q_TILE; // Q and dO
-constexpr int RING = 2 * KV_TILE;       // the ring follows K and V
-constexpr int STATS = RING + STAGES * STAGE_BYTES;  // lse, delta floats
-constexpr int BARS = STATS + STAGES * 2 * BLOCK_Q * 4;
-constexpr int SMEM_BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
-// the partner block's 64 f32 a thread x 256 consumer threads land on K/V
-static_assert(64 * 4 * 256 <= RING, "exchange buffer");
+
+// shared memory at NB boxes a tile
+template <int NB>
+struct Layout {
+  static constexpr int KV_TILE = NB * KV_BOX;     // [128][D] bf16
+  static constexpr int Q_TILE = NB * Q_BOX;       // [64][D] bf16
+  static constexpr int STAGE_BYTES = 2 * Q_TILE;  // Q and dO
+  static constexpr int RING = 2 * KV_TILE;        // the ring follows K and V
+  static constexpr int STATS = RING + STAGES * STAGE_BYTES;  // lse, delta floats
+  static constexpr int BARS = STATS + STAGES * 2 * BLOCK_Q * 4;
+  static constexpr int SMEM_BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+  // the partner block's 32 NB f32 a thread x 256 consumer threads land on K/V
+  static_assert(32 * NB * 4 * 256 <= RING, "exchange buffer");
+};
 
 // consumer thread tc's accumulator into the partner block's exchange buffer
 // (float4 i of thread tc at i * 256 + tc: neighbouring threads, neighbouring
 // 16 bytes)
-__device__ __forceinline__ void send_partial(const float (&acc)[64], uint32_t remote,
+template <int N>
+__device__ __forceinline__ void send_partial(const float (&acc)[N], uint32_t remote,
                                              int tc) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < N / 4; ++i) {
     st_cluster_v4(remote + (i * 256 + tc) * 16, acc[4 * i], acc[4 * i + 1],
                   acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
-__device__ __forceinline__ void add_partial(float (&acc)[64], const float4* xbuf,
+template <int N>
+__device__ __forceinline__ void add_partial(float (&acc)[N], const float4* xbuf,
                                             int tc) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < N / 4; ++i) {
     const float4 x = xbuf[i * 256 + tc];
     acc[4 * i] += x.x;
     acc[4 * i + 1] += x.y;
@@ -101,6 +114,7 @@ __device__ __forceinline__ void add_partial(float (&acc)[64], const float4* xbuf
   }
 }
 
+template <int NB>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
     const __grid_constant__ CUtensorMap tm_q,   // [B*H, Lq, D], box 64 rows
     const __grid_constant__ CUtensorMap tm_k,   // [B*KVH, Lk, D], box 128 rows
@@ -112,6 +126,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
     const float* __restrict__ delta,            // [B, H, Lq]
     int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale,
     int nsplit) {
+  using L = Layout<NB>;
+  constexpr int KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE,
+                STAGE_BYTES = L::STAGE_BYTES, RING = L::RING, STATS = L::STATS,
+                BARS = L::BARS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -159,10 +177,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
         prefetch_tensormap(&tm_q);
         prefetch_tensormap(&tm_do);
         mbar_arrive_expect_tx(kv_full, 2 * KV_TILE);
-        tma_load_3d(k_tile, &tm_k, kv_full, 0, k0, bkv);
-        tma_load_3d(k_tile + KV_BOX, &tm_k, kv_full, BOX_COLS, k0, bkv);
-        tma_load_3d(v_tile, &tm_v, kv_full, 0, k0, bkv);
-        tma_load_3d(v_tile + KV_BOX, &tm_v, kv_full, BOX_COLS, k0, bkv);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(k_tile + b * KV_BOX, &tm_k, kv_full, b * BOX_COLS, k0, bkv);
+          tma_load_3d(v_tile + b * KV_BOX, &tm_v, kv_full, b * BOX_COLS, k0, bkv);
+        }
       }
       int it = 0;
       for (int r = split; r < rep; r += nsplit) {
@@ -178,10 +197,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
           }
           if (lane == 0) {
             mbar_arrive_expect_tx(&full[s], 2 * Q_TILE);
-            tma_load_3d(q_stage(s), &tm_q, &full[s], 0, t * BLOCK_Q, bh);
-            tma_load_3d(q_stage(s) + Q_BOX, &tm_q, &full[s], BOX_COLS, t * BLOCK_Q, bh);
-            tma_load_3d(do_stage(s), &tm_do, &full[s], 0, t * BLOCK_Q, bh);
-            tma_load_3d(do_stage(s) + Q_BOX, &tm_do, &full[s], BOX_COLS, t * BLOCK_Q, bh);
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+              tma_load_3d(q_stage(s) + b * Q_BOX, &tm_q, &full[s], b * BOX_COLS,
+                          t * BLOCK_Q, bh);
+              tma_load_3d(do_stage(s) + b * Q_BOX, &tm_do, &full[s], b * BOX_COLS,
+                          t * BLOCK_Q, bh);
+            }
           } else {
             mbar_arrive(&full[s]);
           }
@@ -206,9 +228,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
     const unsigned char* k_rows = k_tile + cw * 64 * 128;  // this warpgroup's keys
     const unsigned char* v_rows = v_tile + cw * 64 * 128;
 
-    float dk[64], dv[64];
+    float dk[32 * NB], dv[32 * NB];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < 32 * NB; ++i) dk[i] = dv[i] = 0.f;
 
     mbar_wait(kv_full, 0);
     int it = 0;
@@ -224,12 +246,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
           float st[32], dpt[32];
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
+          for (int kk = 0; kk < 4 * NB; ++kk) {
             wgmma_m64n64k16_ss(st, desc_k_major(k_rows, KV_BOX, kk),
                                desc_k_major(q_stage(s), Q_BOX, kk), kk > 0);
           }
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
+          for (int kk = 0; kk < 4 * NB; ++kk) {
             wgmma_m64n64k16_ss(dpt, desc_k_major(v_rows, KV_BOX, kk),
                                desc_k_major(do_stage(s), Q_BOX, kk), kk > 0);
           }
@@ -286,11 +308,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            wgmma_m64n128k16_rs(dv, pa[kk], desc_mn_major(do_stage(s), Q_BOX, kk), 1);
+            wgmma_rs(dv, pa[kk], desc_mn_major(do_stage(s), Q_BOX, kk), 1);
           }
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            wgmma_m64n128k16_rs(dk, da[kk], desc_mn_major(q_stage(s), Q_BOX, kk), 1);
+            wgmma_rs(dk, da[kk], desc_mn_major(q_stage(s), Q_BOX, kk), 1);
           }
           wgmma_commit();
           wgmma_wait<0>();
@@ -306,13 +328,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
       }
     }
 
-    // out: two swizzled [64][64] boxes per warpgroup, in the ring (free now)
+    // out: NB swizzled [64][64] boxes per warpgroup, in the ring (free now)
     unsigned char* out_dk = smem + RING + cw * Q_TILE;
     unsigned char* out_dv = smem + RING + 2 * Q_TILE + cw * Q_TILE;
     if (nsplit == 1) {
       named_barrier(1, 256);  // both consumer warpgroups are out of the ring
-      store_acc_64x128(dk, 1.f, 1.f, out_dk, Q_BOX, &tm_dk, kw0, bkv, 2 + cw);
-      store_acc_64x128(dv, 1.f, 1.f, out_dv, Q_BOX, &tm_dv, kw0, bkv, 2 + cw);
+      store_acc_64xD(dk, 1.f, 1.f, out_dk, Q_BOX, &tm_dk, kw0, bkv, 2 + cw);
+      store_acc_64xD(dv, 1.f, 1.f, out_dv, Q_BOX, &tm_dv, kw0, bkv, 2 + cw);
     } else {
       // block 0 writes dK, block 1 dV; each sends the other half across
       float4* xbuf = reinterpret_cast<float4*>(smem);  // over K/V, free after A
@@ -329,38 +351,37 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
       cluster_sync();  // B: the partner's half has landed
       if (split == 0) {
         add_partial(dk, xbuf, tc);
-        store_acc_64x128(dk, 1.f, 1.f, out_dk, Q_BOX, &tm_dk, kw0, bkv, 2 + cw);
+        store_acc_64xD(dk, 1.f, 1.f, out_dk, Q_BOX, &tm_dk, kw0, bkv, 2 + cw);
       } else {
         add_partial(dv, xbuf, tc);
-        store_acc_64x128(dv, 1.f, 1.f, out_dv, Q_BOX, &tm_dv, kw0, bkv, 2 + cw);
+        store_acc_64xD(dv, 1.f, 1.f, out_dv, Q_BOX, &tm_dv, kw0, bkv, 2 + cw);
       }
     }
   }
 }
 
-}  // namespace
-
 // window <= 0 means no sliding window. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue when a TMA map cannot be encoded: base not 16-byte
 // aligned).
-extern "C" int bci_flash_bwd_dkdv_bf16(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* delta,
-                                       void* dk, void* dv, int B, int H, int KVH,
-                                       int Lq, int Lk, int causal, int window,
-                                       float sm_scale, void* stream) {
+template <int NB>
+int launch_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dk, void* dv, int B,
+                          int H, int KVH, int Lq, int Lk, int causal, int window,
+                          float sm_scale, void* stream) {
+  constexpr int D = 64 * NB;
+  constexpr int SMEM_BYTES = Layout<NB>::SMEM_BYTES;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
-  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q) ||
-      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K) ||
-      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K) ||
-      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q) ||
-      !make_map_3d(&tm_dk, dk, B * KVH, Lk, 64) ||
-      !make_map_3d(&tm_dv, dv, B * KVH, Lk, 64)) {
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, D) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, D) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, D) ||
+      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q, D) ||
+      !make_map_3d(&tm_dk, dk, B * KVH, Lk, 64, D) ||
+      !make_map_3d(&tm_dv, dv, B * KVH, Lk, 64, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above the 48 KB default: opt in (cheap to repeat)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      flash_bwd_dkdv_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Two blocks (a cluster) share a key tile when the group has two heads or
   // more and the grid of one block per key tile would fill at most one wave
@@ -387,10 +408,34 @@ extern "C" int bci_flash_bwd_dkdv_bf16(const void* q, const void* k,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel, tm_q, tm_k, tm_v, tm_do, tm_dk,
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel<NB>, tm_q, tm_k, tm_v, tm_do, tm_dk,
                            tm_dv, static_cast<const float*>(lse),
                            static_cast<const float*>(delta), H, KVH, Lq, Lk, causal,
                            window, sm_scale, nsplit);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// head dim 128
+extern "C" int bci_flash_bwd_dkdv_bf16(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int H, int KVH,
+                                       int Lq, int Lk, int causal, int window,
+                                       float sm_scale, void* stream) {
+  return launch_flash_bwd_dkdv<2>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq, Lk,
+                                  causal, window, sm_scale, stream);
+}
+
+// head dim 64
+extern "C" int bci_flash_bwd_dkdv_bf16_d64(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse, const void* delta,
+                                           void* dk, void* dv, int B, int H, int KVH,
+                                           int Lq, int Lk, int causal, int window,
+                                           float sm_scale, void* stream) {
+  return launch_flash_bwd_dkdv<1>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq, Lk,
+                                  causal, window, sm_scale, stream);
 }

@@ -1,6 +1,12 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a): bf16 inputs, f32
 // statistics and accumulation, GQA-native, causal or full, optional sliding
-// window.
+// window. Head dim D = 64 or 128: the kernel is a template over NB = D / 64,
+// the 64-column TMA boxes of a tile (entry points bci_flash_bwd_dq_bf16_d64
+// and bci_flash_bwd_dq_bf16; D = 128 is the design below, D = 64 the same
+// with the Q, dO, K and V tiles, the ring and the dQ accumulator halved, S
+// and dP in 4 k16 steps and dQ at N = 64). At ViT-B/16's shape (L = 196,
+// D = 64, non-causal) the work is bound by bytes (~195 MB against 23
+// GFLOP); the padded rows and keys are masked, as described below.
 //
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/flash_attention.py
 // `_bwd_dq_kernel` (:357), reached through `_flash_bwd_pallas` (:409). What it
@@ -58,15 +64,21 @@ constexpr int BLOCK_K = 64;   // keys per ring stage
 constexpr int STAGES = 3;
 constexpr int THREADS = 384;             // producer warpgroup + 2 consumers
 constexpr int Q_BOX = BLOCK_Q * 128;     // one [128 rows][64] bf16 box
-constexpr int Q_TILE = 2 * Q_BOX;        // [128][128] bf16
 constexpr int KV_BOX = BLOCK_K * 128;    // one [64 keys][64] bf16 box
-constexpr int KV_TILE = 2 * KV_BOX;      // [64][128] bf16
-constexpr int STAGE_BYTES = 2 * KV_TILE; // K and V
-constexpr int RING = 2 * Q_TILE;         // the ring follows Q and dO
-constexpr int BARS = RING + STAGES * STAGE_BYTES;
-constexpr int SMEM_BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// shared memory at NB boxes a tile
+template <int NB>
+struct Layout {
+  static constexpr int Q_TILE = NB * Q_BOX;         // [128][D] bf16
+  static constexpr int KV_TILE = NB * KV_BOX;       // [64][D] bf16
+  static constexpr int STAGE_BYTES = 2 * KV_TILE;   // K and V
+  static constexpr int RING = 2 * Q_TILE;           // the ring follows Q and dO
+  static constexpr int BARS = RING + STAGES * STAGE_BYTES;
+  static constexpr int SMEM_BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int NB>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tm_q,   // [B*H, Lq, D], box 128 rows
     const __grid_constant__ CUtensorMap tm_k,   // [B*KVH, Lk, D], box 64 rows
@@ -76,6 +88,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     const float* __restrict__ lse,              // [B, H, Lq]
     const float* __restrict__ delta,            // [B, H, Lq]
     int BH, int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale) {
+  using L = Layout<NB>;
+  constexpr int Q_TILE = L::Q_TILE, KV_TILE = L::KV_TILE, STAGE_BYTES = L::STAGE_BYTES,
+                RING = L::RING, BARS = L::BARS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -119,18 +134,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
       prefetch_tensormap(&tm_k);
       prefetch_tensormap(&tm_v);
       mbar_arrive_expect_tx(qd_full, 2 * Q_TILE);
-      tma_load_3d(q_tile, &tm_q, qd_full, 0, q0, bh);
-      tma_load_3d(q_tile + Q_BOX, &tm_q, qd_full, BOX_COLS, q0, bh);
-      tma_load_3d(do_tile, &tm_do, qd_full, 0, q0, bh);
-      tma_load_3d(do_tile + Q_BOX, &tm_do, qd_full, BOX_COLS, q0, bh);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(q_tile + b * Q_BOX, &tm_q, qd_full, b * BOX_COLS, q0, bh);
+        tma_load_3d(do_tile + b * Q_BOX, &tm_do, qd_full, b * BOX_COLS, q0, bh);
+      }
       for (int t = t_lo, it = 0; t < t_hi; ++t, ++it) {
         const int s = it % STAGES;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_3d(k_stage(s), &tm_k, &full[s], 0, t * BLOCK_K, bkv);
-        tma_load_3d(k_stage(s) + KV_BOX, &tm_k, &full[s], BOX_COLS, t * BLOCK_K, bkv);
-        tma_load_3d(v_stage(s), &tm_v, &full[s], 0, t * BLOCK_K, bkv);
-        tma_load_3d(v_stage(s) + KV_BOX, &tm_v, &full[s], BOX_COLS, t * BLOCK_K, bkv);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(k_stage(s) + b * KV_BOX, &tm_k, &full[s], b * BOX_COLS, t * BLOCK_K,
+                      bkv);
+          tma_load_3d(v_stage(s) + b * KV_BOX, &tm_v, &full[s], b * BOX_COLS, t * BLOCK_K,
+                      bkv);
+        }
       }
     }
   } else {
@@ -149,9 +168,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     const float del_a = row_a < Lq ? delta[(size_t)bh * Lq + row_a] : 0.f;
     const float del_b = row_b < Lq ? delta[(size_t)bh * Lq + row_b] : 0.f;
 
-    float dq[64];
+    float dq[32 * NB];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < 32 * NB; ++i) dq[i] = 0.f;
 
     mbar_wait(qd_full, 0);
     for (int t = t_lo, it = 0; t < t_hi; ++t, ++it) {
@@ -165,12 +184,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
         float sc[32], dp[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < 4 * NB; ++kk) {
           wgmma_m64n64k16_ss(sc, desc_k_major(q_rows, Q_BOX, kk),
                              desc_k_major(k_stage(s), KV_BOX, kk), kk > 0);
         }
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < 4 * NB; ++kk) {
           wgmma_m64n64k16_ss(dp, desc_k_major(do_rows, Q_BOX, kk),
                              desc_k_major(v_stage(s), KV_BOX, kk), kk > 0);
         }
@@ -217,7 +236,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_m64n128k16_rs(dq, da[kk], desc_mn_major(k_stage(s), KV_BOX, kk), 1);
+          wgmma_rs(dq, da[kk], desc_mn_major(k_stage(s), KV_BOX, kk), 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -230,38 +249,60 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
 
     // out: through this warpgroup's Q rows (its products are done with them)
     if (r0 < Lq) {
-      store_acc_64x128(dq, 1.f, 1.f, q_rows, Q_BOX, &tm_dq, r0, bh, 1 + cw);
+      store_acc_64xD(dq, 1.f, 1.f, q_rows, Q_BOX, &tm_dq, r0, bh, 1 + cw);
     }
   }
 }
 
-}  // namespace
-
 // window <= 0 means no sliding window. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue when a TMA map cannot be encoded: base not 16-byte
 // aligned).
+template <int NB>
+int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, int B, int H, int KVH,
+                        int Lq, int Lk, int causal, int window, float sm_scale,
+                        void* stream) {
+  constexpr int D = 64 * NB;
+  constexpr int SMEM_BYTES = Layout<NB>::SMEM_BYTES;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, D) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, D) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, D) ||
+      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q, D) ||
+      !make_map_3d(&tm_dq, dq, B * H, Lq, 64, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above the 48 KB default: opt in (cheap to repeat)
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (Lq + BLOCK_Q - 1) / BLOCK_Q;
+  flash_bwd_dq_kernel<NB><<<n_qt * B * H, THREADS, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B * H, H, KVH, Lq, Lk, causal, window,
+      sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// head dim 128
 extern "C" int bci_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse,
                                      const void* delta, void* dq, int B, int H,
                                      int KVH, int Lq, int Lk, int causal,
                                      int window, float sm_scale, void* stream) {
-  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
-  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q) ||
-      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K) ||
-      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K) ||
-      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q) ||
-      !make_map_3d(&tm_dq, dq, B * H, Lq, 64)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // above the 48 KB default: opt in (cheap to repeat)
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (Lq + BLOCK_Q - 1) / BLOCK_Q;
-  flash_bwd_dq_kernel<<<n_qt * B * H, THREADS, SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), B * H, H, KVH, Lq, Lk, causal, window,
-      sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_flash_bwd_dq<2>(q, k, v, dout, lse, delta, dq, B, H, KVH, Lq, Lk, causal,
+                                window, sm_scale, stream);
+}
+
+// head dim 64
+extern "C" int bci_flash_bwd_dq_bf16_d64(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse,
+                                         const void* delta, void* dq, int B, int H,
+                                         int KVH, int Lq, int Lk, int causal,
+                                         int window, float sm_scale, void* stream) {
+  return launch_flash_bwd_dq<1>(q, k, v, dout, lse, delta, dq, B, H, KVH, Lq, Lk, causal,
+                                window, sm_scale, stream);
 }

@@ -1,5 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 inputs, f32 statistics,
 // GQA-native, causal or full, optional sliding window, returns out and lse.
+// Head dim D = 64 or 128: the kernel is a template over NB = D / 64, the
+// 64-column TMA boxes of a Q/K/V/O tile (entry points bci_flash_fwd_bf16_d64
+// and bci_flash_fwd_bf16; D = 128 is the design below, D = 64 the same with
+// every tile, stage and the O accumulator halved, Q K^T in 4 k16 steps and
+// P V at N = 64). At ViT-B/16's shape (B = 128, H = 12, L = 196, D = 64,
+// non-causal) the work is bound by bytes instead (~155 MB against 15 GFLOP):
+// the D = 64 instance keeps this design unchanged, so L = 196 pads to two
+// 128-row work items and two key tiles, the padded keys masked (col < Lk)
+// and the padded rows dropped by the store.
 //
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/flash_attention.py
 // `_fwd_kernel` (:48), reached through `_flash_fwd` (:170). What it computes
@@ -61,12 +70,17 @@ constexpr int BLOCK_Q = 128;  // query rows per work item: 2 consumer warpgroups
 constexpr int BLOCK_K = 128;  // keys per K/V tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int BOX_BYTES = 128 * 128;      // one [128 rows][64] bf16 box
-constexpr int TILE_BYTES = 2 * BOX_BYTES;  // [128][128] bf16
+constexpr int BOX_BYTES = 128 * 128;  // one [128 rows][64] bf16 box
 constexpr int N_BARRIERS = 2 + 4 * STAGES;
-// Q, the K/V ring, O's staging tile
-constexpr int SMEM_BYTES = (2 + 2 * STAGES) * TILE_BYTES + N_BARRIERS * 8 + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory at NB boxes a tile
+template <int NB>
+struct Layout {
+  static constexpr int TILE_BYTES = NB * BOX_BYTES;  // [128][D] bf16
+  // Q, the K/V ring, O's staging tile
+  static constexpr int SMEM_BYTES = (2 + 2 * STAGES) * TILE_BYTES + N_BARRIERS * 8 + 1024;
+};
 
 // The work of one block: 128 query rows of one (batch, head) and the key
 // tiles [t_lo, t_hi) any of them can see (none above the causal diagonal,
@@ -103,11 +117,12 @@ __device__ __forceinline__ int work_item(int n, int n_work) {
 
 // S = Q K^T for one warpgroup's 64 rows and a 128-key tile, issued and
 // committed (not waited on)
+template <int NB>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], const unsigned char* q_rows,
                                          const unsigned char* k_tile) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < 4 * NB; ++kk) {
     wgmma_m64n128k16_ss(sc, desc_k_major(q_rows, BOX_BYTES, kk),
                         desc_k_major(k_tile, BOX_BYTES, kk), kk > 0);
   }
@@ -115,7 +130,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], const unsigned char* q
 }
 
 // O += P V, P from registers, issued and committed (not waited on)
-__device__ __forceinline__ void issue_pv(float (&o)[64], uint32_t (&pa)[8][4],
+template <int NB>
+__device__ __forceinline__ void issue_pv(float (&o)[32 * NB], uint32_t (&pa)[8][4],
                                          const unsigned char* v_tile) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
@@ -123,7 +139,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[64], uint32_t (&pa)[8][4],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    wgmma_m64n128k16_rs(o, pa[kk], desc_mn_major(v_tile, BOX_BYTES, kk), 1);
+    wgmma_rs(o, pa[kk], desc_mn_major(v_tile, BOX_BYTES, kk), 1);
   }
   wgmma_commit();
 }
@@ -204,6 +220,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], int c0, int row_a,
   m_b = mn_b;
 }
 
+template <int NB>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tm_q,  // [B*H, Lq, D], box 128 rows
     const __grid_constant__ CUtensorMap tm_k,  // [B*KVH, Lk, D], box 128 rows
@@ -211,6 +228,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tm_o,  // [B*H, Lq, D], box 64 rows
     float* __restrict__ lse,                   // [B, H, Lq]
     int BH, int H, int KVH, int Lq, int Lk, int causal, int window, float sm_scale) {
+  constexpr int TILE_BYTES = Layout<NB>::TILE_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -253,21 +271,27 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         const Block blk = block_of(w, BH, n_qt, H, KVH, Lq, Lk, causal, window);
         mbar_wait(q_empty, (n & 1) ^ 1);  // the previous block's last Q K^T is done
         mbar_arrive_expect_tx(q_full, TILE_BYTES);
-        tma_load_3d(q_tile, &tm_q, q_full, 0, blk.q0, blk.bh);
-        tma_load_3d(q_tile + BOX_BYTES, &tm_q, q_full, BOX_COLS, blk.q0, blk.bh);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(q_tile + b * BOX_BYTES, &tm_q, q_full, b * BOX_COLS, blk.q0, blk.bh);
+        }
         for (int t = blk.t_lo; t < blk.t_hi; ++t, ++it) {
           const int s = it % STAGES;
           const uint32_t ph = (it / STAGES) & 1;
           mbar_wait(&k_empty[s], ph ^ 1);
           mbar_arrive_expect_tx(&k_full[s], TILE_BYTES);
-          tma_load_3d(k_tile(s), &tm_k, &k_full[s], 0, t * BLOCK_K, blk.bkv);
-          tma_load_3d(k_tile(s) + BOX_BYTES, &tm_k, &k_full[s], BOX_COLS, t * BLOCK_K,
-                      blk.bkv);
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            tma_load_3d(k_tile(s) + b * BOX_BYTES, &tm_k, &k_full[s], b * BOX_COLS,
+                        t * BLOCK_K, blk.bkv);
+          }
           mbar_wait(&v_empty[s], ph ^ 1);
           mbar_arrive_expect_tx(&v_full[s], TILE_BYTES);
-          tma_load_3d(v_tile(s), &tm_v, &v_full[s], 0, t * BLOCK_K, blk.bkv);
-          tma_load_3d(v_tile(s) + BOX_BYTES, &tm_v, &v_full[s], BOX_COLS, t * BLOCK_K,
-                      blk.bkv);
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            tma_load_3d(v_tile(s) + b * BOX_BYTES, &tm_v, &v_full[s], b * BOX_COLS,
+                        t * BLOCK_K, blk.bkv);
+          }
         }
       }
     }
@@ -292,9 +316,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
       const Block blk = block_of(w, BH, n_qt, H, KVH, Lq, Lk, causal, window);
       const int r0 = blk.q0 + cw * 64;
       const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;
-      float o[64];
+      float o[32 * NB];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      for (int i = 0; i < 32 * NB; ++i) o[i] = 0.f;
       float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
       mbar_wait(q_full, n & 1);
 
@@ -306,7 +330,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
       uint32_t ph = (it / STAGES) & 1;
       mbar_wait(&k_full[s], ph);
       named_barrier(my_turn, 256);
-      issue_qk(sc, q_rows, k_tile(s));
+      issue_qk<NB>(sc, q_rows, k_tile(s));
       named_barrier_arrive(their_turn, 256);
       wgmma_wait<0>();
       fence_regs(sc);
@@ -325,8 +349,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         mbar_wait(&k_full[s], ph);
         mbar_wait(&v_full[prev], prev_ph);
         named_barrier(my_turn, 256);
-        issue_qk(sc, q_rows, k_tile(s));
-        issue_pv(o, pa, v_tile(prev));
+        issue_qk<NB>(sc, q_rows, k_tile(s));
+        issue_pv<NB>(o, pa, v_tile(prev));
         named_barrier_arrive(their_turn, 256);
         wgmma_wait<1>();  // Q K^T, the older group, is done
         fence_regs(sc);
@@ -339,7 +363,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
         if (lane == 0) mbar_arrive(&v_empty[prev]);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < 8 * NB; ++j) {
           o[4 * j] *= alpha_a;
           o[4 * j + 1] *= alpha_a;
           o[4 * j + 2] *= alpha_b;
@@ -351,7 +375,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
       if (lane == 0) mbar_arrive(q_empty);
       mbar_wait(&v_full[s], ph);
       named_barrier(my_turn, 256);
-      issue_pv(o, pa, v_tile(s));
+      issue_pv<NB>(o, pa, v_tile(s));
       named_barrier_arrive(their_turn, 256);
       wgmma_wait<0>();
       fence_regs(o);
@@ -365,8 +389,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         // the previous block's store has read the staging tile
         if ((threadIdx.x & 127) == 0) tma_store_wait_read();
         named_barrier(1 + cw, 128);
-        store_acc_64x128(o, 1.f / lc_a, 1.f / lc_b, o_rows, BOX_BYTES, &tm_o, r0, blk.bh,
-                         1 + cw, /*wait=*/false);
+        store_acc_64xD(o, 1.f / lc_a, 1.f / lc_b, o_rows, BOX_BYTES, &tm_o, r0, blk.bh,
+                       1 + cw, /*wait=*/false);
         if (t4 == 0) {
           if (row_a < Lq) lse[(size_t)blk.bh * Lq + row_a] = m_a * sm_scale + logf(lc_a);
           if (row_b < Lq) lse[(size_t)blk.bh * Lq + row_b] = m_b * sm_scale + logf(lc_b);
@@ -378,28 +402,27 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   }
 }
 
-}  // namespace
-
 // window <= 0 means no sliding window. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue when a TMA map cannot be encoded: base not 16-byte
 // aligned).
-extern "C" int bci_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                  void* out, void* lse, int B, int H, int KVH,
-                                  int Lq, int Lk, int causal, int window,
-                                  float sm_scale, void* stream) {
+template <int NB>
+int launch_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                     int B, int H, int KVH, int Lq, int Lk, int causal, int window,
+                     float sm_scale, void* stream) {
+  constexpr int D = 64 * NB;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q) ||
-      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K) ||
-      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K) ||
-      !make_map_3d(&tm_o, out, B * H, Lq, 64)) {
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, D) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, D) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, D) ||
+      !make_map_3d(&tm_o, out, B * H, Lq, 64, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above the 48 KB default: opt in (cheap to repeat)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      flash_fwd_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<NB>::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // persistent: one block per SM (192 KB of shared memory each), walking
-  // the work items
+  // persistent: one block per SM (192 KB of shared memory each at D = 128,
+  // 96 KB at D = 64), walking the work items
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -407,9 +430,29 @@ extern "C" int bci_flash_fwd_bf16(const void* q, const void* k, const void* v,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_work = B * H * ((Lq + BLOCK_Q - 1) / BLOCK_Q);
-  flash_fwd_kernel<<<min(n_work, sms), THREADS, SMEM_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<NB><<<min(n_work, sms), THREADS, Layout<NB>::SMEM_BYTES,
+                         static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), B * H, H, KVH, Lq, Lk, causal,
       window, sm_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// head dim 128
+extern "C" int bci_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                  void* out, void* lse, int B, int H, int KVH,
+                                  int Lq, int Lk, int causal, int window,
+                                  float sm_scale, void* stream) {
+  return launch_flash_fwd<2>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, window,
+                             sm_scale, stream);
+}
+
+// head dim 64
+extern "C" int bci_flash_fwd_bf16_d64(const void* q, const void* k, const void* v,
+                                      void* out, void* lse, int B, int H, int KVH,
+                                      int Lq, int Lk, int causal, int window,
+                                      float sm_scale, void* stream) {
+  return launch_flash_fwd<1>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, window,
+                             sm_scale, stream);
 }

@@ -4,19 +4,23 @@
 // memory stores. Header-only; every kernel source that includes it is
 // rebuilt when it changes (ops/cuda_build.py hashes csrc/*.cuh).
 //
-// Layouts, as the kernels use them (bf16, head dim 128):
-// - A [rows, 128] tile is loaded by TMA as two boxes of 64 columns (one box
+// Layouts, as the kernels use them (bf16, head dim D = 64 NB, NB = 1 or 2
+// boxes; the paged decode kernel takes D = 128 only):
+// - A [rows, D] tile is loaded by TMA as NB boxes of 64 columns (one box
 //   row is 128 bytes, the 128-byte swizzle span), each box [rows][64] in
 //   shared memory with the 128-byte swizzle: 16-byte chunk c of row r sits at
-//   chunk c ^ (r % 8). Every box starts on a 1024-byte boundary.
+//   chunk c ^ (r % 8). Every box starts on a 1024-byte boundary. At D = 64 a
+//   tile is one box, laid out as either box of a D = 128 tile, so every
+//   descriptor below is the same for the steps and columns it has.
 // - K-major operand (the reduction dimension is the contiguous one: Q and K
 //   in Q K^T, K and V in K Q^T / V dO^T): descriptor over `rows` rows of one
 //   box, SBO = 1024 bytes (8 rows), LBO unused (1); the k16 step kk of the
-//   128-deep reduction is box kk / 4 at +32 bytes * (kk % 4).
+//   D-deep reduction (4 NB steps) is box kk / 4 at +32 bytes * (kk % 4).
 // - MN-major operand (the output dimension is the contiguous one: V in P V,
 //   dO and Q in P^T dO / dS^T Q): descriptor at reduction row 16 * kk of box
 //   0, LBO = the byte distance from box 0 to box 1 (the next 64 output
-//   columns), SBO = 1024 bytes (8 reduction rows), transpose bit set.
+//   columns; unread at N = 64, where the product's columns are one box's),
+//   SBO = 1024 bytes (8 reduction rows), transpose bit set.
 // - wgmma's f32 accumulator of m64nNk16: thread (warp w of the warpgroup,
 //   lane l) holds, for j < N / 8, d[4j], d[4j+1] at row 16w + l/4, columns
 //   8j + 2(l%4) + {0, 1}, and d[4j+2], d[4j+3] at row 16w + l/4 + 8. The
@@ -34,7 +38,7 @@
 
 namespace hopper {
 
-constexpr int HEAD_DIM = 128;
+constexpr int HEAD_DIM = 128;  // the paged decode kernel's, and the maps' default
 constexpr int BOX_COLS = 64;  // bf16 columns per TMA box: 128 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -190,7 +194,7 @@ __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo,
   return d;
 }
 
-// K-major operand: k16 step kk of a 128-deep reduction over a tile of two
+// K-major operand: k16 step kk of a D-deep reduction over a tile of D / 64
 // boxes, each `box_bytes` long
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile, int box_bytes,
                                                  int kk) {
@@ -198,7 +202,7 @@ __device__ __forceinline__ uint64_t desc_k_major(const void* tile, int box_bytes
   return make_desc(p, 16, 1024);
 }
 
-// MN-major operand: reduction rows 16kk..16kk+15 of a tile of two boxes
+// MN-major operand: reduction rows 16kk..16kk+15 of a tile of D / 64 boxes
 // (output columns 0-63 and 64-127), each `box_bytes` long
 __device__ __forceinline__ uint64_t desc_mn_major(const void* tile, int box_bytes,
                                                   int kk) {
@@ -271,6 +275,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (+)= A B, m64n64k16; A from registers (pack_a), B in shared memory
+// MN-major
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // d (+)= A B, m64n128k16; A from registers (pack_a), B in shared memory
 // MN-major
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
@@ -281,6 +297,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : HOPPER_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// the register-A product over an accumulator of D = 32 NB columns a thread
+// (N = 64 NB), so code templated on NB names one call
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
 }
 
 #undef HOPPER_D8
@@ -348,23 +376,25 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// A warpgroup's 64 x 128 f32 accumulator, each row times its scale (the
-// thread's rows l/4 and l/4 + 8 of its warp's 16), rounded to bf16 into
-// `stage` (two swizzled [64][64] boxes, `box_stride` bytes apart, each
-// 1024-byte aligned) and stored by TMA at (row0, head) of `map`, whose box is
-// 64 x 64. Called by all 128 threads of the warpgroup; `bar_id` is a named
-// barrier of its own. With `wait`, the warpgroup's first thread returns once
-// the store is complete; without, the caller waits (tma_store_wait_read
-// before `stage` is written again, tma_store_wait_all before exit).
-__device__ __forceinline__ void store_acc_64x128(const float (&d)[64], float scale_lo,
-                                                 float scale_hi, unsigned char* stage,
-                                                 int box_stride, const CUtensorMap* map,
-                                                 int row0, int head, int bar_id,
-                                                 bool wait = true) {
+// A warpgroup's 64 x D f32 accumulator (D = N / 2: 64 or 128 columns),
+// each row times its scale (the thread's rows l/4 and l/4 + 8 of its warp's
+// 16), rounded to bf16 into `stage` (D / 64 swizzled [64][64] boxes,
+// `box_stride` bytes apart, each 1024-byte aligned) and stored by TMA at
+// (row0, head) of `map`, whose box is 64 x 64. Called by all 128 threads of
+// the warpgroup; `bar_id` is a named barrier of its own. With `wait`, the
+// warpgroup's first thread returns once the store is complete; without, the
+// caller waits (tma_store_wait_read before `stage` is written again,
+// tma_store_wait_all before exit).
+template <int N>
+__device__ __forceinline__ void store_acc_64xD(const float (&d)[N], float scale_lo,
+                                               float scale_hi, unsigned char* stage,
+                                               int box_stride, const CUtensorMap* map,
+                                               int row0, int head, int bar_id,
+                                               bool wait = true) {
   const int t = threadIdx.x & 127;
   const int r = (t >> 5) * 16 + ((t & 31) >> 2), c = (t & 3) * 2;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     unsigned char* box = stage + (j >> 3) * box_stride;
     const int col = (j & 7) * 8 + c;
     *reinterpret_cast<uint32_t*>(box + swizzled_offset(r, col)) =
@@ -375,8 +405,10 @@ __device__ __forceinline__ void store_acc_64x128(const float (&d)[64], float sca
   fence_proxy_async();
   named_barrier(bar_id, 128);
   if (t == 0) {
-    tma_store_3d(map, stage, 0, row0, head);
-    tma_store_3d(map, stage + box_stride, BOX_COLS, row0, head);
+#pragma unroll
+    for (int b = 0; b < N / 32; ++b) {
+      tma_store_3d(map, stage + b * box_stride, b * BOX_COLS, row0, head);
+    }
     tma_store_commit();
     if (wait) tma_store_wait_all();
   }
@@ -436,19 +468,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// 3-D map over a contiguous bf16 [heads, rows, 128] tensor: boxes of 64
-// columns x box_rows rows x 1 head, 128-byte swizzle, out-of-range rows read
-// as zero (within the head: the map's rows end at `rows`) and dropped on
-// store. Returns false when the driver refuses it.
+// 3-D map over a contiguous bf16 [heads, rows, cols] tensor (cols = the
+// head dim, 64 or 128): boxes of 64 columns x box_rows rows x 1 head,
+// 128-byte swizzle, out-of-range rows read as zero (within the head: the
+// map's rows end at `rows`) and dropped on store. Returns false when the
+// driver refuses it.
 inline bool make_map_3d(CUtensorMap* map, const void* base, int heads, int rows,
-                        int box_rows) {
+                        int box_rows, int cols = HEAD_DIM) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HEAD_DIM),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {HEAD_DIM * 2ull,
-                                 static_cast<cuuint64_t>(rows) * HEAD_DIM * 2ull};
+  const cuuint64_t strides[2] = {cols * 2ull,
+                                 static_cast<cuuint64_t>(rows) * cols * 2ull};
   const cuuint32_t box[3] = {BOX_COLS, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,

@@ -10,9 +10,10 @@ in f32; dk/dv come back compact ``[B, KVH, Lk, D]``.
 
 Dispatch is on where the tensors live, in ``FlashAttention`` for both
 directions: CUDA tensors go to the kernels (``csrc/flash_fwd.cu`` forward,
-``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu`` backward; bf16 and
-head dim 128 only, and dense tensors on a 16-byte boundary, which their TMA
-maps demand: anything else raises), CPU tensors to the plain versions
+``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu`` backward; bf16, head
+dim 64 or 128 (one entry point of each kernel per head dim), and dense
+tensors on a 16-byte boundary, which their TMA maps demand: anything else
+raises), CPU tensors to the plain versions
 (``flash_attention_fwd_plain``, ``flash_bwd_dkdv_plain``,
 ``flash_bwd_dq_plain``). There is no third path and no fallback from one to
 the other. ``delta = rowsum(dO * O) - g_lse`` is a PyTorch reduction, as the
@@ -27,30 +28,31 @@ import torch
 
 from bee_code_interpreter_tpu_torch.ops.cuda_build import CudaKernel
 
-FLASH_FWD = CudaKernel(
-    "flash_fwd",
-    {
-        "bci_flash_fwd_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p],
-    },
-)
+# the head dims the kernels take, each its own instance of the kernel
+# template (NB = D / 64 TMA boxes a tile) and C entry point
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _entry(base: str, head_dim: int) -> str:
+    """The C entry point of kernel ``base`` at ``head_dim``."""
+    return base if head_dim == 128 else f"{base}_d{head_dim}"
+
+
+def _signatures(base: str, argtypes: list) -> dict:
+    return {_entry(base, d): argtypes for d in KERNEL_HEAD_DIMS}
+
+
+FLASH_FWD = CudaKernel("flash_fwd", _signatures(
+    "bci_flash_fwd_bf16",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]))
 # q, k, v, dO, lse, delta, then the outputs (dk, dv / dq); B, H, KVH, Lq, Lk,
 # causal, window; sm_scale; stream
-FLASH_BWD_DKDV = CudaKernel(
-    "flash_bwd_dkdv",
-    {
-        "bci_flash_bwd_dkdv_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p],
-    },
-)
-FLASH_BWD_DQ = CudaKernel(
-    "flash_bwd_dq",
-    {
-        "bci_flash_bwd_dq_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p],
-    },
-)
-KERNEL_HEAD_DIM = 128
+FLASH_BWD_DKDV = CudaKernel("flash_bwd_dkdv", _signatures(
+    "bci_flash_bwd_dkdv_bf16",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]))
+FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", _signatures(
+    "bci_flash_bwd_dq_bf16",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]))
 # what a TMA tensor map takes as its global base address
 TMA_ALIGN_BYTES = 16
 
@@ -158,7 +160,8 @@ def flash_bwd_dq_plain(
 
 def _check_kernel_args(kernel: str, **tensors) -> None:
     """What every kernel takes: tensors on q's CUDA device, contiguous;
-    bf16 except the f32 statistics; head dim 128; L >= 1."""
+    bf16 except the f32 statistics; a head dim of ``KERNEL_HEAD_DIMS``;
+    L >= 1."""
     q = tensors["q"]
     if not q.is_cuda:
         raise ValueError(f"the {kernel} kernel takes CUDA tensors, got {q.device}")
@@ -170,9 +173,10 @@ def _check_kernel_args(kernel: str, **tensors) -> None:
             raise ValueError(f"the {kernel} kernel takes {want} {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the {kernel} kernel needs contiguous {name}")
-    if q.shape[3] != KERNEL_HEAD_DIM:
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"the {kernel} kernel takes head dim {KERNEL_HEAD_DIM}, got {q.shape[3]}"
+            f"the {kernel} kernel takes head dims {KERNEL_HEAD_DIMS}, got "
+            f"{q.shape[3]}"
         )
     if q.shape[2] < 1 or tensors["k"].shape[2] < 1:
         raise ValueError(f"the {kernel} kernel needs L >= 1 and Lk >= 1")
@@ -201,7 +205,7 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale, window):
     out = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     FLASH_FWD.launch(
-        "bci_flash_fwd_bf16",
+        _entry("bci_flash_fwd_bf16", q.shape[3]),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, KVH, L, Lk, int(causal), window or 0,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
@@ -239,7 +243,7 @@ def flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     FLASH_BWD_DKDV.launch(
-        "bci_flash_bwd_dkdv_bf16",
+        _entry("bci_flash_bwd_dkdv_bf16", q.shape[3]),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, KVH, L, Lk, int(causal), window or 0, float(sm_scale),
@@ -260,7 +264,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
     KVH, Lk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     FLASH_BWD_DQ.launch(
-        "bci_flash_bwd_dq_bf16",
+        _entry("bci_flash_bwd_dq_bf16", q.shape[3]),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, H, KVH, L, Lk, int(causal), window or 0, float(sm_scale),

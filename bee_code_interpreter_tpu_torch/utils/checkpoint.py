@@ -24,9 +24,17 @@ opened lazily (``mmap``), and each rank copies out of the saved shards
 only the parts that overlap the block its new spec gives it. A leaf saved
 without a spec is the rank's own (an optimizer's state of its shards,
 say): it comes back only to the same rank of the same mesh, and a
-restore onto another mesh or world raises ValueError. A mesh with a
-pipeline axis is refused (``NotImplementedError``): its ranks hold
-different layers under the same paths, which the specs do not tell apart.
+restore onto another mesh or world raises ValueError.
+
+Over a pipeline axis (``pp``) each stage holds its own block of the layers
+under the same paths (``params["layers"][0]`` is stage s's first layer).
+The save finds those blocks in the specs (a list in the state against one
+layer's specs, for every layer: ``param_specs``' ``layers``) and records
+each block's global layer index, so a stage's file holds its layers at
+their global indices, the counterpart of orbax saving the stacked,
+pp-sharded layers. A restore reads the layers it needs: onto a template of
+another pp size each rank takes its new block, onto no mesh (or another
+mesh without pp) every layer comes back in order.
 """
 
 from __future__ import annotations
@@ -88,6 +96,35 @@ def _is_spec(x) -> bool:
                                         for a in x)
 
 
+def _layer_blocks(state, specs, mesh) -> list:
+    """Under a pp mesh, ``[path, start, total]`` of every stage block in
+    ``state``: a list against one layer's specs (a dict, for every layer),
+    holding layers ``start .. start + len - 1`` of ``total``, the stage's
+    contiguous block (``parallel.pipeline.stage_block``). Empty without
+    pp."""
+    stages = axis_sizes(mesh).get("pp", 1)
+    if stages == 1:
+        return []
+    stage = axis_index(mesh, "pp")
+    out = []
+
+    def visit(tree, spec, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(v, spec.get(k) if isinstance(spec, dict) else None,
+                      (*path, k))
+        elif isinstance(tree, (list, tuple)):
+            if isinstance(spec, dict):
+                out.append([list(path), stage * len(tree),
+                            stages * len(tree)])
+            elif isinstance(spec, (list, tuple)) and not _is_spec(spec):
+                for i, v in enumerate(tree):
+                    visit(v, spec[i] if i < len(spec) else None, (*path, i))
+
+    visit(state, specs, ())
+    return out
+
+
 def _whole_shape(shape, spec, sizes: dict) -> tuple:
     """The whole tensor's shape from one shard's, its spec and the mesh's
     axis sizes."""
@@ -147,11 +184,6 @@ class TrainCheckpointer:
             _fsync_dir(self.directory)
             self._prune()
             return
-        if axis_sizes(mesh).get("pp", 1) > 1:
-            raise NotImplementedError(
-                "a sharded save over a pp mesh is not ported yet (ROADMAP "
-                "Queue 1, item 1, slice 13): each stage's layers sit at the "
-                "same paths")
         folder = self.directory / str(step)
         folder.mkdir(exist_ok=True)
         coords = {a: axis_index(mesh, a) for a in axis_sizes(mesh)}
@@ -162,7 +194,8 @@ class TrainCheckpointer:
         rank = dist.get_rank()
         _durable_write(folder / f"rank-{rank}.pt", {
             "state": state, "specs": flat_specs, "devices": devices,
-            "coords": coords, "axes": axis_sizes(mesh)})
+            "coords": coords, "axes": axis_sizes(mesh),
+            "layer_blocks": _layer_blocks(state, specs, mesh)})
         _fsync_dir(folder)
         dist.barrier()
         if rank == 0:
@@ -257,20 +290,61 @@ def _block_range(shape, spec, sizes: dict, coords: dict) -> list[range]:
 
 
 def _restore_sharded(folder: Path, template: Any) -> Any:
-    """A sharded step as ``template`` lays it out (without one, as rank 0
-    saved it): a leaf saved with a spec put together from the overlapping
-    parts of the saved shards, the block of this rank's new spec or the
-    whole tensor on the host; a leaf saved without one this rank's own."""
+    """A sharded step as ``template`` lays it out (without one, as the
+    whole tree: every saved layer of a pp save in order): a leaf saved with
+    a spec put together from the overlapping parts of the saved shards, the
+    block of this rank's new spec or the whole tensor on the host; a leaf
+    saved without one this rank's own."""
     n = torch.load(folder / _COMPLETE, weights_only=True)["ranks"]
     files = [torch.load(folder / f"rank-{r}.pt", map_location="cpu",
                         mmap=True, weights_only=True) for r in range(n)]
     axes = files[0]["axes"]
     rank = dist.get_rank() if dist.is_initialized() else 0
     world = dist.get_world_size() if dist.is_initialized() else 1
+    # stage blocks: path -> (each file's first global layer, the total)
+    blocks = {tuple(path): total for path, _, total
+              in files[0].get("layer_blocks", [])}
+    starts = [{tuple(path): start for path, start, _
+               in f.get("layer_blocks", [])} for f in files]
 
-    def own(path, mesh):
+    def locate(r, gpath):
+        """``gpath`` (global layer indices) in file r, or None when the
+        file's stage does not hold that layer."""
+        out = list(gpath)
+        for i in range(len(gpath) - 1):
+            prefix = tuple(gpath[:i + 1])
+            if prefix in blocks:
+                local = gpath[i + 1] - starts[r][prefix]
+                if not 0 <= local < len(_get(files[r]["state"], prefix)):
+                    return None
+                out[i + 1] = local
+        return tuple(out)
+
+    def to_global(path, tree):
+        """A template path with its stage blocks' local indices made
+        global (the template's stage block on its pp mesh)."""
+        out = list(path)
+        for i in range(len(path) - 1):
+            prefix = tuple(path[:i + 1])
+            if prefix in blocks and template is not None:
+                block = _get(tree, prefix)
+                mesh = next((a.mesh for a in _abstracts(block)), None)
+                if mesh is not None and axis_sizes(mesh).get("pp", 1) > 1:
+                    out[i + 1] += axis_index(mesh, "pp") * len(block)
+        return tuple(out)
+
+    def holders(gpath):
+        found = [(r, loc) for r in range(n)
+                 if (loc := locate(r, gpath)) is not None]
+        if not found:
+            raise ValueError(f"checkpoint holds no leaf "
+                             f"{'.'.join(map(str, gpath))}")
+        return found
+
+    def own(path, gpath, mesh):
         saved_on = files[rank]["coords"] if rank < n else None
-        if n != world or (mesh is not None and (
+        loc = locate(rank, gpath) if rank < n else None
+        if loc is None or n != world or (mesh is not None and (
                 axis_sizes(mesh) != axes or saved_on != {
                     a: axis_index(mesh, a) for a in axis_sizes(mesh)})):
             raise ValueError(
@@ -278,17 +352,18 @@ def _restore_sharded(folder: Path, template: Any) -> Any:
                 f"without a spec by one of {n} ranks over {axes}: it "
                 f"restores only onto that mesh, not onto {world} ranks"
                 + (f" over {axis_sizes(mesh)}" if mesh is not None else ""))
-        leaf = _get(files[rank]["state"], path)
-        return leaf.detach().to(_get(files[rank]["devices"], path))
+        leaf = _get(files[rank]["state"], loc)
+        return leaf.detach().to(_get(files[rank]["devices"], loc))
 
-    def assemble(path, spec, want: list[range]):
+    def assemble(found, spec, want: list[range]):
         out = None
         done = set()
-        for f in files:
-            block = _get(f["state"], path)
+        for r, loc in found:
+            f = files[r]
+            block = _get(f["state"], loc)
             have = _block_range(_whole_shape(block.shape, spec, axes), spec,
                                 axes, f["coords"])
-            key = tuple((r.start, r.stop) for r in have)
+            key = tuple((x.start, x.stop) for x in have)
             if key in done:  # a replica of a block already copied
                 continue
             done.add(key)
@@ -296,22 +371,28 @@ def _restore_sharded(folder: Path, template: Any) -> Any:
                    for w, h in zip(want, have)]
             if out is None:
                 out = torch.empty([len(w) for w in want], dtype=block.dtype)
-            if any(len(r) == 0 for r in lap):
+            if any(len(x) == 0 for x in lap):
                 continue
-            out[tuple(slice(r.start - w.start, r.stop - w.start)
-                      for r, w in zip(lap, want))] = block.detach()[tuple(
-                          slice(r.start - h.start, r.stop - h.start)
-                          for r, h in zip(lap, have))]
+            out[tuple(slice(x.start - w.start, x.stop - w.start)
+                      for x, w in zip(lap, want))] = block.detach()[tuple(
+                          slice(x.start - h.start, x.stop - h.start)
+                          for x, h in zip(lap, have))]
         return out
 
+    tree = _whole_layout(files, blocks, starts) if template is None else (
+        template)
+
     def leaf(path, abstract):
-        saved = _get(files[0]["state"], path)
+        gpath = to_global(path, tree)
+        found = holders(gpath)
+        r0, loc0 = found[0]
+        saved = _get(files[r0]["state"], loc0)
         if not isinstance(saved, torch.Tensor):
             return saved
-        spec = _get(files[0]["specs"], path)
+        spec = _get(files[r0]["specs"], loc0)
         mesh = abstract.mesh if isinstance(abstract, Abstract) else None
         if spec is None:
-            out = own(path, mesh)
+            out = own(path, gpath, mesh)
         else:
             whole = _whole_shape(saved.shape, spec, axes)
             if isinstance(abstract, Abstract) and abstract.spec is not None:
@@ -321,17 +402,52 @@ def _restore_sharded(folder: Path, template: Any) -> Any:
                         f"match its template {abstract.shape} "
                         f"{abstract.dtype}")
                 sizes = axis_sizes(mesh)
-                out = assemble(path, spec, _block_range(
+                out = assemble(found, spec, _block_range(
                     whole, abstract.spec, sizes,
                     {a: axis_index(mesh, a) for a in sizes}))
                 out = out.to(mesh.device_type)
             else:
-                out = assemble(path, spec, [range(m) for m in whole])
+                out = assemble(found, spec, [range(m) for m in whole])
         trains = (abstract.requires_grad if isinstance(abstract, Abstract)
                   else saved.requires_grad)
         return out.requires_grad_(trains)
 
-    return _walk(leaf, files[0]["state"] if template is None else template)
+    return _walk(leaf, tree)
+
+
+def _abstracts(tree) -> list:
+    """The ``Abstract`` leaves of a template subtree."""
+    if isinstance(tree, Abstract):
+        return [tree]
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _abstracts(v)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _abstracts(v)]
+    return []
+
+
+def _whole_layout(files: list, blocks: dict, starts: list) -> Any:
+    """The saved tree's layout with every stage block made whole: its
+    ``total`` layers in global order, each taken from the file whose
+    stage holds it (the layout rank 0 saved without pp)."""
+    def build(path):
+        if path in blocks:
+            layers = []
+            for i in range(blocks[path]):
+                r = next(r for r, st in enumerate(starts)
+                         if 0 <= i - st[path] < len(_get(files[r]["state"],
+                                                         path)))
+                layers.append(_get(files[r]["state"], path)[i - starts[r][path]])
+            return layers
+        node = _get(files[0]["state"], path)
+        if isinstance(node, dict):
+            return {k: build((*path, k)) for k in node}
+        if isinstance(node, (list, tuple)):
+            out = [build((*path, i)) for i in range(len(node))]
+            return type(node)(out) if isinstance(node, tuple) else out
+        return node
+
+    return build(())
 
 
 def _place(leaf, abstract):

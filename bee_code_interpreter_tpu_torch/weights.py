@@ -26,6 +26,14 @@ block of the layers), trainable masters with ``requires_grad``.
 
 ``cache_from_jax`` carries a JAX decode cache or page pool the same way, so
 tests can seed both frameworks with the same K/V state.
+
+The vision family crosses the same way, as f32 masters by default (JAX
+keeps f32 masters and casts at every einsum or conv):
+``vit_params_from_jax`` (the stacked layers split per layer) and
+``replicated_params_from_jax`` (the ResNet's and the MNIST MLP's trees,
+whole on every rank). JAX's convs are
+HWIO (the ViT's ``patch_embed`` and every ResNet conv); the port's are
+PyTorch's OIHW, and this is the one place the layout changes.
 """
 
 from __future__ import annotations
@@ -140,3 +148,70 @@ def cache_from_jax(cache: dict, device=None) -> dict:
     it)."""
     device = resolve_device(device)
     return {name: _tensor(np.asarray(x), device) for name, x in cache.items()}
+
+
+def _master(x, device, dtype, requires_grad: bool) -> torch.Tensor:
+    """One numpy leaf as a tensor of ``dtype`` on ``device``; 4-D arrays
+    are JAX's HWIO conv kernels and become OIHW."""
+    arr = np.array(x, dtype=np.float32)  # a writable copy
+    if arr.ndim == 4:
+        arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+    out = torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return out.requires_grad_(requires_grad)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v, fn) for v in x]
+    return fn(x)
+
+
+def vit_params_from_jax(params_np: dict, config, device=None,
+                        dtype: torch.dtype = torch.float32,
+                        requires_grad: bool = False, mesh=None) -> dict:
+    """The JAX ViT pytree (``models/vit.py::init_params`` there, numpy
+    leaves) in ``models/vit.py``'s layout: ``layers`` split per layer,
+    ``patch_embed`` OIHW. ``device`` defaults to CUDA (raises without it);
+    with ``mesh`` the rank's shard (``vit.shard_params``), ``device`` then
+    defaulting to the mesh's device type."""
+    from bee_code_interpreter_tpu_torch.models import vit
+
+    if mesh is not None:
+        full = vit_params_from_jax(params_np, config, "cpu", dtype)
+        return vit.shard_params(full, config, mesh, device, requires_grad)
+    device = resolve_device(device)
+    stacked = params_np["layers"]
+    if set(stacked) != set(vit.LAYER_KEYS):
+        raise ValueError(f"unexpected ViT layer leaves {sorted(stacked)}")
+    n_layers = int(np.asarray(stacked["wq"]).shape[0])
+    if n_layers != config.n_layers:
+        raise ValueError(
+            f"pytree has {n_layers} layers, config says {config.n_layers}")
+
+    def leaf(x):
+        return _master(x, device, dtype, requires_grad)
+
+    return {
+        "patch_embed": leaf(params_np["patch_embed"]),
+        "pos_embed": leaf(params_np["pos_embed"]),
+        "layers": [{k: leaf(np.asarray(stacked[k])[i]) for k in vit.LAYER_KEYS}
+                   for i in range(n_layers)],
+        "ln_f": leaf(params_np["ln_f"]),
+        "head": {k: leaf(params_np["head"][k]) for k in ("w", "b")},
+    }
+
+
+def replicated_params_from_jax(params_np, device=None,
+                               dtype: torch.dtype = torch.float32,
+                               requires_grad: bool = False, mesh=None):
+    """A JAX tree whose parameters every rank holds whole (the ResNet's,
+    ``models/vision.py::init_params`` there, and the MNIST MLP's ``[{w,
+    b}, ...]``) in the same layout, every conv OIHW, on ``device``
+    (default the mesh's device type, else CUDA)."""
+    if device is None and mesh is not None:
+        device = mesh.device_type
+    device = resolve_device(device)
+    return _tree(params_np,
+                 lambda x: _master(x, device, dtype, requires_grad))

@@ -160,7 +160,13 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    KVH=4, B=2, L=1024: ``flash_bwd_rank_local``, train_tp's shape), and at
    the sp backward's per-hop shapes (``flash_bwd_sp``: a ring rank's own
    block, L=4096 causal, and an earlier hop, 4096 x 4096 non-causal, at
-   H=32 KVH=8; a Ulysses rank's H=16 KVH=4 over L=8192).
+   H=32 KVH=8; a Ulysses rank's H=16 KVH=4 over L=8192). Then
+   ``flash_d64``: K1, and K3/K4 on K1's own out and lse, at head dim 64
+   (their D = 64 instances) on ``D64_CASES``: ViT-B/16's attention (B=128,
+   H=KVH=12, L=196, non-causal), a ragged causal case (1, 1000) and a GQA
+   case (300 x 700, non-causal), each held as above, timed beside its
+   bound, its plain version and SDPA, with every instance's registers and
+   spills from ptxas.
 10. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
@@ -207,10 +213,36 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    rank, 4 x 1024 tokens in 4 microbatches, 2 steps against one card's
    4-layer steps; each rank holds only its layers plus the embedding and
    head; K1/K3/K4 = 2 x 4 x 2 per rank; the schedule's bubble share and the
-   stage-to-stage exchanges' ms a step).
+   stage-to-stage exchanges' ms a step). Then, in the same spawn:
+   ``vision_mesh`` (ViT-B/16 at B=32, one AdamW step each at dp=2, tp=2
+   and sp=2 by the ring; ResNet-50 one SGD step at dp=2, in f32 (bf16's
+   batch-dependent rounding moves some of its random-init gradients by a
+   relative 0.3); the MNIST MLP 30
+   steps at dp=2; each first loss within TRAIN_LOSS_TOL and each leaf's
+   first gradient within TRAIN_GRAD_TOL of one card's on the same masters
+   and batch; the ViT's K1/K3/K4 12 per rank, 24 under the ring),
+   ``generate_dp`` (Llama-3-8B, all 32 layers, bf16, greedy
+   ``generate_cached`` of 4 prompts of 128 tokens, 16 new, at dp=2: the
+   ranks' tokens alike and each rank's rows bitwise one card's run of
+   them; K1 once per layer; the agreement with one card's whole-batch run
+   reported), ``generate_fsdp`` (its first 2 layers at fsdp=2, 4 new
+   tokens, the same checks) and ``checkpoint_pp`` (the f32 masters of 2
+   layers under pp=2 saved sharded, restored onto pp=2 and whole onto no
+   mesh, bitwise).
 12. ``hf_load``: an HF-named Llama state dict (Llama-3-8B widths, 2 layers)
    built on the card from ``init_params``, loaded by ``load_llama_params``:
    every leaf and the logits bitwise equal to the source's.
+13. the vision family on one card: ``vit_reference`` (ViT-B/16
+   widths cut to 2 layers, B=8: logits, loss and every first gradient,
+   bf16 through K1/K3/K4 at head dim 64 on the card against the f32 plain
+   path on the CPU), ``vit`` (ViT-B/16 whole, 224², B=128: ``apply`` with
+   K1 12 times, then 4 AdamW steps on one fixed batch of seeded noise
+   images with K1, K3 and K4 12 times a step; the losses fall; images/s,
+   step ms p50, model TFLOP/s, peak GB), ``resnet_reference`` (ResNet-50's
+   first stage, B=2: bf16 logits and loss, and f32 gradients, against the
+   CPU) and ``resnet`` (ResNet-50
+   whole, B=64, 4 SGD steps at lr 0.01 (JAX's default 0.1 diverges here),
+   no kernel of the port: cuDNN's convs).
 
 The last lines are the ``kernels`` JSON line (with each serving kernel's
 launches by phase), the nvidia-smi line, and ``{"ok": true, "device":
@@ -228,6 +260,7 @@ import pickle
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -241,6 +274,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from bee_code_interpreter_tpu_torch.models import moe  # noqa: E402
 from bee_code_interpreter_tpu_torch.models import transformer  # noqa: E402
+from bee_code_interpreter_tpu_torch.models import vision, vit  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.beam import beam_search  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.engine import Engine  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.hf_loader import (  # noqa: E402
@@ -249,6 +283,7 @@ from bee_code_interpreter_tpu_torch.models.hf_loader import (  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.replicated import (  # noqa: E402
     ReplicatedEngine,
 )
+from bee_code_interpreter_tpu_torch.models.mnist import MnistMlp  # noqa: E402
 from bee_code_interpreter_tpu_torch.models.lora import (  # noqa: E402
     init_lora,
     lora_leaves,
@@ -296,6 +331,7 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: E402
     all_to_all_tiled,
     axis_index,
     axis_sizes,
+    batch_slice,
     group_size,
     local_shape,
     make_mesh,
@@ -305,6 +341,10 @@ from bee_code_interpreter_tpu_torch.parallel.mesh import (  # noqa: E402
     serving_groups,
     spawn,
     tp_group,
+)
+from bee_code_interpreter_tpu_torch.utils.checkpoint import (  # noqa: E402
+    TrainCheckpointer,
+    abstract_like,
 )
 from bee_code_interpreter_tpu_torch.utils.metrics import Registry  # noqa: E402
 
@@ -530,6 +570,42 @@ TRAIN_PP_MICROBATCHES, TRAIN_PP_STEPS = 4, 2
 # the mean probabilities by ~1e-3)
 MOE_AUX_TOL = 1e-2
 
+# K1/K3/K4 at head dim 64 (``flash_d64``), ((H, KVH), (B, Lq, Lk, causal,
+# window)): ViT-B/16's attention (B=128, H=KVH=12, L=196, non-causal: ragged
+# tiles, one head a group), a ragged causal case at the same heads, and a
+# GQA case, non-causal with Lq != Lk
+D64_CASES = [((12, 12), (128, 196, 196, False, None)),
+             ((12, 12), (1, 1000, 1000, True, None)),
+             ((32, 8), (1, 300, 700, False, None))]
+# the vision family (ViTConfig.vit_b16(), ResNetConfig.resnet50(), seeded
+# noise images at 224², no dataset): the ViT whole at B=128, 4 AdamW steps;
+# its reference cut to 2 layers at B=8 (bf16 card against f32 CPU); the
+# ResNet whole at B=64, 4 SGD steps; its reference cut to the first stage
+# at B=2
+VIT_B, VIT_STEPS = 128, 4
+VIT_REFERENCE_LAYERS, VIT_REFERENCE_B = 2, 8
+RESNET_B, RESNET_STEPS = 64, 4
+# the ResNet's SGD learning rate: JAX's default, optax.sgd(0.1, momentum=
+# 0.9), diverges on ResNet-50 at random init on one fixed batch (an H100
+# run of this phase at 0.1 saw the loss rise from the second step); the
+# momentum is the default's
+RESNET_LR = 0.01
+RESNET_REFERENCE_STAGES, RESNET_REFERENCE_B = (3,), 2
+# vision_mesh, in the training spawn: ViT-B/16 at B=32 one step at each of
+# these meshes, ResNet-50 at B=16 one step at dp=2, the MNIST MLP
+# (784-512-256-10, 256 rows) MNIST_STEPS steps at dp=2
+VISION_MESH_B, VISION_MESH_RESNET_B, MNIST_STEPS = 32, 16, 30
+VISION_MESH_VIT_CASES = {"dp2": ({"dp": 2}, "ring"), "tp2": ({"tp": 2}, "ring"),
+                         "sp2": ({"sp": 2}, "ring")}
+# generate_dp: Llama-3-8B (all 32 layers, bf16, the seed-0 weights) at dp=2,
+# greedy generate_cached of 4 prompts of 128 tokens (numpy seed 21), 16 new
+# tokens; generate_fsdp: its first 2 layers at fsdp=2, 4 new tokens (gloo
+# stages the layer gathers at ~310 MB/s)
+GENERATE_PROMPTS, GENERATE_PROMPT_LEN, GENERATE_NEW = 4, 128, 16
+GENERATE_FSDP_LAYERS, GENERATE_FSDP_NEW = 2, 4
+# checkpoint_pp: the f32 masters of 2 Llama-3-8B layers under pp=2
+CHECKPOINT_PP_LAYERS = 2
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -602,10 +678,12 @@ K1_CASES = [
 ]
 
 
-def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES) -> list[dict]:
-    """K1 on ``cases`` at ``heads`` = (H, KVH), D=128: against its plain
-    version, timed, with SDPA as the library call and the card's bound."""
-    (H, KVH), D = heads, 128
+def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES,
+                D: int = 128) -> list[dict]:
+    """K1 on ``cases`` at ``heads`` = (H, KVH) and head dim ``D``: against
+    its plain version, timed, with SDPA as the library call and the card's
+    bound."""
+    H, KVH = heads
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     for B, L, Lk, causal, window in cases:
@@ -640,7 +718,7 @@ def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES) -> list[dict]:
         nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * lse.numel()
         b_ms, b_by = bound(flops, nbytes)
         rows.append({
-            "B": B, "H": H, "KVH": KVH, "L": L, "Lk": Lk, "causal": causal,
+            "B": B, "H": H, "KVH": KVH, "D": D, "L": L, "Lk": Lk, "causal": causal,
             "window": window, "max_abs_err": err, "out_row_rel_err": row_err,
             "lse_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -674,10 +752,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / want.abs().max().item()
 
 
-def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES) -> list[dict]:
+def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES,
+                    D: int = 128) -> list[dict]:
     """K3 and K4 on K1's own out/lse and a random dO, against their plain
-    versions in f32 and against SDPA's backward, at ``heads`` (H, KVH)."""
-    (H, KVH), D = heads, 128
+    versions in f32 and against SDPA's backward, at ``heads`` (H, KVH) and
+    head dim ``D``."""
+    H, KVH = heads
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = []
     for B, Lq, Lk, causal, window, with_g_lse in cases:
@@ -734,7 +814,7 @@ def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES) -> list[dict]:
         dkdv_bound = bound(8.0 * B * H * pairs * D, io + 2.0 * 2 * k.numel())
         dq_bound = bound(6.0 * B * H * pairs * D, io + 2.0 * q.numel())
         rows.append({
-            "B": B, "H": H, "KVH": KVH, "Lq": Lq, "Lk": Lk, "causal": causal,
+            "B": B, "H": H, "KVH": KVH, "D": D, "Lq": Lq, "Lk": Lk, "causal": causal,
             "window": window,
             "g_lse": with_g_lse, "pairs": pairs, "dkdv_deterministic": True,
             "dq_deterministic": True,
@@ -3778,13 +3858,15 @@ def train_pp_rank(rank: int, dev) -> dict:
     return run
 
 
-def train_mesh_rank(rank: int) -> dict:
+def train_mesh_rank(rank: int, directory: str) -> dict:
     """One rank of the two-rank training spawn: train_tp (train_path at
     tp=2), then each TRAIN_MESH_CASES step. For each, the ranks first take
     turns computing one card's loss and gradient on the whole batch from
     the same seed (keeping their blocks of it on the host), then train
     under the mesh on their shard of those masters and their rows of the
-    batch; the first step's gradients are held to the blocks."""
+    batch; the first step's gradients are held to the blocks. Then the sp
+    and pipeline phases, and ``vision_generate_rank``'s (``checkpoint_pp``
+    writes into ``directory``)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3825,6 +3907,7 @@ def train_mesh_rank(rank: int) -> dict:
         out[key]["seconds"] = time.perf_counter() - t
         gc.collect()
         torch.cuda.empty_cache()
+    out.update(vision_generate_rank(rank, directory))
     return out
 
 
@@ -3845,8 +3928,12 @@ def train_mesh_phases(dev, how, train, control) -> list[dict]:
           f"train_path's {train['losses']} (rel {drift}), over "
           f"{TRAIN_TP_LOSS_TOL}")
     t = time.perf_counter()
-    ranks = spawn(train_mesh_rank, TP, device_type="cuda",
-                  backend=how["backend"], timeout=900)
+    directory = tempfile.mkdtemp(prefix="bci-checkpoint-pp-")
+    try:
+        ranks = spawn(train_mesh_rank, TP, device_type="cuda",
+                      backend=how["backend"], args=(directory,), timeout=900)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
     spawn_s = time.perf_counter() - t
     out = []
     cases = [("train_tp", {"tp": TP}, "llama3_8b", TRAIN_LAYERS,
@@ -3923,6 +4010,7 @@ def train_mesh_phases(dev, how, train, control) -> list[dict]:
                                         how))
     out += train_sp_reports([r["train_sp"] for r in ranks], how)
     out.append(train_pp_report([r["train_pp"] for r in ranks], how))
+    out += vision_generate_reports(ranks, how)
     return out
 
 
@@ -4064,6 +4152,595 @@ def train_pp_report(runs, how) -> dict:
         single_card_peak_gb=ref["peak_bytes"] / 1e9,
         seconds=runs[0]["seconds"])
     return rec
+
+
+# ------------------------------------------------------------ the vision family
+
+
+def ptxas_usage(kernels) -> dict:
+    """Each kernel instance's registers and spill bytes from its build's
+    ptxas lines: ``{source: {"d64" | "d128": {...}}}``; the template
+    argument NB (head dim 64 NB) is in the mangled entry name."""
+    out = {}
+    for k in kernels:
+        name = None
+        for line in k.build_log().splitlines():
+            if "entry function" in line:
+                name = ("d64" if "ILi1E" in line else "d128" if "ILi2E" in line
+                        else line.split("'")[1])
+                out.setdefault(k.name, {})[name] = {}
+            elif name is not None and "spill stores" in line:
+                parts = line.split(",")
+                out[k.name][name]["spill_stores"] = int(
+                    parts[1].split()[0])
+                out[k.name][name]["spill_loads"] = int(parts[2].split()[0])
+            elif name is not None and "registers" in line:
+                out[k.name][name]["registers"] = int(
+                    line.split("Used")[1].split()[0])
+    return out
+
+
+def check_flash_d64(timer, dev) -> dict:
+    """K1, and K3/K4 on K1's own out and lse, at head dim 64 on D64_CASES:
+    each against its plain version (KERNEL_TOL / K1_ROW_TOL, BWD_TOL), timed
+    beside its bound, its plain version and SDPA."""
+    fwd, bwd = [], []
+    for heads, case in D64_CASES:
+        fwd += check_flash(timer, dev, heads, [case], D=64)
+        bwd += check_flash_bwd(timer, dev, heads, [(*case, False)], D=64)
+    return {"phase": "flash_d64", "D": 64, "tolerance": KERNEL_TOL,
+            "row_tolerance": K1_ROW_TOL, "bwd_tolerance": BWD_TOL,
+            "forward": fwd, "backward": bwd}
+
+
+def reset_flash_counts() -> None:
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
+        kernel.launches = 0
+
+
+def flash_counts() -> dict:
+    return {"flash_fwd": fa.FLASH_FWD.launches,
+            "flash_bwd_dkdv": fa.FLASH_BWD_DKDV.launches,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ.launches}
+
+
+def image_batch(gen, B: int, size: int, classes: int, dev) -> dict:
+    """Seeded noise images (NHWC) and labels, made on the card."""
+    return {"images": torch.randn(B, size, size, 3, generator=gen, device=dev),
+            "labels": torch.randint(0, classes, (B,), generator=gen,
+                                    device=dev)}
+
+
+def leaf_grad_errors(got_leaves, want_leaves) -> list[float]:
+    """Each leaf's ||g - g_ref|| / ||g_ref|| (g_ref on the host)."""
+    errs = []
+    for got, ref in zip(got_leaves, want_leaves, strict=True):
+        diff = torch.linalg.vector_norm(got.grad.float().cpu() - ref.grad)
+        errs.append((diff / torch.linalg.vector_norm(ref.grad)).item())
+    return errs
+
+
+def named_leaves(tree, prefix="") -> list[tuple[str, torch.Tensor]]:
+    """``(dotted path, leaf)`` of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def vision_reference(name, module, cfg, params, batch, leaves,
+                     hold_grads: bool = True) -> dict:
+    """A vision model's logits, loss and first gradients: ``cfg.dtype``
+    compute on the card (K1/K3/K4 for the ViT) against the f32 plain path
+    on the CPU on the same f32 masters; logits within REFERENCE_TOL of the
+    largest, the loss within TRAIN_LOSS_TOL, and with ``hold_grads`` each
+    leaf's gradient within TRAIN_GRAD_TOL (every leaf's reported)."""
+    for w in leaves(params):  # a gradient of this reference's own
+        w.grad = None
+    cpu = cpu_f32(params, requires_grad=True)
+    cpu_batch = {k: x.cpu() for k, x in batch.items()}
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        logits = module.forward(params, batch["images"], cfg).float().cpu()
+        want_logits = module.forward(cpu, cpu_batch["images"], f32)
+    logit_err = ((logits - want_logits).abs().max()
+                 / want_logits.abs().max()).item()
+    loss = module.loss_fn(params, batch, cfg)
+    loss.backward()
+    want = module.loss_fn(cpu, cpu_batch, f32)
+    want.backward()
+    loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+    paths = [path for path, _ in named_leaves(params)]
+    grad_rel = dict(zip(paths, leaf_grad_errors(leaves(params), leaves(cpu)),
+                        strict=True))
+    worst = max(grad_rel, key=grad_rel.get)
+    check(logit_err <= REFERENCE_TOL,
+          f"{name}: logits {logit_err} from the CPU's, over {REFERENCE_TOL}")
+    check(loss_rel <= TRAIN_LOSS_TOL, f"{name}: loss rel err {loss_rel}")
+    check(all(np.isfinite(list(grad_rel.values())))
+          and (not hold_grads or grad_rel[worst] <= TRAIN_GRAD_TOL),
+          f"{name}: grad rel err {grad_rel[worst]} at {worst}")
+    return {"dtype": str(cfg.dtype).removeprefix("torch."),
+            "logit_rel_err": logit_err, "loss_card": loss.item(),
+            "loss_cpu": want.item(), "loss_rel_err": loss_rel,
+            "max_grad_rel_err": grad_rel[worst], "worst_leaf": worst,
+            "grads_held": hold_grads, "grad_rel_err_by_leaf": grad_rel,
+            "tolerance": {"logits": REFERENCE_TOL, "loss": TRAIN_LOSS_TOL,
+                          "grad": TRAIN_GRAD_TOL}}
+
+
+def vit_reference(dev) -> dict:
+    """ViT-B/16 widths cut to VIT_REFERENCE_LAYERS layers, B =
+    VIT_REFERENCE_B: ``vision_reference`` through K1/K3/K4 at head dim 64."""
+    cfg = dataclasses.replace(vit.ViTConfig.vit_b16(),
+                              n_layers=VIT_REFERENCE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    params = vit.ViT(cfg).init(gen, dev)
+    batch = image_batch(gen, VIT_REFERENCE_B, cfg.image_size, cfg.num_classes,
+                        dev)
+    reset_flash_counts()
+    rec = vision_reference("vit_reference", vit, cfg, params, batch,
+                           vit.param_leaves)
+    return {"phase": "vit_reference", "layers": VIT_REFERENCE_LAYERS,
+            "B": VIT_REFERENCE_B, "launches": flash_counts(), **rec}
+
+
+def vit_flops_per_image(cfg) -> float:
+    """A ViT forward's multiply-adds x 2 for one image: the patchify conv,
+    each layer's four projections, QK^T and PV, the MLP, and the head."""
+    T, d = cfg.n_patches, cfg.d_model
+    per_layer = 2.0 * T * d * (4 * d + 2 * cfg.d_ff) + 4.0 * T * T * d
+    return (2.0 * T * d * 3 * cfg.patch_size ** 2 + cfg.n_layers * per_layer
+            + 2.0 * d * cfg.num_classes)
+
+
+def vision_steps(name, model, params, batch, n_steps: int,
+                 optimizer=None) -> dict:
+    """``model.apply`` once, then ``n_steps`` train steps on one fixed
+    batch: the logits' shape, the losses, each step's wall ms, the peak
+    bytes and K1/K3/K4's launches in each."""
+    reset_flash_counts()
+    with torch.no_grad():
+        logits = model.apply(params, batch["images"])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), f"{name}: apply is not finite")
+    apply_launches = flash_counts()
+    step = model.make_train_step(optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    state, losses, step_ms = None, [], []
+    for _ in range(n_steps):
+        t = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(loss.item())  # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+    p50 = float(np.median(step_ms[1:]))
+    B = batch["images"].shape[0]
+    return {"logits_shape": list(logits.shape),
+            "apply_launches": apply_launches, "launches": flash_counts(),
+            "losses": losses, "step_ms": step_ms, "step_ms_p50_2_to_4": p50,
+            "images_per_s": B / p50 * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def vit_phase(dev) -> dict:
+    """ViT-B/16 whole (12 layers, 224², B = VIT_B): ``apply`` (K1 once per
+    layer), then VIT_STEPS AdamW steps (K1, K3, K4 once per layer and step)
+    on one fixed batch of seeded images and labels; the losses fall."""
+    cfg = vit.ViTConfig.vit_b16()
+    model = vit.ViT(cfg)
+    gen = torch.Generator(device=dev).manual_seed(80)
+    params = model.init(gen, dev)
+    batch = image_batch(gen, VIT_B, cfg.image_size, cfg.num_classes, dev)
+    run = vision_steps("vit", model, params, batch, VIT_STEPS)
+    check(run["logits_shape"] == [VIT_B, cfg.num_classes],
+          f"vit: logits {run['logits_shape']}")
+    check(run["apply_launches"]["flash_fwd"] == cfg.n_layers,
+          f"vit: apply launched K1 {run['apply_launches']['flash_fwd']} times")
+    want = cfg.n_layers * VIT_STEPS
+    check(all(n == want for n in run["launches"].values()),
+          f"vit: launches {run['launches']}, predicted {want} each")
+    flops = 3.0 * vit_flops_per_image(cfg) * VIT_B
+    return {"phase": "vit", "config": "vit_b16", "layers": cfg.n_layers,
+            "B": VIT_B, "image_size": cfg.image_size, "steps": VIT_STEPS,
+            "dtype": "bfloat16 compute, float32 masters",
+            "n_params": vit.n_params(params),
+            "model_tflops": flops / run["step_ms_p50_2_to_4"] / 1e9,
+            "launches_by_step": {k: v // VIT_STEPS
+                                 for k, v in run["launches"].items()},
+            **run}
+
+
+def resnet_reference(dev) -> dict:
+    """ResNet-50 cut to its first stage (RESNET_REFERENCE_STAGES) at 224²,
+    B = RESNET_REFERENCE_B: ``vision_reference`` twice against PyTorch's
+    f32 CPU convs, cuDNN's convs in bf16 (logits and loss held, gradients
+    reported) and in f32 (every gradient held too). At random init a
+    GroupNorm ResNet's logits are large (a loss of ~40 at B = 64) and its
+    softmax saturated, so a few bf16 roundings of the convs move some
+    leaves' gradients by a relative 0.2-0.4 (an H100 read 0.21 here and
+    0.33-0.37 at dp=2 against one card): the f32 run holds the port's
+    convolutions, norms and pool to the CPU's where bf16 cannot."""
+    cfg = dataclasses.replace(vision.ResNetConfig.resnet50(),
+                              stage_sizes=RESNET_REFERENCE_STAGES)
+    gen = torch.Generator(device=dev).manual_seed(83)
+    params = vision.ResNet(cfg).init(gen, dev)
+    batch = image_batch(gen, RESNET_REFERENCE_B, 224, cfg.num_classes, dev)
+    bf16 = vision_reference("resnet_reference", vision, cfg, params, batch,
+                            vision.param_leaves, hold_grads=False)
+    f32 = vision_reference("resnet_reference f32", vision,
+                           dataclasses.replace(cfg, dtype=torch.float32),
+                           params, batch, vision.param_leaves)
+    return {"phase": "resnet_reference", "stages": list(cfg.stage_sizes),
+            "B": RESNET_REFERENCE_B, "bf16": bf16, "f32": f32}
+
+
+def resnet_phase(dev) -> dict:
+    """ResNet-50 whole (224², B = RESNET_B): ``apply``, then RESNET_STEPS
+    SGD steps (RESNET_LR, momentum 0.9) on one fixed batch; the losses
+    fall. cuDNN's convs: no kernel of the port runs."""
+    cfg = vision.ResNetConfig.resnet50()
+    model = vision.ResNet(cfg)
+    gen = torch.Generator(device=dev).manual_seed(82)
+    params = model.init(gen, dev)
+    batch = image_batch(gen, RESNET_B, 224, cfg.num_classes, dev)
+    run = vision_steps("resnet", model, params, batch, RESNET_STEPS,
+                       model.make_optimizer(learning_rate=RESNET_LR))
+    check(run["logits_shape"] == [RESNET_B, cfg.num_classes],
+          f"resnet: logits {run['logits_shape']}")
+    check(not any(run["launches"].values()),
+          f"resnet: a flash kernel ran: {run['launches']}")
+    return {"phase": "resnet", "config": "resnet50", "B": RESNET_B,
+            "image_size": 224, "steps": RESNET_STEPS,
+            "optimizer": f"SGD lr {RESNET_LR}, momentum 0.9",
+            "dtype": "bfloat16 compute, float32 masters",
+            "n_params": vision.n_params(params), **run}
+
+
+# ------------------------ in the training spawn: vision meshes, generation
+
+
+def grads_of(tree):
+    """A parameter tree's gradients, in its layout."""
+    if isinstance(tree, dict):
+        return {k: grads_of(x) for k, x in tree.items()}
+    if isinstance(tree, list):
+        return [grads_of(x) for x in tree]
+    return tree.grad
+
+
+def vision_mesh_case(rank, name, axes, build, batch, n_steps, dev) -> dict:
+    """One model under ``axes``: one card's loss and first gradients on the
+    whole batch (the ranks in turns, each keeping its block), then
+    ``n_steps`` steps under the mesh on the rank's shard and rows; the
+    first loss and each leaf's first gradient on the rank's block against
+    one card's. ``build(mesh)`` gives (model, params, leaves, blocks):
+    the model and masters under ``mesh`` (None: one card) of one seed,
+    ``leaves(params)`` in a fixed order, and ``blocks(grad_tree, mesh)``
+    the rank's blocks of a whole gradient tree in that order."""
+    mesh = make_mesh(axes, device_type="cuda")
+
+    def single():
+        model, params, leaves, blocks = build(None)
+        loss = model.make_train_step()(params, None, batch)[2].item()
+        return {"loss": loss, "blocks": [g.float().cpu() for g in blocks(
+            grads_of(params), mesh)]}
+
+    ref = build_in_turns(rank, world_of(axes), single)
+    model, params, leaves, _ = build(mesh)
+    rows = model.batch_slice(batch)
+    step = model.make_train_step()
+    reset_flash_counts()
+    state, losses, step_ms, first = None, [], [], None
+    for i in range(n_steps):
+        t = time.perf_counter()
+        params, state, loss = step(params, state, rows)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            first = [(torch.linalg.vector_norm(w.grad.float().cpu() - g)
+                      / torch.linalg.vector_norm(g)).item()
+                     for w, g in zip(leaves(params), ref["blocks"],
+                                     strict=True)]
+    out = {"case": name, "mesh": mesh_shape_key(mesh), "losses": losses,
+           "single_card_loss": ref["loss"], "first": first,
+           "step_ms": step_ms, "launches": flash_counts(),
+           "rows": rows[next(iter(rows))].shape[0]}
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def world_of(axes: dict) -> int:
+    return int(np.prod(list(axes.values())))
+
+
+def vision_mesh_rank(rank: int, dev) -> dict:
+    """``vision_mesh`` on this rank: ViT-B/16 one step at each of
+    VISION_MESH_VIT_CASES (bf16), ResNet-50 one step at dp=2 (f32), the
+    MNIST MLP MNIST_STEPS steps at dp=2, each against one card."""
+    gen = torch.Generator(device=dev).manual_seed(84)
+    out = {}
+    base = vit.ViTConfig.vit_b16()
+    vit_batch = image_batch(gen, VISION_MESH_B, base.image_size,
+                            base.num_classes, dev)
+    for name, (axes, attention) in VISION_MESH_VIT_CASES.items():
+        cfg = dataclasses.replace(base, sp_attention=attention)
+
+        def build(mesh, cfg=cfg):
+            model = vit.ViT(cfg, mesh)
+            params = model.init(torch.Generator(device=dev).manual_seed(85),
+                                dev)
+            return (model, params, vit.param_leaves,
+                    lambda g, m: vit.param_leaves(vit.shard_params(
+                        g, cfg, m, "cpu")))
+
+        out[f"vit_{name}"] = vision_mesh_case(rank, f"vit_{name}", axes, build,
+                                              vit_batch, 1, dev)
+    # f32 compute: at random init bf16 moves some of its gradients by a
+    # relative 0.3 between batch sizes (resnet_reference); f32 holds the
+    # data-parallel algebra itself
+    cfg = dataclasses.replace(vision.ResNetConfig.resnet50(),
+                              dtype=torch.float32)
+
+    def build_resnet(mesh):
+        model = vision.ResNet(cfg, mesh)
+        params = model.init(torch.Generator(device=dev).manual_seed(86), dev)
+        return model, params, vision.param_leaves, lambda g, m: [
+            x.detach() for x in vision.param_leaves(g)]
+
+    resnet_batch = image_batch(gen, VISION_MESH_RESNET_B, 224,
+                               cfg.num_classes, dev)
+    out["resnet_dp2"] = vision_mesh_case(rank, "resnet_dp2", {"dp": 2},
+                                         build_resnet, resnet_batch, 1, dev)
+
+    def build_mnist(mesh):
+        mlp = MnistMlp(mesh=mesh)
+        params = mlp.init(torch.Generator(device=dev).manual_seed(87), dev)
+        step = mlp.make_train_step(0.1)[0]
+        model = types.SimpleNamespace(
+            batch_slice=mlp.batch_slice, make_train_step=lambda: step)
+
+        def leaves(p):
+            return [w for layer in p for w in (layer["w"], layer["b"])]
+
+        return model, params, leaves, lambda g, m: leaves(g)
+
+    mnist_batch = {"image": torch.randn(256, 784, generator=gen, device=dev),
+                   "label": torch.randint(0, 10, (256,), generator=gen,
+                                          device=dev)}
+    out["mnist_dp2"] = vision_mesh_case(rank, "mnist_dp2", {"dp": 2},
+                                        build_mnist, mnist_batch, MNIST_STEPS,
+                                        dev)
+    return out
+
+
+def generate_rank(rank: int, dev) -> dict:
+    """``generate_dp`` and ``generate_fsdp`` on this rank. dp: Llama-3-8B
+    (all layers, bf16, the seed-0 weights), greedy ``generate_cached`` of
+    GENERATE_PROMPTS prompts at dp=2, then one card's run of the rank's own
+    rows on the same weights (bitwise equal) and, on rank 0, of the whole
+    batch (agreement reported). fsdp: the first GENERATE_FSDP_LAYERS
+    layers at fsdp=2, GENERATE_FSDP_NEW tokens, against one card's run of
+    the rank's rows on the whole weights."""
+    cfg = TransformerConfig.llama3_8b()
+    prompts = torch.as_tensor(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (GENERATE_PROMPTS, GENERATE_PROMPT_LEN)),
+        device=dev)
+    out = {}
+    mesh = make_mesh({"dp": 2}, device_type="cuda")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    reset_flash_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens = transformer.Transformer(cfg, mesh).generate_cached(
+        params, prompts, GENERATE_NEW)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = flash_counts()["flash_fwd"]
+    rows = batch_slice(prompts, mesh)
+    own = transformer.Transformer(cfg).generate_cached(params, rows,
+                                                       GENERATE_NEW)
+    mine = batch_slice(tokens, mesh)
+    rec = {"tokens": tokens.cpu().numpy(), "ms": ms, "k1_launches": launches,
+           "rows": rows.shape[0],
+           "own_rows_bitwise": bool(torch.equal(own, mine)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        whole = transformer.Transformer(cfg).generate_cached(
+            params, prompts, GENERATE_NEW)
+        new = slice(GENERATE_PROMPT_LEN, None)
+        rec["whole_batch_agreement"] = (
+            (whole[:, new] == tokens[:, new]).float().mean().item())
+    out["generate_dp"] = rec
+    del params, own, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=GENERATE_FSDP_LAYERS)
+    mesh = make_mesh({"fsdp": 2}, device_type="cuda")
+    sharded = init_params(cut, torch.Generator(device=dev).manual_seed(0), dev,
+                          mesh=mesh)
+    reset_flash_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens = transformer.Transformer(cut, mesh).generate_cached(
+        sharded, prompts, GENERATE_FSDP_NEW)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = flash_counts()["flash_fwd"]
+    del sharded
+    whole = init_params(cut, torch.Generator(device=dev).manual_seed(0), dev)
+    own = transformer.Transformer(cut).generate_cached(
+        whole, batch_slice(prompts, mesh), GENERATE_FSDP_NEW)
+    out["generate_fsdp"] = {
+        "tokens": tokens.cpu().numpy(), "ms": ms, "k1_launches": launches,
+        "own_rows_bitwise": bool(torch.equal(own, batch_slice(tokens, mesh)))}
+    del whole, own
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_pp_rank(rank: int, dev, directory: str) -> dict:
+    """``checkpoint_pp``: the f32 masters of a pp=2 mesh over the first
+    CHECKPOINT_PP_LAYERS Llama-3-8B layers (each stage its layer, the
+    embedding and the head) saved sharded, restored onto pp=2 and onto no
+    mesh (the whole tree: every layer, from both stages' files), each
+    leaf bitwise equal to what its stage saved."""
+    cfg = train_cfg("llama3_8b", CHECKPOINT_PP_LAYERS)
+    mesh = make_mesh({"pp": PP}, device_type="cuda")
+    params = transformer.Transformer(cfg, mesh).init(
+        torch.Generator(device=dev).manual_seed(88), dev)
+    specs = {"params": param_specs(cfg, mesh)}
+    t = time.perf_counter()
+    with TrainCheckpointer(directory) as ckpt:
+        ckpt.save(1, {"params": params}, mesh=mesh, specs=specs)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        same = ckpt.restore(template=abstract_like({"params": params}, mesh,
+                                                   specs))["params"]
+        same_s = time.perf_counter() - t
+        same_ok = all(torch.equal(a, b) for a, b in zip(
+            transformer.param_leaves(params), transformer.param_leaves(same),
+            strict=True))
+        del same
+        t = time.perf_counter()
+        whole = ckpt.restore()["params"]
+        whole_s = time.perf_counter() - t
+    # the whole tree holds this stage's layers at their global indices
+    per = CHECKPOINT_PP_LAYERS // PP
+    mine = {**whole, "layers": whole["layers"][rank * per:(rank + 1) * per]}
+    whole_ok = (len(whole["layers"]) == CHECKPOINT_PP_LAYERS and all(
+        torch.equal(a.cpu(), b) for a, b in zip(
+            transformer.param_leaves(params), transformer.param_leaves(mine),
+            strict=True)))
+    return {"same_bitwise": same_ok, "whole_bitwise": whole_ok,
+            "whole_layers": len(whole["layers"]),
+            "stage_layers": len(params["layers"]),
+            "bytes_saved": sum(w.numel() * w.element_size()
+                               for w in transformer.param_leaves(params)),
+            "save_s": save_s, "restore_same_s": same_s,
+            "restore_whole_s": whole_s}
+
+
+def k1_only(n: int) -> dict:
+    """Launch counts of a phase that runs the forward kernel alone."""
+    return {"flash_fwd": n, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+
+
+def vision_generate_reports(ranks, how) -> list[dict]:
+    """The reports of ``vision_mesh``, ``generate_dp``, ``generate_fsdp``
+    and ``checkpoint_pp``, with their checks."""
+    out = []
+    cases = [k for k in ranks[0]["vision_mesh"] if k != "seconds"]
+    for name in cases:
+        runs = [r["vision_mesh"][name] for r in ranks]
+        axes = (VISION_MESH_VIT_CASES[name[4:]][0] if name.startswith("vit_")
+                else {"dp": 2})
+        for r, run in enumerate(runs):
+            single = run["single_card_loss"]
+            rel = abs(run["losses"][0] - single) / abs(single)
+            check(all(np.isfinite(run["losses"])) and rel <= TRAIN_LOSS_TOL,
+                  f"vision_mesh {name} rank {r}: first loss {run['losses'][0]}"
+                  f" against one card's {single} (rel {rel})")
+            check(run["losses"] == runs[0]["losses"],
+                  f"vision_mesh {name}: rank {r}'s losses differ")
+            check(max(run["first"]) <= TRAIN_GRAD_TOL,
+                  f"vision_mesh {name} rank {r}: first gradients "
+                  f"{max(run['first'])} from one card's")
+            if name.startswith("vit_"):
+                hops = 2 if "sp" in axes else 1  # the ring, non-causal
+                want = vit.ViTConfig.vit_b16().n_layers * hops
+                check(all(n == want for n in run["launches"].values()),
+                      f"vision_mesh {name} rank {r}: launches "
+                      f"{run['launches']}, predicted {want} each")
+        if name == "mnist_dp2":
+            losses = runs[0]["losses"]
+            check(losses[-1] < 0.5 * losses[0],
+                  f"vision_mesh mnist_dp2: {losses[::10]} did not halve")
+        out.append({
+            "phase": "vision_mesh", "case": name, "mesh": runs[0]["mesh"],
+            "backend": how["backend"], "cards": how["cards"],
+            "losses": runs[0]["losses"],
+            "single_card_first_loss": runs[0]["single_card_loss"],
+            "first_loss_rel_err": abs(runs[0]["losses"][0]
+                                      - runs[0]["single_card_loss"])
+            / abs(runs[0]["single_card_loss"]),
+            "loss_tolerance": TRAIN_LOSS_TOL,
+            "first_grad_max_rel_err": max(max(r["first"]) for r in runs),
+            "grad_tolerance": TRAIN_GRAD_TOL,
+            "step_ms": runs[0]["step_ms"],
+            "rows_per_rank": [r["rows"] for r in runs],
+            "launches_per_rank": [r["launches"] for r in runs]})
+    dp = [r["generate"]["generate_dp"] for r in ranks]
+    for r, rec in enumerate(dp):
+        check(np.array_equal(rec["tokens"], dp[0]["tokens"]),
+              f"generate_dp: rank {r}'s tokens differ from rank 0's")
+        check(rec["own_rows_bitwise"],
+              f"generate_dp rank {r}: its rows differ from one card's run of "
+              "them")
+        check(rec["k1_launches"] == TransformerConfig.llama3_8b().n_layers,
+              f"generate_dp rank {r}: K1 {rec['k1_launches']}")
+    out.append({"phase": "generate_dp", "case": "generate_dp", "mesh": "dp=2",
+                "layers": TransformerConfig.llama3_8b().n_layers,
+                "prompts": GENERATE_PROMPTS, "prompt_len": GENERATE_PROMPT_LEN,
+                "new_tokens": GENERATE_NEW, "backend": how["backend"],
+                "ms_per_rank": [x["ms"] for x in dp],
+                "rows_per_rank": [x["rows"] for x in dp],
+                "own_rows_bitwise": [x["own_rows_bitwise"] for x in dp],
+                "whole_batch_agreement": dp[0]["whole_batch_agreement"],
+                "k1_launches_per_rank": [x["k1_launches"] for x in dp],
+                "launches_per_rank": [k1_only(x["k1_launches"]) for x in dp],
+                "peak_gb_per_rank": [x["peak_gb"] for x in dp]})
+    fs = [r["generate"]["generate_fsdp"] for r in ranks]
+    for r, rec in enumerate(fs):
+        check(np.array_equal(rec["tokens"], fs[0]["tokens"]),
+              f"generate_fsdp: rank {r}'s tokens differ from rank 0's")
+        check(rec["own_rows_bitwise"],
+              f"generate_fsdp rank {r}: its rows differ from one card's run")
+        check(rec["k1_launches"] == GENERATE_FSDP_LAYERS,
+              f"generate_fsdp rank {r}: K1 {rec['k1_launches']}")
+    out.append({"phase": "generate_fsdp", "case": "generate_fsdp",
+                "mesh": "fsdp=2",
+                "layers": GENERATE_FSDP_LAYERS,
+                "new_tokens": GENERATE_FSDP_NEW, "backend": how["backend"],
+                "ms_per_rank": [x["ms"] for x in fs],
+                "own_rows_bitwise": [x["own_rows_bitwise"] for x in fs],
+                "k1_launches_per_rank": [x["k1_launches"] for x in fs],
+                "launches_per_rank": [k1_only(x["k1_launches"]) for x in fs]})
+    ck = [r["checkpoint_pp"] for r in ranks]
+    for r, rec in enumerate(ck):
+        check(rec["same_bitwise"] and rec["whole_bitwise"]
+              and rec["whole_layers"] == CHECKPOINT_PP_LAYERS,
+              f"checkpoint_pp rank {r}: {rec}")
+    out.append({"phase": "checkpoint_pp", "mesh": "pp=2",
+                "layers": CHECKPOINT_PP_LAYERS, "per_rank": ck})
+    return out
+
+
+def vision_generate_rank(rank: int, directory: str) -> dict:
+    """``vision_mesh``, ``generate_dp`` / ``generate_fsdp`` and
+    ``checkpoint_pp`` on one rank of the training spawn."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for key, phase in (
+            ("vision_mesh", lambda: vision_mesh_rank(rank, dev)),
+            ("generate", lambda: generate_rank(rank, dev)),
+            ("checkpoint_pp", lambda: checkpoint_pp_rank(rank, dev,
+                                                         directory))):
+        t = time.perf_counter()
+        out[key] = phase()
+        out[key]["seconds"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -4230,6 +4907,12 @@ def main() -> int:
                    + check_flash_bwd(timer, dev, (16, 4), BWD_ULYSSES_CASES))
     emit({"phase": "flash_bwd_sp", "tolerance": BWD_TOL, "D": 128,
           "cases": bwd_sp_rows})
+    # K1, K3 and K4 at head dim 64 (the ViT's), with each instance's
+    # registers and spills
+    d64 = check_flash_d64(timer, dev)
+    d64["ptxas"] = ptxas_usage([fa.FLASH_FWD, fa.FLASH_BWD_DKDV,
+                                fa.FLASH_BWD_DQ])
+    emit(d64)
     del timer
     torch.cuda.empty_cache()
     emit(check_train_reference(dev))
@@ -4257,6 +4940,12 @@ def main() -> int:
         emit(rec)
     train_m = run_phase("train_moe", lambda: train_moe(dev))
     run_phase("hf_load", lambda: hf_load(dev))
+    # the vision family on one card: the ViT through K1/K3/K4 at head dim
+    # 64, the ResNet on cuDNN's convs
+    vit_ref = run_phase("vit_reference", lambda: vit_reference(dev))
+    vit_run = run_phase("vit", lambda: vit_phase(dev))
+    run_phase("resnet_reference", lambda: resnet_reference(dev))
+    run_phase("resnet", lambda: resnet_phase(dev))
 
     main_k1 = next(r for r in flash_rows
                    if (r["B"], r["L"], r["Lk"], r["causal"], r["window"])
@@ -4281,6 +4970,8 @@ def main() -> int:
     # each training phase under a mesh: rank 0's launches, and every rank's
     train_mesh_launches = {}
     for rec in train_meshes:
+        if rec["phase"] == "checkpoint_pp":  # no kernel
+            continue
         if rec["phase"] == "sp_attention_grad":
             for name in ("ring_causal", "ring_window", "ulysses"):
                 train_mesh_launches[f"sp_attention_grad_{name}"] = rec[
@@ -4292,6 +4983,31 @@ def main() -> int:
         return {case: per_rank[0][name]
                 for case, per_rank in train_mesh_launches.items()}
 
+    def d64_rows(name, key=None) -> list[dict]:
+        """The head-dim-64 instance's rows (``flash_d64``), its registers
+        and spills beside them."""
+        regs = d64["ptxas"][name]["d64"]
+        if key is None:
+            return [{"shape": f"B={r['B']} H={r['H']} KVH={r['KVH']} "
+                              f"Lq={r['L']} Lk={r['Lk']} causal={r['causal']} "
+                              "D=64 bf16",
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "tflops": r["tflops"],
+                     "max_abs_err": r["max_abs_err"], "ptxas": regs}
+                    for r in d64["forward"]]
+        return [{"shape": f"B={r['B']} H={r['H']} KVH={r['KVH']} "
+                          f"Lq={r['Lq']} Lk={r['Lk']} causal={r['causal']} "
+                          "D=64 bf16, lse/delta f32",
+                 "ms": r[key]["ms"], "plain_ms": r[key]["plain_ms"],
+                 "bound_ms": r[key]["bound_ms"],
+                 "bound_by": r[key]["bound_by"],
+                 # SDPA's whole backward (dQ, dK, dV)
+                 "library_ms": r["library_ms"], "tflops": r[key]["tflops"],
+                 "max_abs_err": r[key]["max_abs_err"],
+                 "rel_err": r[key]["rel_err"], "ptxas": regs}
+                for r in d64["backward"]]
+
     def bwd_entry(name, key, replaces):
         row = main_bwd[key]
         return {
@@ -4302,7 +5018,10 @@ def main() -> int:
             "launches_by_phase": {"train": train["launches"][name],
                                   "lora_train": lora["launches"][name],
                                   "train_moe": train_m["launches"][name],
-                                  **train_launches(name)},
+                                  **train_launches(name),
+                                  "vit_reference": vit_ref["launches"][name],
+                                  "vit": vit_run["launches"][name]},
+            "d64_shapes": d64_rows(name, key),
             "launches_per_rank": {
                 case: [r[name] for r in per_rank]
                 for case, per_rank in train_mesh_launches.items()},
@@ -4326,9 +5045,11 @@ def main() -> int:
                 "max_abs_err": r[key]["max_abs_err"],
                 "rel_err": r[key]["rel_err"]} for r in bwd_sp_rows],
             "max_abs_err": max(r[key]["max_abs_err"]
-                               for r in bwd_rows + bwd_tp_rows + bwd_sp_rows),
+                               for r in bwd_rows + bwd_tp_rows + bwd_sp_rows
+                               + d64["backward"]),
             "max_rel_err": max(r[key]["rel_err"]
-                               for r in bwd_rows + bwd_tp_rows + bwd_sp_rows),
+                               for r in bwd_rows + bwd_tp_rows + bwd_sp_rows
+                               + d64["backward"]),
             "ms": row["ms"], "kernel_ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -4348,9 +5069,16 @@ def main() -> int:
                                   "lora_train": lora["launches"]["flash_fwd"],
                                   "train": train["launches"]["flash_fwd"],
                                   "train_moe": train_m["launches"]["flash_fwd"],
-                                  **train_launches("flash_fwd")},
+                                  **train_launches("flash_fwd"),
+                                  "vit_reference": vit_ref["launches"][
+                                      "flash_fwd"],
+                                  "vit_apply": vit_run["apply_launches"][
+                                      "flash_fwd"],
+                                  "vit": vit_run["launches"]["flash_fwd"]},
+            "d64_shapes": d64_rows("flash_fwd"),
             "max_abs_err": max(r["max_abs_err"]
-                               for r in flash_rows + flash_sp_rows),
+                               for r in flash_rows + flash_sp_rows
+                               + d64["forward"]),
             "ms": main_k1["ms"], "kernel_ms": main_k1["ms"],
             "plain_ms": main_k1["plain_ms"], "bound_ms": main_k1["bound_ms"],
             "bound_by": main_k1["bound_by"],

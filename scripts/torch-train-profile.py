@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time, on one GPU.
 
-    python3 scripts/torch-train-profile.py [--layers 8] [--steps 3]
+    python3 scripts/torch-train-profile.py [--model llama|vit|resnet]
+        [--layers 8] [--steps 3]
 
-Trains Llama-3-8B widths cut to ``--layers`` (f32 masters from a seed, bf16
-compute, ``Transformer.make_train_step`` with its default AdamW) on one fixed
-batch of 2 x 1024 tokens, then profiles ``--steps`` steps with
-``torch.profiler``. Prints one JSON line: wall time per step, device busy
-time per step (the union of the kernels' and copies' ranges), the device
-idle share (1 - busy / wall), the device time per step by group (the three
-flash kernels, GEMMs, the optimizer's multi-tensor kernels, casts and
-copies, the rest) and by kernel name (top 15),
-next to the nvidia-smi name and power limit. Needs CUDA; exits non-zero
-without it.
+``--model llama`` (the default) trains Llama-3-8B widths cut to
+``--layers`` (f32 masters from a seed, bf16 compute,
+``Transformer.make_train_step`` with its default AdamW) on one fixed batch
+of 2 x 1024 tokens; ``--model vit`` trains ViT-B/16 whole (``ViT``, AdamW)
+on 128 seeded noise images of 224², ``--model resnet`` ResNet-50 whole
+(``ResNet``, SGD with momentum) on 64. Then it profiles ``--steps`` steps
+with ``torch.profiler``. Prints one JSON line: wall time per step, device
+busy time per step (the union of the kernels' and copies' ranges), the
+device idle share (1 - busy / wall), the device time per step by group
+(the three flash kernels, convolutions, GEMMs, the optimizer's
+multi-tensor kernels, reductions, casts and copies, the rest) and by
+kernel name (top 15), next to the nvidia-smi name and power limit. Needs
+CUDA; exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -35,6 +39,11 @@ from bee_code_interpreter_tpu_torch.models.transformer import (  # noqa: E402
     Transformer,
     TransformerConfig,
 )
+from bee_code_interpreter_tpu_torch.models.vision import (  # noqa: E402
+    ResNet,
+    ResNetConfig,
+)
+from bee_code_interpreter_tpu_torch.models.vit import ViT, ViTConfig  # noqa: E402
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
@@ -42,7 +51,9 @@ GROUPS = (
     ("flash_bwd_dkdv (K3)", ("flash_bwd_dkdv_kernel",)),
     ("flash_bwd_dq (K4)", ("flash_bwd_dq_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "conv")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("reductions", ("reduce_kernel",)),
     ("casts and copies", ("copy_kernel", "bfloat16_copy", "Memcpy")),
 )
 
@@ -56,6 +67,8 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("llama", "vit", "resnet"),
+                    default="llama")
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -66,16 +79,27 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
-                              n_layers=args.layers)
-    model = Transformer(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(10))
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    if args.model == "llama":
+        cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                                  n_layers=args.layers)
+        model = Transformer(cfg)
+        seq = torch.as_tensor(
+            np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 1025)),
+            device="cuda",
+        )
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        per_step = {"tokens_per_step": 2 * 1024, "layers": args.layers}
+    else:
+        model, B = ((ViT(ViTConfig.vit_b16()), 128) if args.model == "vit"
+                    else (ResNet(ResNetConfig.resnet50()), 64))
+        batch = {"images": torch.randn(B, 224, 224, 3, generator=gen,
+                                       device="cuda"),
+                 "labels": torch.randint(0, 1000, (B,), generator=gen,
+                                         device="cuda")}
+        per_step = {"images_per_step": B}
+    params = model.init(gen)
     step = model.make_train_step()
-    seq = torch.as_tensor(
-        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 1025)),
-        device="cuda",
-    )
-    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
     opt_state = None
     for _ in range(2):  # warm up; the first step allocates the AdamW state
         params, opt_state, loss = step(params, opt_state, batch)
@@ -115,8 +139,8 @@ def main() -> int:
     wall_ms = wall / args.steps * 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
-        "nvidia_smi": smi, "layers": args.layers, "steps": args.steps,
-        "tokens_per_step": 2 * 1024, "loss": loss.item(),
+        "nvidia_smi": smi, "model": args.model, **per_step,
+        "steps": args.steps, "loss": loss.item(),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,

@@ -106,3 +106,34 @@ def test_no_third_path():
     q, k, v = (torch.from_numpy(x) for x in make_qkv(0, 1, 4, 2, 8))
     with pytest.raises(ValueError, match="CPU"):
         fa.flash_attention_with_lse(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_kernel_head_dims_pick_their_entry_points():
+    """K1, K3 and K4 each export one C entry point per head dim they take
+    (their D = 64 and D = 128 template instances), and the wrappers pick
+    by ``q.shape[3]``; any other head dim is refused before a launch."""
+    assert fa.KERNEL_HEAD_DIMS == (64, 128)
+    for kernel, base in ((fa.FLASH_FWD, "bci_flash_fwd_bf16"),
+                         (fa.FLASH_BWD_DKDV, "bci_flash_bwd_dkdv_bf16"),
+                         (fa.FLASH_BWD_DQ, "bci_flash_bwd_dq_bf16")):
+        assert set(kernel.signatures) == {base, f"{base}_d64"}
+        assert fa._entry(base, 128) == base
+        assert fa._entry(base, 64) == f"{base}_d64"
+        assert kernel.launches == 0  # nothing launched on the CPU
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_plain_forward_at_the_kernel_head_dims_matches_jax_flash(D):
+    """The plain versions the kernels are held against, at both head dims
+    (the ViT's 64, the decoder's 128), against JAX's Pallas flash kernel
+    in interpret mode: non-causal, one head a group, L ragged."""
+    q, k, v = make_qkv(D, 2, 4, 4, 37, D=D)
+    want_out, want_lse = jax_flash_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False,
+        interpret=True)
+    got_out, got_lse = fa.flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), False)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=TOL, rtol=TOL)

@@ -91,12 +91,11 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def spawned(inputs, tmp_path_factory):
+def spawned(inputs):
     payload = {name: {k: v[k] for k in ("params", "tokens")}
                for name, v in inputs.items()}
-    directory = str(tmp_path_factory.mktemp("pp-checkpoint"))
     return {world: spawn(W.transformer_cases, world, device_type="cpu",
-                         args=(world, payload, directory), timeout=300)
+                         args=(world, payload), timeout=300)
             for world in (2, 4)}
 
 
@@ -231,13 +230,3 @@ def test_pipelined_moe_requires_return_aux(spawned, inputs):
             jax_mesh(axes), n_microbatches=2)
     for rec in recs:
         assert rec["error"] == ("ValueError", str(err.value))
-
-
-def test_sharded_checkpoint_over_pp_is_refused(spawned):
-    """Each stage holds its own layers under the same paths: a sharded save
-    over a pp mesh raises, naming its slice, instead of writing a
-    checkpoint that would restore stage 0's layers everywhere."""
-    for rec in spawned[2]:
-        kind, msg = rec["checkpoint_pp"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP Queue 1, item 1, slice 13" in msg

@@ -492,17 +492,14 @@ def test_unported_paths_refuse(ranks):
     """One batcher serves over tp, sp and ep: a dp axis inside it is
     refused (data-parallel serving is ``ReplicatedEngine.build(meshes=)``),
     and so are fsdp (a training axis) and pp (the pipeline trains,
-    ``forward_pipelined``); generation over dp is not ported yet and names
-    its slice (ROADMAP Queue 1, item 1, slice 13); replicas need a dp x tp
-    mesh. Training under the tp mesh (slice 11a) and a model over pp (slice
-    11b) now build (tests/test_torch_train_mesh.py and
+    ``forward_pipelined``); replicas need a dp x tp mesh. Generation over
+    dp, training under the tp mesh and a model over pp build
+    (tests/test_torch_generate_mesh.py, tests/test_torch_train_mesh.py and
     tests/test_torch_pipeline_transformer.py hold them to JAX)."""
     expect = {
         "dp": ("NotImplementedError", "ReplicatedEngine.build(meshes=...)"),
         "fsdp": ("NotImplementedError", "Transformer.make_train_step"),
         "pp": ("NotImplementedError", "forward_pipelined"),
-        "generate_dp": ("NotImplementedError",
-                        "ROADMAP Queue 1, item 1, slice 13"),
         "replicas_over_a_tp_mesh": ("ValueError", "dp and tp"),
     }
     for rec in ranks:

@@ -330,16 +330,5 @@ def test_lora_train_step_matches_jax_at_dp2_tp2(spawned, inputs):
                             inputs)
 
 
-def test_generation_over_the_batch_axes_is_refused_and_names_slice_13(
-        spawned):
-    """What stays refused under a training mesh: generation over dp/fsdp
-    (data-parallel serving is the replica engine)."""
-    for rec in spawned[4]:
-        kind, msg = rec["refusals"]["generate_dp"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP Queue 1, item 1, slice 13" in msg
-        assert "ReplicatedEngine" in msg
-
-
 def test_init_under_a_mesh_keeps_the_rank_shard(spawned):
     assert all(rec["init_is_shard"] for rec in spawned[4])

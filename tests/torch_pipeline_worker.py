@@ -22,7 +22,6 @@ from bee_code_interpreter_tpu_torch.parallel.pipeline import (
     spmd_pipeline,
     stage_block,
 )
-from bee_code_interpreter_tpu_torch.utils.checkpoint import TrainCheckpointer
 from bee_code_interpreter_tpu_torch.weights import params_from_jax
 from tests.torch_tp_worker import error_of, to_np
 
@@ -185,22 +184,12 @@ def transformer_case(axes, cfg, n_micro, what, params_np, tokens_np) -> dict:
     return rec
 
 
-def transformer_cases(rank: int, world: int, inputs: dict,
-                      directory: str) -> dict:
-    """Every case of ``world`` ranks, on the inputs named after it; at two
-    ranks also the refusal of a sharded checkpoint over pp (into
-    ``directory``)."""
+def transformer_cases(rank: int, world: int, inputs: dict) -> dict:
+    """Every case of ``world`` ranks, on the inputs named after it."""
     out = {}
     for name, (axes, which, n_micro, what) in TRANSFORMER_CASES.items():
         if world_of(axes) == world:
             out[name] = transformer_case(
                 axes, TRANSFORMER_CONFIGS[which](), n_micro, what,
                 inputs[name]["params"], inputs[name]["tokens"])
-    if world == 2:
-        cfg = tiny()
-        mesh = M.make_mesh({"pp": 2}, device_type="cpu")
-        params = params_from_jax(inputs["forward"]["params"], cfg, mesh=mesh)
-        with TrainCheckpointer(directory) as ckpt:
-            out["checkpoint_pp"] = error_of(lambda: ckpt.save(
-                1, params, mesh=mesh, specs=T.param_specs(cfg, mesh)))
     return out

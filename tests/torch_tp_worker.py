@@ -532,9 +532,6 @@ def serving_cases(rank: int, inputs: dict) -> dict:
         "dp": error_of(lambda: _batcher(full, cfg, dp_mesh, **kw)),
         "fsdp": error_of(lambda: _batcher(full, cfg, fsdp_mesh, **kw)),
         "pp": error_of(lambda: _batcher(full, cfg, pp_mesh, **kw)),
-        "generate_dp": error_of(lambda: T.Transformer(
-            cfg, dp_mesh).generate_cached(full, torch.zeros(
-                1, 4, dtype=torch.long), max_new_tokens=2)),
         "replicas_over_a_tp_mesh": error_of(lambda: ReplicatedEngine.build(
             full, cfg, 1, meshes=mesh, **kw)),
     }

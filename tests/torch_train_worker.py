@@ -148,8 +148,8 @@ def lora_train(cfg, mesh, params_np, lora_np, batch_np, scale) -> dict:
 
 
 def train_mesh_cases(rank: int, world: int, inputs: dict) -> dict:
-    """Every case of ``world`` ranks: the dense and MoE train steps, the
-    LoRA step at dp=2 x tp=2, and the refusal of generation over dp."""
+    """Every case of ``world`` ranks: the dense and MoE train steps and the
+    LoRA step at dp=2 x tp=2."""
     out = {}
     for name, axes in DENSE_CASES.items():
         if world_of(axes) == world:
@@ -165,12 +165,6 @@ def train_mesh_cases(rank: int, world: int, inputs: dict) -> dict:
         out["lora_dp2_tp2"] = lora_train(dense_config(), mesh, inputs["dense"],
                                          inputs["lora"], inputs["batch"],
                                          inputs["lora_scale"])
-        out["refusals"] = {
-            "generate_dp": error_of(lambda: T.Transformer(
-                dense_config(), M.make_mesh({"dp": 2, "tp": 2},
-                                            device_type="cpu")
-            ).generate_cached(None, torch.zeros(1, 4, dtype=torch.long))),
-        }
         # init under a mesh keeps the shard shard_params takes of the same
         # draws
         mesh = M.make_mesh({"fsdp": 2, "tp": 2}, device_type="cpu")
