@@ -37,6 +37,7 @@ from bee_code_interpreter_tpu_torch.models.transformer import (
 )
 from bee_code_interpreter_tpu_torch.ops.weight_quant import is_quantized
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    ColumnSpec,
     copy_to_group,
     mesh_groups,
     reduce_gradients,
@@ -133,9 +134,15 @@ def _lora_adamw(lora: Params, *, lr: float) -> torch.optim.AdamW:
 def lora_specs(lora: Params, config: TransformerConfig, mesh) -> Params:
     """Each factor's spec under ``mesh`` (the stacked ``[n_layers, ...]``
     layout): ``A`` takes its base leaf's ``d_in`` split, ``B`` its
-    ``d_out`` split (``transformer.param_specs``)."""
+    ``d_out`` split (``transformer.param_specs``; where the base leaf's
+    columns are a ``ColumnSpec``'s, ``B``'s are the same)."""
     base = param_specs(config, mesh)["layers"]
-    return {t: {"A": (None, base[t][0], None), "B": (None, None, base[t][1])}
+
+    def b_spec(spec):
+        names = (None, None, spec[1])
+        return spec.renamed(names) if isinstance(spec, ColumnSpec) else names
+
+    return {t: {"A": (None, base[t][0], None), "B": b_spec(base[t])}
             for t in lora}
 
 

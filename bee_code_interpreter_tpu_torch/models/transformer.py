@@ -46,7 +46,9 @@ attention ops see the local head counts and nothing else changes in them.
 Where tp does not divide ``kv_heads``, K/V are broadcast up to
 ``lcm(kv_heads, tp)`` heads, as JAX's ``_attention`` does: a rank's
 ``wk``/``wv`` hold the columns of the broadcast heads its query heads read
-(``kv_columns``), so its projection makes them directly. The row-parallel
+(``kv_columns``, their spec a ``ColumnSpec``), so its projection makes them
+directly; in training each such column's gradient is summed over the ranks
+that hold a copy of it (``reduce_gradients``). The row-parallel
 ``wo`` and ``w_down`` each end in one ``all_reduce`` of their partial sums,
 the vocab-sharded embedding is a masked lookup of the rank's rows plus one
 ``all_reduce`` (exact: one rank holds each row), and the column-parallel
@@ -140,9 +142,9 @@ from bee_code_interpreter_tpu_torch.ops.paged_kv_cache import (
 )
 from bee_code_interpreter_tpu_torch.ops.weight_quant import is_quantized
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    ColumnSpec,
     all_gather_cat,
     all_reduce_partial,
-    axis_index,
     axis_size,
     batch_shard_of,
     batch_slice,
@@ -321,14 +323,7 @@ def init_params(
         raise ValueError(
             f"generator is on {generator.device}, weights go to {device}"
         )
-    specs = None
-    if mesh is not None:
-        if c.kv_heads % axis_size(mesh, "tp"):
-            raise ValueError(
-                f"kv_heads {c.kv_heads} not divisible by "
-                f"tp={axis_size(mesh, 'tp')} (drawn shards are even blocks)"
-            )
-        specs = param_specs(c, mesh)
+    specs = None if mesh is None else param_specs(c, mesh)
 
     def keep(w, spec):
         return w if specs is None else shard_tensor(w, spec, mesh, device)
@@ -417,8 +412,18 @@ def param_specs(config: TransformerConfig, mesh) -> Params:
     ``we_gate``/``we_up`` ``(ep, fsdp, tp)``, ``we_down`` ``(ep, tp,
     fsdp)`` and the router replicated. ``layers`` holds one layer's specs,
     for every layer (JAX's stacked specs add a leading None for the layer
-    axis)."""
-    return _specs(config, tuple(mesh.mesh_dim_names))
+    axis). Where tp does not divide ``kv_heads``, ``wk``/``wv`` take a
+    ``ColumnSpec``: a rank holds the columns of ``kv_columns``, its K/V
+    heads of the ``lcm(kv_heads, tp)`` broadcast."""
+    specs = _specs(config, tuple(mesh.mesh_dim_names))
+    tp = axis_size(mesh, "tp")
+    if config.kv_heads % tp:
+        cols = [kv_columns(config, tp, r) for r in range(tp)]
+        for name in ("wk", "wv"):
+            specs["layers"][name] = ColumnSpec(
+                specs["layers"][name], "tp",
+                config.kv_heads * config.head_dim, cols)
+    return specs
 
 
 def _specs(config: TransformerConfig, names: tuple[str, ...]) -> Params:
@@ -484,44 +489,32 @@ def shard_params(params: Params, config: TransformerConfig, mesh,
     the contracted dim, so a column-parallel leaf's scales follow its
     columns and a row-parallel leaf's stay whole. Where tp does not divide
     ``kv_heads``, ``wk``/``wv`` (and their scales) take the columns of
-    ``kv_columns`` instead of an even column block: the rank's K/V heads
-    of the ``lcm(kv_heads, tp)`` broadcast. Under pp only the rank's block
-    of layers is kept (``parallel.pipeline.stage_block``)."""
+    ``kv_columns`` (their ``ColumnSpec``) instead of an even column block:
+    the rank's K/V heads of the ``lcm(kv_heads, tp)`` broadcast. Under pp
+    only the rank's block of layers is kept
+    (``parallel.pipeline.stage_block``)."""
     specs = param_specs(config, mesh)
     device = resolve_device(device if device is not None
                             else mesh.device_type)
-    tp = axis_size(mesh, "tp")
-    cols = (kv_columns(config, tp, axis_index(mesh, "tp"))
-            if config.kv_heads % tp else None)
 
-    def place(x, spec, name=None):
-        if cols is not None and name in ("wk", "wv"):
-            if is_quantized(x):
-                return {"q": _columns(x["q"], cols, device),
-                        "s": _columns(x["s"], cols, device)}
-            return _columns(x, cols, device)
+    def place(x, spec):
         if is_quantized(x):
+            scale = (spec.renamed(spec[1:]) if isinstance(spec, ColumnSpec)
+                     else spec[1:])
             return {"q": shard_tensor(x["q"], spec, mesh, device),
-                    "s": shard_tensor(x["s"], spec[1:], mesh, device)}
+                    "s": shard_tensor(x["s"], scale, mesh, device)}
         if isinstance(spec, dict):  # a Mixture-of-Experts layer's dict
             return {k: place(x[k], spec[k]) for k in spec}
         return shard_tensor(x, spec, mesh, device)
 
     return {
         "embed": place(params["embed"], specs["embed"]),
-        "layers": [{name: place(leaf, specs["layers"][name], name)
+        "layers": [{name: place(leaf, specs["layers"][name])
                     for name, leaf in layer.items()}
                    for layer in stage_block(params["layers"], mesh)],
         "ln_f": place(params["ln_f"], specs["ln_f"]),
         "lm_head": place(params["lm_head"], specs["lm_head"]),
     }
-
-
-def _columns(x: torch.Tensor, cols: torch.Tensor, device) -> torch.Tensor:
-    """``x``'s columns (last dim) ``cols``, a tensor of its own on
-    ``device``."""
-    return x.detach().index_select(-1, cols.to(x.device)).to(
-        device, copy=True).contiguous()
 
 
 # ------------------------------------------------------------------- forward
@@ -1258,17 +1251,6 @@ class Transformer:
         self.groups = mesh_groups(mesh)
         self.tp_group = self.groups.tp
 
-    def _check_training(self, what: str) -> None:
-        """What a mesh must be for training: even K/V shards."""
-        if self.mesh is None:
-            return
-        tp = self.groups.size("tp")
-        if self.config.kv_heads % tp:
-            raise ValueError(
-                f"{what}: kv_heads {self.config.kv_heads} not divisible by "
-                f"tp={tp} (a trained K/V head lives on one rank)"
-            )
-
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole batch under the batch axes (dp,
         then fsdp; ValueError when they do not divide it, where JAX's
@@ -1324,7 +1306,6 @@ class Transformer:
         CUDA; raises without it); compute runs in ``config.dtype``. Under a
         mesh, the rank's shard of them (``init_params(mesh=...)``: every
         rank passes a generator of the same seed)."""
-        self._check_training("Transformer.init")
         if self.mesh is not None and device is None:
             device = self.mesh.device_type
         return init_params(self.config, generator, device,
@@ -1366,7 +1347,6 @@ class Transformer:
         (``reduce_gradients``), so a leaf replicated over an axis stays the
         same bits on every rank of it. Under a pp mesh the step runs the
         pipeline in ``n_microbatches`` (required there)."""
-        self._check_training("make_train_step")
         if self.groups.pp is not None and n_microbatches is None:
             raise ValueError("a pp mesh trains through the pipeline: pass "
                              "n_microbatches")

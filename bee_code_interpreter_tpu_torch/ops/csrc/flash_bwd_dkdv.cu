@@ -1,13 +1,19 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a): bf16 inputs, f32
-// statistics and accumulation, GQA-native (dK/dV summed over the query heads
-// of each KV group and written compact), causal or full, optional sliding
-// window. Head dim D = 64 or 128: the kernel is a template over NB = D / 64,
-// the 64-column TMA boxes of a tile (entry points bci_flash_bwd_dkdv_bf16_d64
-// and bci_flash_bwd_dkdv_bf16; D = 128 is the design below, D = 64 the same
-// with the K/V, Q and dO tiles, the ring and the dK/dV accumulators halved,
-// S^T and dP^T in 4 k16 steps and dV/dK at N = 64). At ViT-B/16's shape
-// (L = 196, D = 64, one head a group, non-causal) the work is bound by bytes
-// (~234 MB against 30 GFLOP); the padded query rows' P is forced to 0.
+// statistics and accumulation, GQA-native (dK/dV summed over the query heads of
+// each KV group and written compact), causal or full, optional sliding window.
+// Head dim D = 64 or 128: the kernel is a template over NB = D / 64, the
+// 64-column TMA boxes of a tile (entry points bci_flash_bwd_dkdv_bf16_d64 and
+// bci_flash_bwd_dkdv_bf16; D = 128 is the design below, D = 64 the same with
+// the K/V, Q and dO tiles, the ring and the dK/dV accumulators halved, S^T and
+// dP^T in 4 k16 steps and dV/dK at N = 64). At ViT-B/16's shape (L = 196, D =
+// 64, one head a group, non-causal) the work is bound by bytes (~234 MB against
+// 30 GFLOP); the padded query rows' P is forced to 0. Every other head dim
+// JAX's kernel takes runs too: bf16 at D < 128 that is a multiple of 8 is read
+// in place through maps of D columns (the columns past D read as zeros, dropped
+// on store), any other arrives zero-padded to 64 or 128 by the wrapper
+// (ops/flash_attention.py); bf16 above 128 takes the warp-level tensor-core
+// instance of flash_mma.cuh, f32 at every D <= 256 the CUDA-core kernel of
+// flash_simt.cuh (entry points below).
 //
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/flash_attention.py
 // `_bwd_dkdv_kernel` (:291), reached through `_flash_bwd_pallas` (:409). What
@@ -60,6 +66,8 @@
 
 #include <math.h>
 
+#include "flash_mma.cuh"
+#include "flash_simt.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -366,17 +374,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
 template <int NB>
 int launch_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dk, void* dv, int B,
-                          int H, int KVH, int Lq, int Lk, int causal, int window,
+                          int H, int KVH, int Lq, int Lk, int causal, int window, int cols,
                           float sm_scale, void* stream) {
-  constexpr int D = 64 * NB;
+  // a map of `cols` columns: a box's columns past them read as zero and
+  // are dropped on store
+  if (cols < 1 || cols > 64 * NB || cols % 8) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int SMEM_BYTES = Layout<NB>::SMEM_BYTES;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
-  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, D) ||
-      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, D) ||
-      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, D) ||
-      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q, D) ||
-      !make_map_3d(&tm_dk, dk, B * KVH, Lk, 64, D) ||
-      !make_map_3d(&tm_dv, dv, B * KVH, Lk, 64, D)) {
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, cols) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, cols) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, cols) ||
+      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q, cols) ||
+      !make_map_3d(&tm_dk, dk, B * KVH, Lk, 64, cols) ||
+      !make_map_3d(&tm_dv, dv, B * KVH, Lk, 64, cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above the 48 KB default: opt in (cheap to repeat)
@@ -423,10 +433,10 @@ extern "C" int bci_flash_bwd_dkdv_bf16(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int B, int H, int KVH,
-                                       int Lq, int Lk, int causal, int window,
+                                       int Lq, int Lk, int causal, int window, int D,
                                        float sm_scale, void* stream) {
   return launch_flash_bwd_dkdv<2>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq, Lk,
-                                  causal, window, sm_scale, stream);
+                                  causal, window, D, sm_scale, stream);
 }
 
 // head dim 64
@@ -434,8 +444,33 @@ extern "C" int bci_flash_bwd_dkdv_bf16_d64(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* delta,
                                            void* dk, void* dv, int B, int H, int KVH,
-                                           int Lq, int Lk, int causal, int window,
+                                           int Lq, int Lk, int causal, int window, int D,
                                            float sm_scale, void* stream) {
   return launch_flash_bwd_dkdv<1>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq, Lk,
-                                  causal, window, sm_scale, stream);
+                                  causal, window, D, sm_scale, stream);
+}
+
+// The CUDA-core kernel of flash_simt.cuh: f32 at head dims 1..256
+extern "C" int bci_flash_bwd_dkdv_simt(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse,
+                                       const void* delta, void* dk, void* dv, int B,
+                                       int H, int KVH, int Lq, int Lk, int causal,
+                                       int window, int D, float sm_scale,
+                                       void* stream) {
+  return static_cast<int>(flash_simt::dkdv(q, k, v, dout, lse, delta, dk, dv, B, H, KVH,
+                                           Lq, Lk, D, causal, window, sm_scale,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// head dim 256 (bf16 at 128 < D <= 256; D a multiple of 8 read in place,
+// any other zero-padded to 256 by the wrapper): the kernel of flash_mma.cuh
+extern "C" int bci_flash_bwd_dkdv_bf16_d256(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse, const void* delta,
+                                            void* dk, void* dv, int B, int H, int KVH,
+                                            int Lq, int Lk, int causal, int window, int D,
+                                            float sm_scale, void* stream) {
+  return static_cast<int>(flash_mma::dkdv(q, k, v, dout, lse, delta, dk, dv, B, H, KVH,
+                                          Lq, Lk, causal, window, D, sm_scale,
+                                          static_cast<cudaStream_t>(stream)));
 }

@@ -1,12 +1,18 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a): bf16 inputs, f32
 // statistics and accumulation, GQA-native, causal or full, optional sliding
 // window. Head dim D = 64 or 128: the kernel is a template over NB = D / 64,
-// the 64-column TMA boxes of a tile (entry points bci_flash_bwd_dq_bf16_d64
-// and bci_flash_bwd_dq_bf16; D = 128 is the design below, D = 64 the same
-// with the Q, dO, K and V tiles, the ring and the dQ accumulator halved, S
-// and dP in 4 k16 steps and dQ at N = 64). At ViT-B/16's shape (L = 196,
-// D = 64, non-causal) the work is bound by bytes (~195 MB against 23
-// GFLOP); the padded rows and keys are masked, as described below.
+// the 64-column TMA boxes of a tile (entry points bci_flash_bwd_dq_bf16_d64 and
+// bci_flash_bwd_dq_bf16; D = 128 is the design below, D = 64 the same with the
+// Q, dO, K and V tiles, the ring and the dQ accumulator halved, S and dP in 4
+// k16 steps and dQ at N = 64). At ViT-B/16's shape (L = 196, D = 64,
+// non-causal) the work is bound by bytes (~195 MB against 23 GFLOP); the padded
+// rows and keys are masked, as described below. Every other head dim JAX's
+// kernel takes runs too: bf16 at D < 128 that is a multiple of 8 is read in
+// place through maps of D columns (the columns past D read as zeros, dropped on
+// store), any other arrives zero-padded to 64 or 128 by the wrapper
+// (ops/flash_attention.py); bf16 above 128 takes the warp-level tensor-core
+// instance of flash_mma.cuh, f32 at every D <= 256 the CUDA-core kernel of
+// flash_simt.cuh (entry points below).
 //
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/flash_attention.py
 // `_bwd_dq_kernel` (:357), reached through `_flash_bwd_pallas` (:409). What it
@@ -53,6 +59,8 @@
 
 #include <math.h>
 
+#include "flash_mma.cuh"
+#include "flash_simt.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -260,16 +268,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
 template <int NB>
 int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int B, int H, int KVH,
-                        int Lq, int Lk, int causal, int window, float sm_scale,
+                        int Lq, int Lk, int causal, int window, int cols,
+                        float sm_scale,
                         void* stream) {
-  constexpr int D = 64 * NB;
+  // a map of `cols` columns: a box's columns past them read as zero and
+  // are dropped on store
+  if (cols < 1 || cols > 64 * NB || cols % 8) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int SMEM_BYTES = Layout<NB>::SMEM_BYTES;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
-  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, D) ||
-      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, D) ||
-      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, D) ||
-      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q, D) ||
-      !make_map_3d(&tm_dq, dq, B * H, Lq, 64, D)) {
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, cols) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, cols) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, cols) ||
+      !make_map_3d(&tm_do, dout, B * H, Lq, BLOCK_Q, cols) ||
+      !make_map_3d(&tm_dq, dq, B * H, Lq, 64, cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above the 48 KB default: opt in (cheap to repeat)
@@ -292,9 +303,9 @@ extern "C" int bci_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse,
                                      const void* delta, void* dq, int B, int H,
                                      int KVH, int Lq, int Lk, int causal,
-                                     int window, float sm_scale, void* stream) {
+                                     int window, int D, float sm_scale, void* stream) {
   return launch_flash_bwd_dq<2>(q, k, v, dout, lse, delta, dq, B, H, KVH, Lq, Lk, causal,
-                                window, sm_scale, stream);
+                                window, D, sm_scale, stream);
 }
 
 // head dim 64
@@ -302,7 +313,30 @@ extern "C" int bci_flash_bwd_dq_bf16_d64(const void* q, const void* k, const voi
                                          const void* dout, const void* lse,
                                          const void* delta, void* dq, int B, int H,
                                          int KVH, int Lq, int Lk, int causal,
-                                         int window, float sm_scale, void* stream) {
+                                         int window, int D, float sm_scale, void* stream) {
   return launch_flash_bwd_dq<1>(q, k, v, dout, lse, delta, dq, B, H, KVH, Lq, Lk, causal,
-                                window, sm_scale, stream);
+                                window, D, sm_scale, stream);
+}
+
+// The CUDA-core kernel of flash_simt.cuh: f32 at head dims 1..256
+extern "C" int bci_flash_bwd_dq_simt(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, int B, int H, int KVH, int Lq, int Lk,
+                                     int causal, int window, int D,
+                                     float sm_scale, void* stream) {
+  return static_cast<int>(flash_simt::dq(q, k, v, dout, lse, delta, dq, B, H, KVH, Lq, Lk,
+                                         D, causal, window, sm_scale,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// head dim 256 (bf16 at 128 < D <= 256; D a multiple of 8 read in place,
+// any other zero-padded to 256 by the wrapper): the kernel of flash_mma.cuh
+extern "C" int bci_flash_bwd_dq_bf16_d256(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse,
+                                          const void* delta, void* dq, int B, int H,
+                                          int KVH, int Lq, int Lk, int causal,
+                                          int window, int D, float sm_scale, void* stream) {
+  return static_cast<int>(flash_mma::dq(q, k, v, dout, lse, delta, dq, B, H, KVH, Lq,
+                                        Lk, causal, window, D, sm_scale,
+                                        static_cast<cudaStream_t>(stream)));
 }

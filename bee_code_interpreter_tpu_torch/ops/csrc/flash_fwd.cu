@@ -3,12 +3,18 @@
 // Head dim D = 64 or 128: the kernel is a template over NB = D / 64, the
 // 64-column TMA boxes of a Q/K/V/O tile (entry points bci_flash_fwd_bf16_d64
 // and bci_flash_fwd_bf16; D = 128 is the design below, D = 64 the same with
-// every tile, stage and the O accumulator halved, Q K^T in 4 k16 steps and
-// P V at N = 64). At ViT-B/16's shape (B = 128, H = 12, L = 196, D = 64,
-// non-causal) the work is bound by bytes instead (~155 MB against 15 GFLOP):
-// the D = 64 instance keeps this design unchanged, so L = 196 pads to two
-// 128-row work items and two key tiles, the padded keys masked (col < Lk)
-// and the padded rows dropped by the store.
+// every tile, stage and the O accumulator halved, Q K^T in 4 k16 steps and P V
+// at N = 64). Every other head dim JAX's kernel takes runs too: bf16 at D < 128
+// that is a multiple of 8 is read in place through maps of D columns (a box's
+// columns past D read as zeros and are dropped on store), any other arrives
+// zero-padded to 64 or 128 by the wrapper (ops/flash_attention.py: exact, the
+// scale stays the true D ** -0.5); bf16 above 128 takes the warp-level
+// tensor-core instance of flash_mma.cuh, f32 at every D <= 256 the CUDA-core
+// kernel of flash_simt.cuh (entry points below). At ViT-B/16's shape (B = 128,
+// H = 12, L = 196, D = 64, non-causal) the work is bound by bytes instead (~155
+// MB against 15 GFLOP): the D = 64 instance keeps this design unchanged, so L =
+// 196 pads to two 128-row work items and two key tiles, the padded keys masked
+// (col < Lk) and the padded rows dropped by the store.
 //
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/flash_attention.py
 // `_fwd_kernel` (:48), reached through `_flash_fwd` (:170). What it computes
@@ -60,6 +66,8 @@
 
 #include <math.h>
 
+#include "flash_mma.cuh"
+#include "flash_simt.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -407,14 +415,16 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
 // aligned).
 template <int NB>
 int launch_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                     int B, int H, int KVH, int Lq, int Lk, int causal, int window,
+                     int B, int H, int KVH, int Lq, int Lk, int causal, int window, int cols,
                      float sm_scale, void* stream) {
-  constexpr int D = 64 * NB;
+  // a map of `cols` columns: a box's columns past them read as zero and
+  // are dropped on store
+  if (cols < 1 || cols > 64 * NB || cols % 8) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, D) ||
-      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, D) ||
-      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, D) ||
-      !make_map_3d(&tm_o, out, B * H, Lq, 64, D)) {
+  if (!make_map_3d(&tm_q, q, B * H, Lq, BLOCK_Q, cols) ||
+      !make_map_3d(&tm_k, k, B * KVH, Lk, BLOCK_K, cols) ||
+      !make_map_3d(&tm_v, v, B * KVH, Lk, BLOCK_K, cols) ||
+      !make_map_3d(&tm_o, out, B * H, Lq, 64, cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above the 48 KB default: opt in (cheap to repeat)
@@ -442,17 +452,38 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* out, voi
 // head dim 128
 extern "C" int bci_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int B, int H, int KVH,
-                                  int Lq, int Lk, int causal, int window,
+                                  int Lq, int Lk, int causal, int window, int D,
                                   float sm_scale, void* stream) {
-  return launch_flash_fwd<2>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, window,
+  return launch_flash_fwd<2>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, window, D,
                              sm_scale, stream);
 }
 
 // head dim 64
 extern "C" int bci_flash_fwd_bf16_d64(const void* q, const void* k, const void* v,
                                       void* out, void* lse, int B, int H, int KVH,
-                                      int Lq, int Lk, int causal, int window,
+                                      int Lq, int Lk, int causal, int window, int D,
                                       float sm_scale, void* stream) {
-  return launch_flash_fwd<1>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, window,
+  return launch_flash_fwd<1>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, window, D,
                              sm_scale, stream);
+}
+
+// The CUDA-core kernel of flash_simt.cuh: f32 at head dims 1..256
+extern "C" int bci_flash_fwd_simt(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int B, int H, int KVH, int Lq, int Lk,
+                                  int causal, int window, int D,
+                                  float sm_scale, void* stream) {
+  return static_cast<int>(flash_simt::fwd(q, k, v, out, lse, B, H, KVH, Lq, Lk, D, causal,
+                                          window, sm_scale,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// head dim 256 (bf16 at 128 < D <= 256; D a multiple of 8 read in place,
+// any other zero-padded to 256 by the wrapper): the kernel of flash_mma.cuh
+extern "C" int bci_flash_fwd_bf16_d256(const void* q, const void* k, const void* v,
+                                       void* out, void* lse, int B, int H, int KVH,
+                                       int Lq, int Lk, int causal, int window, int D,
+                                       float sm_scale, void* stream) {
+  return static_cast<int>(flash_mma::fwd(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal,
+                                         window, D, sm_scale,
+                                         static_cast<cudaStream_t>(stream)));
 }

@@ -5,7 +5,7 @@
 // rebuilt when it changes (ops/cuda_build.py hashes csrc/*.cuh).
 //
 // Layouts, as the kernels use them (bf16, head dim D = 64 NB, NB = 1 or 2
-// boxes; the paged decode kernel takes D = 128 only):
+// boxes; the paged decode kernel's TMA path takes D = 128 only):
 // - A [rows, D] tile is loaded by TMA as NB boxes of 64 columns (one box
 //   row is 128 bytes, the 128-byte swizzle span), each box [rows][64] in
 //   shared memory with the 128-byte swizzle: 16-byte chunk c of row r sits at

@@ -2,6 +2,11 @@
 // read in place from the page pool through the block table, GQA-native,
 // split over the sequence (flash-decoding), bf16 or f32 pools.
 //
+// Head dim 128 with at most 8 query heads per KV head takes the two kernels
+// the design below describes; every other head dim 1..256 and any group size
+// takes paged_decode_any_kernel (its note further down), through
+// bci_paged_decode_any.
+//
 // Replaces the TPU kernel bee_code_interpreter_tpu/ops/paged_attention.py
 // `_kernel` (:47), reached through `paged_decode_attention` (:100). Carried
 // over exactly: the block-table entry is clamped to [0, n_pages - 1] so a -1
@@ -702,6 +707,244 @@ cudaError_t launch_merge(const void* m_part, const void* l_part, const void* acc
                             kvh, n_split);
 }
 
+// The kernel for every head dim and group size the two above do not take
+// (dh != 128, or more than MAX_REP query heads per KV head): the query heads
+// of a group in blocks of at most ANY_HEADS, each block a split of one row's
+// pages (grid (split, kv head x head block, row)), the head blocks of one KV
+// head next to each other in the grid, so they run together and read the
+// same pages through L2 (JAX pads its group to the sublane tile,
+// paged_attention.py:117; here a block takes the next ANY_HEADS heads). A
+// lane owns NC consecutive columns (dh <= 32 NC); each warp walks every
+// fourth token of the split, reading its K and V rows with plain loads (a row
+// of 20 bf16 columns is 40 bytes: no bulk copy or TMA box takes it), and keeps
+// the online softmax of each head in f32; the four warps combine in shared
+// memory, and with more than one split paged_merge_any_kernel merges the
+// f32 partials in split order. Two calls give the same bits.
+constexpr int ANY_HEADS = 8;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <int NC>
+__host__ __device__ constexpr int any_smem_bytes() {
+  return (WARPS * ANY_HEADS * 32 * NC + 2 * WARPS * ANY_HEADS) * 4;
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS) paged_decode_any_kernel(
+    const T* __restrict__ q,              // [B, nh, dh]
+    const T* __restrict__ k_pages,        // [n_pages, kvh, ps, dh]
+    const T* __restrict__ v_pages,        // [n_pages, kvh, ps, dh]
+    const int* __restrict__ block_table,  // [B, P]
+    const int* __restrict__ lengths,      // [B]
+    T* __restrict__ out,                  // [B, nh, dh]
+    float* __restrict__ m_part,           // [B, kvh, n_split, rep] (n_split > 1)
+    float* __restrict__ l_part,           // [B, kvh, n_split, rep]
+    float* __restrict__ acc_part,         // [B, kvh, n_split, rep, dh]
+    int nh, int kvh, int n_pages, int ps, int P, int pps, int dh, int n_hc,
+    float sm_scale) {
+  constexpr int DP = 32 * NC;
+  extern __shared__ float w_acc[];  // [WARPS][ANY_HEADS][DP], then m and l
+  float* w_m = w_acc + WARPS * ANY_HEADS * DP;  // [WARPS][ANY_HEADS]
+  float* w_l = w_m + WARPS * ANY_HEADS;
+  const int split = blockIdx.x, g = blockIdx.y / n_hc, hc = blockIdx.y % n_hc;
+  const int b = blockIdx.z, n_split = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rep = nh / kvh, r0 = hc * ANY_HEADS, nr = min(ANY_HEADS, rep - r0);
+  const int* bt = block_table + (size_t)b * P;
+  const int len = min(lengths[b], P * ps);
+  const int t_lo = split * pps * ps;
+  const int t_hi = min(len, min(P, (split + 1) * pps) * ps);
+  const size_t part = ((size_t)b * kvh + g) * n_split + split;
+  if (n_split > 1 && t_lo >= t_hi) {
+    // an empty split: the merge gives it weight 0 and never reads its acc
+    if (threadIdx.x < nr) {
+      m_part[part * rep + r0 + threadIdx.x] = -INFINITY;
+      l_part[part * rep + r0 + threadIdx.x] = 0.f;
+    }
+    return;
+  }
+  grid_dependents_launch();  // the merge (if any) may be scheduled now
+
+  // the block's query heads (zero past nr and dh), in base 2 with the
+  // scale folded in
+  const float c = sm_scale * LOG2E;
+  float qr[ANY_HEADS][NC];
+#pragma unroll
+  for (int r = 0; r < ANY_HEADS; ++r) {
+    const T* qrow = q + ((size_t)b * nh + g * rep + r0 + r) * dh;
+#pragma unroll
+    for (int e = 0; e < NC; ++e) {
+      const int col = lane * NC + e;
+      qr[r][e] = r < nr && col < dh ? to_f(qrow[col]) * c : 0.f;
+    }
+  }
+  float m_run[ANY_HEADS], l_run[ANY_HEADS], acc[ANY_HEADS][NC];
+#pragma unroll
+  for (int r = 0; r < ANY_HEADS; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NC; ++e) acc[r][e] = 0.f;
+  }
+  for (int t = t_lo + warp; t < t_hi; t += WARPS) {
+    const int lp = t / ps, slot = t - lp * ps;
+    // the clamp keeps a -1 sentinel inside the pool
+    const int page = min(max(bt[lp], 0), n_pages - 1);
+    const size_t off = (((size_t)page * kvh + g) * ps + slot) * dh;
+    float kx[NC], vx[NC];
+#pragma unroll
+    for (int e = 0; e < NC; ++e) {
+      const int col = lane * NC + e;
+      kx[e] = col < dh ? to_f(k_pages[off + col]) : 0.f;
+      vx[e] = col < dh ? to_f(v_pages[off + col]) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < ANY_HEADS; ++r) {
+      if (r >= nr) break;  // the same for the whole warp
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < NC; ++e) s = fmaf(qr[r][e], kx[e], s);
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+      // the token is visible, so the new max is finite; 2^-inf = 0 first
+      const float m_new = fmaxf(m_run[r], s);
+      const float alpha = fast_exp2(m_run[r] - m_new);
+      const float p = fast_exp2(s - m_new);
+      l_run[r] = l_run[r] * alpha + p;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < NC; ++e) acc[r][e] = fmaf(p, vx[e], acc[r][e] * alpha);
+    }
+  }
+
+  // combine the four warps; a warp with no token (m = -inf) weighs nothing
+#pragma unroll
+  for (int r = 0; r < ANY_HEADS; ++r) {
+    if (r < nr) {
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        w_acc[(warp * ANY_HEADS + r) * DP + lane * NC + e] = acc[r][e];
+      }
+      if (lane == 0) {
+        w_m[warp * ANY_HEADS + r] = m_run[r];
+        w_l[warp * ANY_HEADS + r] = l_run[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nr * dh; i += THREADS) {
+    const int r = i / dh, d = i - r * dh;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, w_m[w * ANY_HEADS + r]);
+    float a = 0.f, l = 0.f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float mw = w_m[w * ANY_HEADS + r];
+        if (mw != -INFINITY) {
+          const float f = fast_exp2(mw - M);
+          a = fmaf(f, w_acc[(w * ANY_HEADS + r) * DP + d], a);
+          l = fmaf(f, w_l[w * ANY_HEADS + r], l);
+        }
+      }
+    }
+    if (n_split == 1) {
+      out[((size_t)b * nh + g * rep + r0 + r) * dh + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+    } else {
+      acc_part[(part * rep + r0 + r) * dh + d] = a;
+      if (d == 0) {
+        m_part[part * rep + r0 + r] = M;
+        l_part[part * rep + r0 + r] = l;
+      }
+    }
+  }
+}
+
+// The merge of paged_decode_any_kernel's partials: paged_merge_kernel's sum
+// at any dh, the splits folded one at a time in index order; one block per
+// (query head, kv head, row), a thread a column (and more above 256).
+template <typename T>
+__global__ void __launch_bounds__(256) paged_merge_any_kernel(
+    const float* __restrict__ m_part, const float* __restrict__ l_part,
+    const float* __restrict__ acc_part, T* __restrict__ out, int nh, int kvh, int n_split,
+    int dh) {
+  grid_dependency_wait();
+  const int r = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int rep = nh / kvh;
+  const size_t base = ((size_t)b * kvh + g) * n_split;
+  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+    float M = -INFINITY, a = 0.f, l = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const size_t at = (base + s) * rep + r;
+      const float ms = m_part[at];
+      if (ms == -INFINITY) continue;  // an empty split: its acc was never written
+      if (ms > M) {
+        const float f = fast_exp2(M - ms);  // 2^-inf = 0 before the first
+        a *= f;
+        l *= f;
+        M = ms;
+      }
+      const float w = fast_exp2(ms - M);
+      a = fmaf(w, acc_part[at * dh + d], a);
+      l = fmaf(w, l_part[at], l);
+    }
+    out[((size_t)b * nh + g * rep + r) * dh + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+}
+
+template <typename T, int NC>
+cudaError_t launch_any(const void* q, const void* k_pages, const void* v_pages,
+                       const int* block_table, const int* lengths, void* out,
+                       void* m_part, void* l_part, void* acc_part, int B, int nh, int kvh,
+                       int n_pages, int ps, int P, int pps, int dh, float sm_scale,
+                       cudaStream_t stream) {
+  const int n_hc = (nh / kvh + ANY_HEADS - 1) / ANY_HEADS;
+  const int n_split = (P + pps - 1) / pps;
+  paged_decode_any_kernel<T, NC><<<dim3(n_split, kvh * n_hc, B), THREADS,
+                                   any_smem_bytes<NC>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), block_table, lengths, static_cast<T*>(out),
+      static_cast<float*>(m_part), static_cast<float*>(l_part),
+      static_cast<float*>(acc_part), nh, kvh, n_pages, ps, P, pps, dh, n_hc, sm_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  // a programmatic dependent launch, as launch_merge's
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nh / kvh, kvh, B);
+  const int cols = (dh + 31) / 32 * 32;
+  cfg.blockDim = dim3(cols < 256 ? cols : 256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_merge_any_kernel<T>,
+                            static_cast<const float*>(m_part),
+                            static_cast<const float*>(l_part),
+                            static_cast<const float*>(acc_part), static_cast<T*>(out), nh,
+                            kvh, n_split, dh);
+}
+
+template <typename T>
+cudaError_t launch_any_dh(const void* q, const void* k_pages, const void* v_pages,
+                          const int* block_table, const int* lengths, void* out,
+                          void* m_part, void* l_part, void* acc_part, int B, int nh,
+                          int kvh, int n_pages, int ps, int P, int pps, int dh,
+                          float sm_scale, cudaStream_t stream) {
+#define BCI_LAUNCH(NC)                                                              \
+  launch_any<T, NC>(q, k_pages, v_pages, block_table, lengths, out, m_part, l_part, \
+                    acc_part, B, nh, kvh, n_pages, ps, P, pps, dh, sm_scale, stream)
+  if (dh <= 32) return BCI_LAUNCH(1);
+  if (dh <= 64) return BCI_LAUNCH(2);
+  if (dh <= 128) return BCI_LAUNCH(4);
+  if (dh <= 256) return BCI_LAUNCH(8);
+#undef BCI_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. pps: pages of the block table per split;
@@ -738,5 +981,29 @@ extern "C" int bci_paged_decode(const void* q, const void* k_pages,
                                                  kvh, n_split, s)
                    : launch_merge<float>(m_part, l_part, acc_part, out, B, nh, kvh,
                                          n_split, s);
+  return static_cast<int>(err);
+}
+
+// Every head dim 1 <= dh <= 256 and any group size, through
+// paged_decode_any_kernel (and its merge when pps < P): the arguments of
+// bci_paged_decode with dh before the scale; acc_part is [..., dh].
+extern "C" int bci_paged_decode_any(const void* q, const void* k_pages,
+                                    const void* v_pages, const int* block_table,
+                                    const int* lengths, void* out, void* m_part,
+                                    void* l_part, void* acc_part, int B, int nh,
+                                    int kvh, int n_pages, int ps, int P, int pps,
+                                    int dh, float sm_scale, int dtype, void* stream) {
+  if (B < 1 || P < 1 || pps < 1 || kvh < 1 || nh % kvh || dh < 1 || dh > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 1
+          ? launch_any_dh<__nv_bfloat16>(q, k_pages, v_pages, block_table, lengths, out,
+                                         m_part, l_part, acc_part, B, nh, kvh, n_pages,
+                                         ps, P, pps, dh, sm_scale, s)
+          : launch_any_dh<float>(q, k_pages, v_pages, block_table, lengths, out, m_part,
+                                 l_part, acc_part, B, nh, kvh, n_pages, ps, P, pps, dh,
+                                 sm_scale, s);
   return static_cast<int>(err);
 }

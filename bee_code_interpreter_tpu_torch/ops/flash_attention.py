@@ -10,14 +10,25 @@ in f32; dk/dv come back compact ``[B, KVH, Lk, D]``.
 
 Dispatch is on where the tensors live, in ``FlashAttention`` for both
 directions: CUDA tensors go to the kernels (``csrc/flash_fwd.cu`` forward,
-``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu`` backward; bf16, head
-dim 64 or 128 (one entry point of each kernel per head dim), and dense
-tensors on a 16-byte boundary, which their TMA maps demand: anything else
-raises), CPU tensors to the plain versions
+``csrc/flash_bwd_dkdv.cu`` and ``csrc/flash_bwd_dq.cu`` backward), CPU
+tensors to the plain versions
 (``flash_attention_fwd_plain``, ``flash_bwd_dkdv_plain``,
 ``flash_bwd_dq_plain``). There is no third path and no fallback from one to
 the other. ``delta = rowsum(dO * O) - g_lse`` is a PyTorch reduction, as the
 JAX code computes it outside its kernels (:431-437).
+
+On the card each kernel takes what JAX's takes, bf16 or f32 at every head
+dim 1..256 (``kernel_route``): bf16 runs on the tensor-core instances (D =
+64 and D = 128 on TMA and wgmma, D = 256 on mma.sync, ``csrc/flash_mma.cuh``;
+one C entry point each), a head dim between them at the next instance's
+width: read in place where it is a multiple of 8 (the instance's columns
+past D are zeros: a TMA box past the map's D columns, or a tile row past
+them), zero-padded by the wrapper otherwise (``pad_width``): exact either
+way, since zero columns leave Q K^T unchanged and the extra columns of P V
+are never stored, with ``sm_scale`` the true ``D ** -0.5``. f32 runs at
+every head dim on the CUDA-core kernels of ``csrc/flash_simt.cuh``
+(computed in f32, as JAX's kernels keep f32 inputs f32 in both products).
+Above 256 the wrappers raise.
 """
 
 from __future__ import annotations
@@ -28,9 +39,14 @@ import torch
 
 from bee_code_interpreter_tpu_torch.ops.cuda_build import CudaKernel
 
-# the head dims the kernels take, each its own instance of the kernel
-# template (NB = D / 64 TMA boxes a tile) and C entry point
-KERNEL_HEAD_DIMS = (64, 128)
+# the head dims of the tensor-core (bf16) instances, each with its C entry
+# point: the TMA/wgmma template at NB = D / 64 boxes a tile (64, 128) and the
+# mma.sync kernel of csrc/flash_mma.cuh (256)
+KERNEL_HEAD_DIMS = (64, 128, 256)
+# the widest head dim any kernel takes
+MAX_HEAD_DIM = 256
+# the dtypes the kernels take
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _entry(base: str, head_dim: int) -> str:
@@ -38,21 +54,49 @@ def _entry(base: str, head_dim: int) -> str:
     return base if head_dim == 128 else f"{base}_d{head_dim}"
 
 
+def kernel_route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
+    """Which kernel takes ``dtype`` inputs at ``head_dim`` on the card:
+    ``("tensor_core", width)``, the bf16 instance of that width (the
+    wrappers zero-pad Q, K, V and dO to it where it differs), or ``("simt",
+    head_dim)``, the CUDA-core kernel (f32 at every head dim). Raises
+    ValueError above ``MAX_HEAD_DIM`` and for a dtype other than bf16 or
+    f32."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(
+            f"the flash kernels take bfloat16 or float32, got {dtype}")
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the flash kernels take head dims 1..{MAX_HEAD_DIM}, got "
+            f"{head_dim}")
+    if dtype == torch.bfloat16:
+        return "tensor_core", next(d for d in KERNEL_HEAD_DIMS if d >= head_dim)
+    return "simt", head_dim
+
+
+def pad_width(dtype: torch.dtype, head_dim: int) -> int:
+    """The head dim the wrappers hand the kernel: the tensor-core
+    instance's width for a bf16 head dim no multiple of 8 (a TMA row stride
+    and a 16-byte load need one), else ``head_dim`` itself."""
+    route, width = kernel_route(dtype, head_dim)
+    return width if route == "tensor_core" and head_dim % 8 else head_dim
+
+
 def _signatures(base: str, argtypes: list) -> dict:
-    return {_entry(base, d): argtypes for d in KERNEL_HEAD_DIMS}
+    out = {_entry(f"{base}_bf16", d): argtypes for d in KERNEL_HEAD_DIMS}
+    out[f"{base}_simt"] = argtypes
+    return out
 
 
+# q, k, v, out, lse; B, H, KVH, Lq, Lk, causal, window, the head dim;
+# sm_scale; stream
+_TAIL = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 FLASH_FWD = CudaKernel("flash_fwd", _signatures(
-    "bci_flash_fwd_bf16",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]))
-# q, k, v, dO, lse, delta, then the outputs (dk, dv / dq); B, H, KVH, Lq, Lk,
-# causal, window; sm_scale; stream
+    "bci_flash_fwd", [ctypes.c_void_p] * 5 + _TAIL))
+# q, k, v, dO, lse, delta, then the outputs (dk, dv / dq); then as above
 FLASH_BWD_DKDV = CudaKernel("flash_bwd_dkdv", _signatures(
-    "bci_flash_bwd_dkdv_bf16",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]))
+    "bci_flash_bwd_dkdv", [ctypes.c_void_p] * 8 + _TAIL))
 FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", _signatures(
-    "bci_flash_bwd_dq_bf16",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]))
+    "bci_flash_bwd_dq", [ctypes.c_void_p] * 7 + _TAIL))
 # what a TMA tensor map takes as its global base address
 TMA_ALIGN_BYTES = 16
 
@@ -159,34 +203,30 @@ def flash_bwd_dq_plain(
 
 
 def _check_kernel_args(kernel: str, **tensors) -> None:
-    """What every kernel takes: tensors on q's CUDA device, contiguous;
-    bf16 except the f32 statistics; a head dim of ``KERNEL_HEAD_DIMS``;
-    L >= 1."""
+    """What every kernel takes: tensors on q's CUDA device, contiguous; q's
+    dtype (bf16 or f32) except the f32 statistics; L >= 1. The head dim
+    and dtype are ``kernel_route``'s to judge."""
     q = tensors["q"]
     if not q.is_cuda:
         raise ValueError(f"the {kernel} kernel takes CUDA tensors, got {q.device}")
+    kernel_route(q.dtype, q.shape[3])
     for name, t in tensors.items():
-        want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
+        want = torch.float32 if name in ("lse", "delta") else q.dtype
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != want:
             raise ValueError(f"the {kernel} kernel takes {want} {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the {kernel} kernel needs contiguous {name}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"the {kernel} kernel takes head dims {KERNEL_HEAD_DIMS}, got "
-            f"{q.shape[3]}"
-        )
     if q.shape[2] < 1 or tensors["k"].shape[2] < 1:
         raise ValueError(f"the {kernel} kernel needs L >= 1 and Lk >= 1")
 
 
 def check_tma_operand(kernel: str, name: str, t: torch.Tensor) -> None:
     """What a TMA tensor map over ``t`` demands: a dense row-major tensor
-    (the map's strides are its shape's) starting on a 16-byte boundary. K1,
-    K3 and K4 read and write their bf16 tiles through such maps; anything
-    else raises, there is no fallback."""
+    (the map's strides are its shape's) starting on a 16-byte boundary. The
+    tensor-core instances of K1, K3 and K4 read and write their bf16 tiles
+    through such maps; anything else raises, there is no fallback."""
     if not t.is_contiguous():
         raise ValueError(f"the {kernel} kernel needs contiguous {name} (TMA)")
     if t.data_ptr() % TMA_ALIGN_BYTES:
@@ -196,21 +236,40 @@ def check_tma_operand(kernel: str, name: str, t: torch.Tensor) -> None:
         )
 
 
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended up to head dim ``width``: a new
+    dense tensor (what the tensor-core instances take at a head dim they
+    have no instance of), or ``t`` itself at that width."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _flash_fwd_cuda(q, k, v, causal, sm_scale, window):
     _check_kernel_args("flash", q=q, k=k, v=v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_tma_operand("flash", name, t)
-    B, H, L, _ = q.shape
+    B, H, L, D = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
+    sm_scale = D ** -0.5 if sm_scale is None else sm_scale
+    route, width = kernel_route(q.dtype, D)
+    cols = pad_width(q.dtype, D)
+    q, k, v = (pad_head_dim(t, cols) for t in (q, k, v))
+    if route == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_operand("flash", name, t)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    entry = ("bci_flash_fwd_simt" if route == "simt"
+             else _entry("bci_flash_fwd_bf16", width))
     FLASH_FWD.launch(
-        _entry("bci_flash_fwd_bf16", q.shape[3]),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, KVH, L, Lk, int(causal), window or 0,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, H, KVH, L, Lk, int(causal), window or 0, cols,
+        float(sm_scale), _stream(q),
     )
-    return out, lse
+    return (out if cols == D else out[..., :D].contiguous()), lse
 
 
 def _check_bwd_args(kernel, q, k, v, do, lse, delta, causal, sm_scale,
@@ -229,48 +288,61 @@ def _check_bwd_args(kernel, q, k, v, do, lse, delta, causal, sm_scale,
     return q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
 
 
+def _bwd_width(kernel: str, q, k, v, do, lse, delta, causal, sm_scale,
+               window):
+    """Check the backward operands; return them at the width the kernels
+    take (``pad_width``) and the scale of the true head dim."""
+    sm_scale = _check_bwd_args(kernel, q, k, v, do, lse, delta, causal,
+                               sm_scale, window)
+    cols = pad_width(q.dtype, q.shape[-1])
+    return [pad_head_dim(t, cols) for t in (q, k, v, do)], sm_scale
+
+
+def _bwd_launch(kernel: CudaKernel, base: str, q, k, v, do, lse, delta,
+                causal, sm_scale, window, outputs) -> None:
+    """Launch ``base``'s entry point for the dtype and width of checked
+    operands (``_bwd_width``'s), writing ``outputs``."""
+    B, H, L, cols = q.shape
+    route, width = kernel_route(q.dtype, cols)
+    if route == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+            check_tma_operand(kernel.name, name, t)
+    entry = (f"{base}_simt" if route == "simt"
+             else _entry(f"{base}_bf16", width))
+    kernel.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  *(t.data_ptr() for t in outputs), B, H, k.shape[1], L,
+                  k.shape[2], int(causal), window or 0, cols, float(sm_scale),
+                  _stream(q))
+
+
 def flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True,
                         sm_scale: float | None = None,
                         window: int | None = None):
-    """``(dK, dV)`` by the dK/dV kernel (K3), bf16, compact
+    """``(dK, dV)`` by the dK/dV kernel (K3) in k/v's dtype, compact
     ``[B, KVH, Lk, D]``."""
-    sm_scale = _check_bwd_args("flash_bwd_dkdv", q, k, v, do, lse, delta, causal,
-                               sm_scale, window)
-    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
-        check_tma_operand("flash_bwd_dkdv", name, t)
-    B, H, L, _ = q.shape
-    KVH, Lk = k.shape[1], k.shape[2]
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    FLASH_BWD_DKDV.launch(
-        _entry("bci_flash_bwd_dkdv_bf16", q.shape[3]),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, KVH, L, Lk, int(causal), window or 0, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    D = q.shape[-1]
+    (q, k, v, do), sm_scale = _bwd_width("flash_bwd_dkdv", q, k, v, do, lse,
+                                         delta, causal, sm_scale, window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch(FLASH_BWD_DKDV, "bci_flash_bwd_dkdv", q, k, v, do, lse, delta,
+                causal, sm_scale, window, (dk, dv))
+    if k.shape[-1] != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
                       sm_scale: float | None = None,
                       window: int | None = None):
-    """``dQ`` by the dQ kernel (K4), bf16, ``[B, H, L, D]``."""
-    sm_scale = _check_bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, causal,
-                               sm_scale, window)
-    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
-        check_tma_operand("flash_bwd_dq", name, t)
-    B, H, L, _ = q.shape
-    KVH, Lk = k.shape[1], k.shape[2]
+    """``dQ`` by the dQ kernel (K4) in q's dtype, ``[B, H, L, D]``."""
+    D = q.shape[-1]
+    (q, k, v, do), sm_scale = _bwd_width("flash_bwd_dq", q, k, v, do, lse,
+                                         delta, causal, sm_scale, window)
     dq = torch.empty_like(q)
-    FLASH_BWD_DQ.launch(
-        _entry("bci_flash_bwd_dq_bf16", q.shape[3]),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, H, KVH, L, Lk, int(causal), window or 0, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    return dq
+    _bwd_launch(FLASH_BWD_DQ, "bci_flash_bwd_dq", q, k, v, do, lse, delta,
+                causal, sm_scale, window, (dq,))
+    return dq if q.shape[-1] == D else dq[..., :D].contiguous()
 
 
 def _on_cuda(*tensors) -> bool:
@@ -307,8 +379,16 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     hops, which pass the merged lse)."""
     args = (q, k, v, do, lse, delta, causal, sm_scale, window)
     if _on_cuda(q, k, v, do):
+        D = q.shape[-1]
+        # pad (where the width asks for it) once for both kernels
+        (q, k, v, do), sm_scale = _bwd_width("flash_bwd", q, k, v, do, lse,
+                                             delta, causal, sm_scale, window)
+        args = (q, k, v, do, lse, delta, causal, sm_scale, window)
         dk, dv = flash_bwd_dkdv_cuda(*args)
-        return flash_bwd_dq_cuda(*args), dk, dv
+        dq = flash_bwd_dq_cuda(*args)
+        if q.shape[-1] != D:
+            dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
+        return dq, dk, dv
     dk, dv = flash_bwd_dkdv_plain(*args)
     return flash_bwd_dq_plain(*args), dk, dv
 

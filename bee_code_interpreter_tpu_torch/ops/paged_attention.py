@@ -7,8 +7,11 @@ against one layer's pools ``[n_pages, kvh, ps, dh]`` through the block table
 ``[B, P]``, with ``lengths [B]`` visible slots per row (pos + 1). GQA-native:
 query head h reads KV head ``h // (nh // kvh)``.
 
-CUDA tensors go to the kernel (``csrc/paged_decode.cu``: bf16 or f32 pools
-on a 16-byte boundary, dh 128, at most 8 query heads per KV head; anything
+CUDA tensors go to the kernel (``csrc/paged_decode.cu``, bf16 or f32 pools
+at every head dim 1..256 and any group size, ``kernel_entry``: at dh 128 with
+at most 8 query heads per KV head the bulk-copy / tensor-core kernels, whose
+pools must lie on a 16-byte boundary; every other shape the kernel that takes
+the group's heads in blocks of 8 and reads pages with plain loads; anything
 else raises); CPU tensors to ``paged_decode_attention_plain``, the
 gather-and-grouped-einsum math of the JAX package's oracle
 (tests/test_paged_attention.py:29).
@@ -31,16 +34,23 @@ from bee_code_interpreter_tpu_torch.ops.cuda_build import CudaKernel
 
 # q, k_pages, v_pages, block_table, lengths, out, then the split scratch
 # (m, l, acc); B, nh, kvh, n_pages, ps, P, pages_per_split; sm_scale; dtype;
-# stream
+# stream; ``bci_paged_decode_any`` takes dh before sm_scale
 PAGED_DECODE = CudaKernel(
     "paged_decode",
     {
         "bci_paged_decode": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "bci_paged_decode_any": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     },
 )
+# the shapes of the bulk-copy and tensor-core kernels
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_REP = 8
+# the widest head dim the kernel for every other shape takes (a lane holds
+# at most 8 columns), and the query heads one of its blocks takes
+MAX_HEAD_DIM = 256
+ANY_HEADS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # what the kernel's bulk copies and TMA maps take as a pool's base address
 BULK_ALIGN_BYTES = 16
@@ -64,9 +74,33 @@ def split_pages(B: int, kvh: int, P: int, ps: int, sms: int) -> int:
     return -(-P // min(want, most))
 
 
+def entry_split(entry: str, B: int, nh: int, kvh: int, P: int, ps: int,
+                sms: int) -> int:
+    """``split_pages`` for C entry point ``entry``'s grid: a block per KV
+    head for ``bci_paged_decode``, per head block of ``ANY_HEADS`` of each
+    KV head for ``bci_paged_decode_any``."""
+    blocks = kvh if entry == "bci_paged_decode" else kvh * -(
+        -(nh // kvh) // ANY_HEADS)
+    return split_pages(B, blocks, P, ps, sms)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_entry(head_dim: int, rep: int) -> str:
+    """The C entry point that takes ``head_dim`` with ``rep`` query heads
+    per KV head: ``bci_paged_decode`` (the bulk-copy and tensor-core kernels)
+    at ``KERNEL_HEAD_DIM`` with at most ``KERNEL_MAX_REP``, else
+    ``bci_paged_decode_any``; ValueError above ``MAX_HEAD_DIM``."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the paged decode kernel takes head dims 1..{MAX_HEAD_DIM}, got "
+            f"{head_dim}")
+    if head_dim == KERNEL_HEAD_DIM and rep <= KERNEL_MAX_REP:
+        return "bci_paged_decode"
+    return "bci_paged_decode_any"
 
 
 def _check_args(q, k_pages, v_pages, block_table, lengths) -> None:
@@ -210,20 +244,15 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_table, lengths, sm_scale):
     B, nh, dh = q.shape
     n_pages, kvh, ps, _ = k_pages.shape
     P = block_table.shape[1]
-    if dh != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the paged decode kernel takes head dim {KERNEL_HEAD_DIM}, "
-            f"got {dh}"
-        )
     rep = nh // kvh
-    if rep > KERNEL_MAX_REP:
-        raise ValueError(
-            f"the paged decode kernel takes at most {KERNEL_MAX_REP} query "
-            f"heads per kv head, got {rep}"
-        )
-    check_pool_alignment("k_pages", k_pages)
-    check_pool_alignment("v_pages", v_pages)
-    pages_per_split = split_pages(B, kvh, P, ps, _sm_count(q.device))
+    entry = kernel_entry(dh, rep)
+    args = ()
+    if entry == "bci_paged_decode":
+        check_pool_alignment("k_pages", k_pages)
+        check_pool_alignment("v_pages", v_pages)
+    else:
+        args = (dh,)
+    pages_per_split = entry_split(entry, B, nh, kvh, P, ps, _sm_count(q.device))
     n_split = -(-P // pages_per_split)
     out = torch.empty_like(q)
     # f32 partials of each split in one scratch tensor: acc [B, kvh, n_split,
@@ -233,11 +262,11 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_table, lengths, sm_scale):
     scratch = torch.empty(n_part * (dh + 2), dtype=torch.float32, device=q.device)
     acc_part, m_part, l_part = scratch.split([n_part * dh, n_part, n_part])
     PAGED_DECODE.launch(
-        "bci_paged_decode",
+        entry,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        B, nh, kvh, n_pages, ps, P, pages_per_split, float(sm_scale),
+        B, nh, kvh, n_pages, ps, P, pages_per_split, *args, float(sm_scale),
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out

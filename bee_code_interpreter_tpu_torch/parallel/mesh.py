@@ -452,11 +452,63 @@ def serving_groups(mesh) -> MeshGroups:
 # ------------------------------------------------------------- shardings
 
 
+class ColumnSpec(tuple):
+    """A spec (axis names, one per dim) whose last dim each rank of
+    ``axis`` holds as columns of the whole tensor picked by index, not as
+    an even block: ``columns[r]`` are the ``whole`` tensor's columns rank r
+    holds, in its order, and a column may lie on several ranks (copies) or
+    twice on one. The other dims shard as a plain spec's. It is what
+    ``wk``/``wv`` take where tp does not divide ``kv_heads``: a rank's K/V
+    heads of the ``lcm(kv_heads, tp)`` broadcast
+    (``models/transformer.py::kv_columns``). ``reduce_gradients`` sums each
+    column's gradient over its copies."""
+
+    def __new__(cls, names, axis: str, whole: int, columns):
+        spec = super().__new__(cls, names)
+        spec.axis, spec.whole = axis, whole
+        spec.columns = tuple(columns)
+        return spec
+
+    def __reduce__(self):
+        return ColumnSpec, (tuple(self), self.axis, self.whole, self.columns)
+
+    def renamed(self, names) -> "ColumnSpec":
+        """The same columns under other names (a factor's or a scale's
+        spec, whose last dim follows the weight's)."""
+        return ColumnSpec(names, self.axis, self.whole, self.columns)
+
+    def cols(self, mesh) -> torch.Tensor:
+        """The whole tensor's columns this rank holds."""
+        return self.columns[axis_index(mesh, self.axis)]
+
+    def even_block(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """This rank's even block of the last dim (a plain spec's shard)
+        out of ``x``, the rank's columns: what a checkpoint saves. Each
+        block lies within the rank's columns (its broadcast heads cover the
+        same span of the whole as the block)."""
+        n, r = axis_size(mesh, self.axis), axis_index(mesh, self.axis)
+        if self.whole % n:
+            raise ValueError(
+                f"{self.whole} columns do not divide over {self.axis}={n}")
+        want = range(r * self.whole // n, (r + 1) * self.whole // n)
+        held = self.cols(mesh).tolist()
+        missing = [c for c in want if c not in held]
+        if missing:
+            raise ValueError(f"rank {r} of {self.axis} holds no column "
+                             f"{missing[0]} of its even block")
+        pos = torch.tensor([held.index(c) for c in want])
+        return x.index_select(-1, pos.to(x.device))
+
+
 def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     """The shape of one rank's shard of a tensor of ``shape`` under
     ``spec`` (a tuple of axis names or None, one per dim; shorter specs
     leave the trailing dims whole): a Megatron split over ``tp``, experts
-    over ``ep``, a sequence over ``sp``."""
+    over ``ep``, a sequence over ``sp``; a ``ColumnSpec``'s last dim is the
+    rank's columns."""
+    if isinstance(spec, ColumnSpec):
+        return (*local_shape(shape[:-1], spec[:-1], mesh),
+                len(spec.cols(mesh)))
     out = list(shape)
     for dim, axis in enumerate(spec):
         n = axis_size(mesh, axis) if axis is not None else 1
@@ -475,14 +527,18 @@ def shard_tensor(x: torch.Tensor, spec, mesh, device) -> torch.Tensor:
     lives there): along each dim named by an axis of size > 1, the
     contiguous block at the rank's coordinate on that axis, as JAX's
     ``NamedSharding`` lays it out (a sequence split over ``sp`` gives rank
-    r the positions ``[r L/sp, (r+1) L/sp)``)."""
+    r the positions ``[r L/sp, (r+1) L/sp)``); under a ``ColumnSpec``
+    the last dim's columns are the rank's."""
     shape = local_shape(x.shape, spec, mesh)
     out = x
-    for dim, axis in enumerate(spec):
+    whole_dims = len(spec) - isinstance(spec, ColumnSpec)
+    for dim, axis in enumerate(spec[:whole_dims]):
         if axis is None or axis_size(mesh, axis) == 1:
             continue
         n = shape[dim]
         out = out.narrow(dim, axis_index(mesh, axis) * n, n)
+    if isinstance(spec, ColumnSpec):
+        out = out.index_select(-1, spec.cols(mesh).to(out.device))
     return out.detach().to(device, copy=True).contiguous()
 
 
@@ -710,9 +766,15 @@ def reduce_gradients(pairs, groups: MeshGroups) -> None:
     ``spec`` shards the leaf over it (``gather_shards``' backward summed
     those). Not over ``pp``: a stage's layers live on it alone, and every
     stage computes the replicated embedding's and head's whole gradient
-    from the same loss. In f32, rounded once, in place; every rank then
+    from the same loss. A ``ColumnSpec`` leaf's columns are first summed
+    over their copies on the ranks of its axis (each copy's gradient is a
+    share of the column's). In f32, rounded once, in place; every rank then
     holds the same bits."""
     for leaf, spec in pairs:
+        group = (getattr(groups, spec.axis) if isinstance(spec, ColumnSpec)
+                 else None)
+        if group is not None and leaf.grad is not None:
+            leaf.grad.copy_(_sum_column_copies(leaf.grad, spec, group))
         gs = [g for g in (groups.dp, groups.sp,
                           None if "fsdp" in spec else groups.fsdp)
               if g is not None]
@@ -720,6 +782,19 @@ def reduce_gradients(pairs, groups: MeshGroups) -> None:
             total = _sum_f32(leaf.grad, gs, copy=False)
             if total is not leaf.grad:
                 leaf.grad.copy_(total)
+
+
+def _sum_column_copies(grad: torch.Tensor, spec: ColumnSpec,
+                       group) -> torch.Tensor:
+    """Every column of ``grad`` (the rank's columns of ``spec``) replaced by
+    the sum of its copies' gradients over ``group``, in f32: each rank adds
+    its columns into the whole width, the ranks' wholes are summed, and
+    each takes its columns back."""
+    cols = spec.columns[group_rank(group)].to(grad.device)
+    whole = grad.new_zeros((*grad.shape[:-1], spec.whole), dtype=torch.float32)
+    whole.index_add_(-1, cols, grad.float())
+    dist.all_reduce(whole, group=group)
+    return whole.index_select(-1, cols).to(grad.dtype)
 
 
 # the one-tensor all-gather into a rank-major concatenation along dim 0;

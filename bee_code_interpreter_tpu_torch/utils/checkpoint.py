@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from bee_code_interpreter_tpu_torch.parallel.mesh import (
+    ColumnSpec,
     axis_index,
     axis_sizes,
     shard_tensor,
@@ -146,9 +147,13 @@ def abstract_like(state: Any, mesh=None, specs: Any = None) -> Any:
         if not isinstance(x, torch.Tensor):
             return x
         sharded = mesh is not None and _is_spec(spec)
+        if sharded and isinstance(spec, ColumnSpec):
+            shape = (*_whole_shape(x.shape[:-1], spec[:-1], axis_sizes(mesh)),
+                     spec.whole)
+        elif sharded:
+            shape = _whole_shape(x.shape, spec, axis_sizes(mesh))
         return Abstract(
-            shape=(_whole_shape(x.shape, spec, axis_sizes(mesh)) if sharded
-                   else tuple(x.shape)),
+            shape=shape if sharded else tuple(x.shape),
             dtype=x.dtype, requires_grad=x.requires_grad,
             spec=spec if sharded else None, mesh=mesh)
 
@@ -187,8 +192,12 @@ class TrainCheckpointer:
         folder = self.directory / str(step)
         folder.mkdir(exist_ok=True)
         coords = {a: axis_index(mesh, a) for a in axis_sizes(mesh)}
-        flat_specs = _map(lambda x, spec: spec if _is_spec(spec) else None,
-                          state, specs)
+        # a ColumnSpec leaf is saved as its plain spec's even block
+        state = _map(lambda x, spec: spec.even_block(x.detach(), mesh)
+                     if isinstance(spec, ColumnSpec)
+                     and isinstance(x, torch.Tensor) else x, state, specs)
+        flat_specs = _map(lambda x, spec: tuple(spec) if _is_spec(spec)
+                          else None, state, specs)
         devices = _map(lambda x, _: str(x.device)
                        if isinstance(x, torch.Tensor) else None, state)
         rank = dist.get_rank()
@@ -402,9 +411,16 @@ def _restore_sharded(folder: Path, template: Any) -> Any:
                         f"match its template {abstract.shape} "
                         f"{abstract.dtype}")
                 sizes = axis_sizes(mesh)
-                out = assemble(found, spec, _block_range(
-                    whole, abstract.spec, sizes,
-                    {a: axis_index(mesh, a) for a in sizes}))
+                coords = {a: axis_index(mesh, a) for a in sizes}
+                if isinstance(abstract.spec, ColumnSpec):
+                    # the whole last dim, then the rank's columns of it
+                    out = assemble(found, spec, _block_range(
+                        whole[:-1], abstract.spec[:-1], sizes, coords)
+                        + [range(whole[-1])])
+                    out = out.index_select(-1, abstract.spec.cols(mesh))
+                else:
+                    out = assemble(found, spec, _block_range(
+                        whole, abstract.spec, sizes, coords))
                 out = out.to(mesh.device_type)
             else:
                 out = assemble(found, spec, [range(m) for m in whole])

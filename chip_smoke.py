@@ -166,7 +166,25 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    H=KVH=12, L=196, non-causal), a ragged causal case (1, 1000) and a GQA
    case (300 x 700, non-causal), each held as above, timed beside its
    bound, its plain version and SDPA, with every instance's registers and
-   spills from ptxas.
+   spills from ptxas. Then the head dims and dtypes JAX's kernels take
+   beyond those: ``flash_head_dims`` (K1, K3, K4 in bf16 at D = 16, 32,
+   72, 80, 96 (read in place by the D = 64 / 128 instances), 20 (zero-padded
+   to 64, the pad's time reported), 200 and 256 (the mma.sync instance,
+   Gemma-2B's 8 heads over 1 KV head), and in f32 at D = 16, 64, 128 (the
+   CUDA-core kernels); a causal L = 1024 case and a ragged non-causal one each; bf16
+   within KERNEL_TOL / K1_ROW_TOL / BWD_TOL, f32 within F32_KERNEL_TOL of
+   the largest output), ``paged_head_dims`` (K2 at dh 16, 80, 256 with 1,
+   8, 16, 48 query heads per KV head, bf16 and f32), ``tiny_card``
+   (``TransformerConfig.tiny()``, head dim 16, served through
+   ContinuousBatcher -> Engine and one train step, in f32 and in bf16 on
+   the same host-drawn weights: the f32 greedy tokens equal the CPU's, the
+   f32 loss within F32_KERNEL_TOL of the CPU's, every kernel launched once
+   per layer) and ``wide_head`` (Gemma-2B's published widths, GEMMA_2B,
+   18 layers, 3.03 B parameters in bf16: main_path's 12 requests, tokens/s,
+   TTFT and decode-step p50 against the 1.81 ms weight bound, first-token
+   logits within PATH_LOGIT_TOL of a forward through K1's plain version;
+   then one train step of its first BREADTH_CUT_LAYERS layers, K1/K3/K4 once
+   per layer).
 10. training reference: one training step of the decoder cut to 2 layers at
    Llama-3-8B widths (B=1, L=128, f32 masters), bf16 compute with K1/K3/K4
    on the card against the f32 plain path on the CPU: loss and every leaf's
@@ -186,8 +204,12 @@ Phases, each printed as one JSON line, any failure exits non-zero:
    with tp=2's roundings: each row-parallel product as two bf16 partials
    added in f32, each column-parallel one as two column blocks), ``train_tp``
    (train_path at tp=2: 8 layers, the same seed-10 masters and batch, 4
-   steps) and ``train_mesh`` (one step each at dp=2 and fsdp=2, Llama-3-8B
-   widths cut to 2 layers, and ep=2, Mixtral widths cut to 2 layers). In
+   steps), ``train_mesh`` (one step each at dp=2 and fsdp=2, Llama-3-8B
+   widths cut to 2 layers, and ep=2, Mixtral widths cut to 2 layers) and
+   ``train_tp_kv`` (Gemma-2B's widths cut to 2 layers at tp=2 over its one
+   KV head, each rank a copy: 4 steps, each loss within TRAIN_TP_KV_LOSS_TOL
+   of one card's 4 steps, as is its own rounding control's,
+   ``train_tp_kv_rounding_control``, run before the spawn). In
    each, the ranks first take turns computing one card's loss and gradient
    on the whole batch from the same masters; the mesh run's first loss is
    held within TRAIN_LOSS_TOL of it and each leaf's first gradient (after
@@ -385,6 +407,8 @@ pipeline_mod = importlib.import_module(
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# float32 outside the tensor cores: the f32 kernels' rate
+F32_FLOPS_PER_S = 67e12
 # ~0.2 ms of device time ahead of each timed call: more than the host takes to
 # enqueue a kernel wrapper (tens of microseconds)
 SLEEP_CYCLES = 400_000
@@ -411,6 +435,10 @@ BWD_TOL = 1e-2
 # P to bf16 for the tensor cores; f32 pools keep every step in f32. An
 # earlier H100 run read 4.1e-3 (bf16) and 1.4e-6 (f32) as absolute errors.
 K2_ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# the f32 kernels (K1/K3/K4 on the CUDA cores, K2 at f32 pools) against
+# their f32 plain versions: max |error| over max |output| (the same math in
+# another order of f32 sums)
+F32_KERNEL_TOL = 1e-4
 # bf16 decoder on the card vs the f32 plain path on the CPU, 2 layers at
 # 8B widths: max |logit error| over max |logit|
 REFERENCE_TOL = 5e-2
@@ -679,8 +707,9 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+def bound(flops: float, nbytes: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    t_ops = flops / flops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -702,18 +731,45 @@ K1_CASES = [
 ]
 
 
+def flops_rate(dtype) -> float:
+    """The card's peak for ``dtype`` products: the tensor cores' bf16 rate,
+    the CUDA cores' f32 one."""
+    return F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+
+
+def sdpa_ms(timer, fn) -> float | None:
+    """SDPA's time where it takes the shape (None where it raises): the
+    yardstick only, never the port's path."""
+    try:
+        fn()
+    except RuntimeError:
+        return None
+    return timer(fn, 20)
+
+
+def pad_ms(timer, tensors, D: int, dtype) -> float | None:
+    """The wrapper's zero-pad copy of ``tensors`` to the tensor-core
+    instance's width, where the route pads (None where it does not)."""
+    cols = fa.pad_width(dtype, D)
+    if cols == D:
+        return None
+    return timer(lambda: [fa.pad_head_dim(t, cols) for t in tensors], 20)
+
+
 def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES,
-                D: int = 128) -> list[dict]:
-    """K1 on ``cases`` at ``heads`` = (H, KVH) and head dim ``D``: against
-    its plain version, timed, with SDPA as the library call and the card's
-    bound."""
+                D: int = 128, dtype=torch.bfloat16) -> list[dict]:
+    """K1 on ``cases`` at ``heads`` = (H, KVH), head dim ``D`` and
+    ``dtype``: against its plain version (bf16: KERNEL_TOL and K1_ROW_TOL;
+    f32: F32_KERNEL_TOL of the largest output), timed, with SDPA as the
+    library call, the card's bound and, where the route pads, the pad's
+    time."""
     H, KVH = heads
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     for B, L, Lk, causal, window in cases:
-        q = torch.randn(B, H, L, D, generator=gen, device=dev, dtype=torch.bfloat16)
-        k = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=torch.bfloat16)
-        v = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        q = torch.randn(B, H, L, D, generator=gen, device=dev, dtype=dtype)
+        k = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=dtype)
+        v = torch.randn(B, KVH, Lk, D, generator=gen, device=dev, dtype=dtype)
         out, lse = fa.flash_attention_with_lse(q, k, v, causal, window=window)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_fwd_plain(
@@ -722,10 +778,15 @@ def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES,
         lse_err = (lse - ref_lse).abs().max().item()
         err = max((out.float() - ref_out).abs().max().item(), lse_err)
         row_err = row_rel_err(out, ref_out)
-        case = f"B={B} Lq={L} Lk={Lk} causal={causal} window={window}"
-        check(err <= KERNEL_TOL, f"flash_fwd {case}: max abs err {err}")
-        check(row_err <= K1_ROW_TOL,
-              f"flash_fwd {case}: out row err {row_err} over {K1_ROW_TOL}")
+        case = (f"D={D} {dtype} B={B} Lq={L} Lk={Lk} causal={causal} "
+                f"window={window}")
+        if dtype == torch.float32:
+            rel = err / max(ref_out.abs().max().item(), ref_lse.abs().max().item())
+            check(rel <= F32_KERNEL_TOL, f"flash_fwd {case}: rel err {rel}")
+        else:
+            check(err <= KERNEL_TOL, f"flash_fwd {case}: max abs err {err}")
+            check(row_err <= K1_ROW_TOL,
+                  f"flash_fwd {case}: out row err {row_err} over {K1_ROW_TOL}")
         ms = timer(lambda: fa.flash_attention_with_lse(q, k, v, causal, window=window), 20)
         plain_ms = timer(lambda: fa.flash_attention_fwd_plain(
             q.float(), k.float(), v.float(), causal, window=window), 3, warmup=1)
@@ -737,15 +798,19 @@ def check_flash(timer, dev, heads=(32, 8), cases=K1_CASES,
             mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
-        library_ms = timer(lib, 20)
+        library_ms = sdpa_ms(timer, lib)
         flops = 4.0 * B * H * visible_pairs(L, Lk, causal, window) * D
-        nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * lse.numel()
-        b_ms, b_by = bound(flops, nbytes)
+        nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel())
+                  + 4.0 * lse.numel())
+        b_ms, b_by = bound(flops, nbytes, flops_rate(dtype))
         rows.append({
             "B": B, "H": H, "KVH": KVH, "D": D, "L": L, "Lk": Lk, "causal": causal,
-            "window": window, "max_abs_err": err, "out_row_rel_err": row_err,
+            "window": window, "dtype": str(dtype).removeprefix("torch."),
+            "route": fa.kernel_route(dtype, D)[0],
+            "max_abs_err": err, "out_row_rel_err": row_err,
             "lse_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "pad_ms": pad_ms(timer, (q, k, v), D, dtype),
             "tflops": flops / ms / 1e9,
         })
         del q, k, v, out, lse, ref_out, ref_lse
@@ -777,17 +842,18 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES,
-                    D: int = 128) -> list[dict]:
+                    D: int = 128, dtype=torch.bfloat16) -> list[dict]:
     """K3 and K4 on K1's own out/lse and a random dO, against their plain
-    versions in f32 and against SDPA's backward, at ``heads`` (H, KVH) and
-    head dim ``D``."""
+    versions in f32 (bf16: BWD_TOL, f32: F32_KERNEL_TOL of the largest
+    gradient) and against SDPA's backward, at ``heads`` (H, KVH), head dim
+    ``D`` and ``dtype``."""
     H, KVH = heads
     gen = torch.Generator(device=dev).manual_seed(7)
+    tol = F32_KERNEL_TOL if dtype == torch.float32 else BWD_TOL
     rows = []
     for B, Lq, Lk, causal, window, with_g_lse in cases:
         def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev,
-                               dtype=torch.bfloat16)
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
         q, k, v = randn(B, H, Lq, D), randn(B, KVH, Lk, D), randn(B, KVH, Lk, D)
         do = randn(B, H, Lq, D)
@@ -801,7 +867,8 @@ def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES,
         dk2, dv2 = fa.flash_bwd_dkdv_cuda(*args)
         dq2 = fa.flash_bwd_dq_cuda(*args)
         torch.cuda.synchronize()
-        case = f"B={B} Lq={Lq} Lk={Lk} causal={causal} window={window}"
+        case = (f"D={D} {dtype} B={B} Lq={Lq} Lk={Lk} causal={causal} "
+                f"window={window}")
         # a fixed order of summation, no atomics: two calls give the same bits
         check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"flash_bwd dk/dv {case}: two calls differ")
@@ -814,7 +881,7 @@ def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES,
                 (("dk", dk, want_dk), ("dv", dv, want_dv), ("dq", dq, want_dq))}
         del want_dk, want_dv, want_dq, f32
         for name, (_, rel) in errs.items():
-            check(rel <= BWD_TOL, f"flash_bwd {name} {case}: rel err {rel}")
+            check(rel <= tol, f"flash_bwd {name} {case}: rel err {rel}")
 
         dkdv_ms = timer(lambda: fa.flash_bwd_dkdv_cuda(*args), 10)
         dq_ms = timer(lambda: fa.flash_bwd_dq_cuda(*args), 10)
@@ -829,17 +896,21 @@ def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES,
             mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
             ref = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
                                                  enable_gqa=True)
-        library_ms = timer(lambda: torch.autograd.grad(
-            ref, (qr, kr, vr), do, retain_graph=True), 10)
+        library_ms = sdpa_ms(timer, lambda: torch.autograd.grad(
+            ref, (qr, kr, vr), do, retain_graph=True))
         del ref, qr, kr, vr
 
         pairs = visible_pairs(Lq, Lk, causal, window)
-        io = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * 2 * lse.numel()
-        dkdv_bound = bound(8.0 * B * H * pairs * D, io + 2.0 * 2 * k.numel())
-        dq_bound = bound(6.0 * B * H * pairs * D, io + 2.0 * q.numel())
+        es = q.element_size()
+        io = es * (2 * q.numel() + 2 * k.numel()) + 4.0 * 2 * lse.numel()
+        rate = flops_rate(dtype)
+        dkdv_bound = bound(8.0 * B * H * pairs * D, io + es * 2 * k.numel(), rate)
+        dq_bound = bound(6.0 * B * H * pairs * D, io + es * q.numel(), rate)
         rows.append({
             "B": B, "H": H, "KVH": KVH, "D": D, "Lq": Lq, "Lk": Lk, "causal": causal,
-            "window": window,
+            "window": window, "dtype": str(dtype).removeprefix("torch."),
+            "route": fa.kernel_route(dtype, D)[0],
+            "pad_ms": pad_ms(timer, (q, k, v, do), D, dtype),
             "g_lse": with_g_lse, "pairs": pairs, "dkdv_deterministic": True,
             "dq_deterministic": True,
             "dkdv": {"max_abs_err": max(errs["dk"][0], errs["dv"][0]),
@@ -854,7 +925,8 @@ def check_flash_bwd(timer, dev, heads=(32, 8), cases=BWD_CASES,
             # SDPA's backward computes dQ, dK and dV together: the yardstick
             # for K3 + K4
             "library_ms": library_ms,
-            "tflops_library": 14.0 * B * H * pairs * D / library_ms / 1e9,
+            "tflops_library": (None if library_ms is None
+                               else 14.0 * B * H * pairs * D / library_ms / 1e9),
         })
         del q, k, v, do, out, lse, delta, dk, dv, dq, args
     return rows
@@ -887,11 +959,12 @@ K2_TP_CASES = {name: K2_CASES[name] for name in (K2_MAIN_CASE, "serving_b8")}
 
 
 def check_paged_decode(timer, dev, heads=(32, 8),
-                       cases=K2_CASES) -> list[dict]:
-    """K2 on every case at ``heads`` = (nh, kvh) against its plain version
-    (f32 math on the same inputs), two calls' bits, its time, the plain
-    version's, the byte bound and the split the wrapper chose."""
-    (nh, kvh), dh, ps = heads, 128, 16
+                       cases=K2_CASES, dh: int = 128) -> list[dict]:
+    """K2 on every case at ``heads`` = (nh, kvh) and head dim ``dh`` against
+    its plain version (f32 math on the same inputs), two calls' bits, its
+    time, the plain version's, the byte bound and the split the wrapper
+    chose."""
+    (nh, kvh), ps = heads, 16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, (lengths, dtype, P) in cases.items():
@@ -926,10 +999,12 @@ def check_paged_decode(timer, dev, heads=(32, 8),
         nbytes = (2.0 * kvh * visible * dh * kp.element_size()
                   + 2 * q.numel() * q.element_size() + 4 * (bt.numel() + lens.numel()))
         flops = 4.0 * nh * visible * dh
-        b_ms, b_by = bound(flops, nbytes)
-        pps = pa.split_pages(B, kvh, P, ps, sms)
+        b_ms, b_by = bound(flops, nbytes, flops_rate(dt))
+        entry = pa.kernel_entry(dh, nh // kvh)
+        pps = pa.entry_split(entry, B, nh, kvh, P, ps, sms)
         rows.append({
-            "case": name, "B": B, "nh": nh, "kvh": kvh, "ps": ps, "P": P,
+            "case": name, "B": B, "nh": nh, "kvh": kvh, "dh": dh, "ps": ps,
+            "P": P, "entry": entry,
             "dtype": dtype, "lengths": lengths, "pages_per_split": pps,
             "splits": -(-P // pps), "max_abs_err": err, "max_row_rel_err": row_err,
             "row_tolerance": K2_ROW_TOL[dtype], "deterministic": True,
@@ -980,13 +1055,20 @@ def teacher_forced_logits(params, cfg, device, prompts, feed,
     return torch.stack(out, dim=1).float().cpu()
 
 
+def tree_to(tree, device, dtype, requires_grad: bool = False):
+    """A parameter tree (dicts, lists, tensors) copied to ``device`` and
+    ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype, requires_grad)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device, dtype, requires_grad) for v in tree]
+    return tree.detach().to(device, dtype).requires_grad_(requires_grad)
+
+
 def cpu_f32(tree, requires_grad: bool = False):
     """A parameter tree (dicts, lists, tensors) as f32 CPU tensors."""
-    if isinstance(tree, dict):
-        return {k: cpu_f32(v, requires_grad) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cpu_f32(v, requires_grad) for v in tree]
-    return tree.detach().float().cpu().requires_grad_(requires_grad)
+    return tree_to(tree, "cpu", torch.float32, requires_grad)
 
 
 def check_reference(params, cfg, dev) -> dict:
@@ -3697,8 +3779,9 @@ class CollectiveClock:
 
 
 def train_cfg(name: str, n_layers: int) -> TransformerConfig:
-    base = (TransformerConfig.llama3_8b() if name == "llama3_8b"
-            else TransformerConfig.mixtral_8x7b())
+    base = {"llama3_8b": TransformerConfig.llama3_8b,
+            "mixtral_8x7b": TransformerConfig.mixtral_8x7b,
+            "gemma_2b_widths": lambda: TransformerConfig(**GEMMA_2B)}[name]()
     return dataclasses.replace(base, n_layers=n_layers)
 
 
@@ -3882,6 +3965,69 @@ def train_pp_rank(rank: int, dev) -> dict:
     return run
 
 
+def mesh_train_run(rank: int, dev, key: str, axes: dict, model_name: str,
+                   n_layers: int, n_steps: int, seed: int) -> dict:
+    """One case of the two-rank training spawn: the ranks first take turns
+    computing one card's loss and gradient on the whole batch from the same
+    seed (keeping their blocks of it on the host; for ``train_tp_kv`` one
+    card's ``n_steps`` steps, each loss held later), then train under the
+    mesh on their shard of those masters and their rows of the batch; the
+    first step's gradients are held to the blocks."""
+    cfg = train_cfg(model_name, n_layers)
+    mesh = make_mesh(axes, device_type="cuda")
+    whole = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L, dev)
+    if key == "train_tp_kv":
+        ref = build_in_turns(rank, TP, lambda: single_card_steps(
+            cfg, seed, mesh, whole, dev, n_steps))
+        ref.update(loss=ref["losses"][0], ms=ref["step_ms"][0])
+    else:
+        ref = build_in_turns(rank, TP, lambda: single_card_reference(
+            cfg, seed, mesh, whole, dev))
+    model = transformer.Transformer(cfg, mesh)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    batch = model.batch_slice(whole)
+    run = train_steps(model, params, batch, n_steps,
+                      lambda p: grad_errors(p, cfg, mesh, ref["grad_blocks"]))
+    run["spread"] = replicated_spread(run.pop("params"), cfg, mesh)
+    run["rows"] = batch["tokens"].shape[0]
+    run["mesh"] = mesh_shape_key(mesh)
+    run["single_card"] = {"loss": ref["loss"], "fwd_bwd_ms": ref["ms"],
+                          "losses": ref.get("losses")}
+    return run
+
+
+def train_tp_kv_rounding_control(dev) -> dict:
+    """``train_tp_kv``'s masters, batch and steps on one card, with plain
+    products and with tp=2's roundings (``tp_split_qeinsum``): the drift
+    tp's rounding alone makes on this run's steep descent (a 256000-token
+    vocabulary memorizes one batch within four steps), the yardstick of
+    ``train_tp_kv``'s losses, as ``train_tp_rounding_control`` is
+    ``train_tp``'s."""
+    cfg = train_cfg("gemma_2b_widths", TRAIN_TP_KV_LAYERS)
+    batch = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L, dev)
+    losses = {}
+    for name, products in (("plain", PLAIN_QEINSUM),
+                           ("tp_roundings", tp_split_qeinsum)):
+        model = transformer.Transformer(cfg)
+        params = model.init(
+            torch.Generator(device=dev).manual_seed(TRAIN_TP_KV_SEED), dev)
+        transformer.qeinsum = products
+        try:
+            losses[name] = train_steps(model, params, batch,
+                                       TRAIN_TP_KV_STEPS)["losses"]
+        finally:
+            transformer.qeinsum = PLAIN_QEINSUM
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    drift = [abs(g - w) / abs(w)
+             for g, w in zip(losses["tp_roundings"], losses["plain"])]
+    return {"phase": "train_tp_kv_rounding_control",
+            "layers": TRAIN_TP_KV_LAYERS, "B": TRAIN_B, "L": TRAIN_L,
+            "tp_emulated": TP, "losses": losses["tp_roundings"],
+            "plain_losses": losses["plain"], "rel_err_vs_plain": drift}
+
+
 def train_mesh_rank(rank: int, directory: str) -> dict:
     """One rank of the two-rank training spawn: train_tp (train_path at
     tp=2), then each TRAIN_MESH_CASES step. For each, the ranks first take
@@ -3901,25 +4047,12 @@ def train_mesh_rank(rank: int, directory: str) -> dict:
               TRAIN_MESH_STEPS, 50 + i)
              for i, (name, (axes, model_name)) in
              enumerate(TRAIN_MESH_CASES.items())]
+    # tp=2 over one KV head: each rank trains a copy of it
+    runs.append(("train_tp_kv", {"tp": TP}, "gemma_2b_widths",
+                 TRAIN_TP_KV_LAYERS, TRAIN_TP_KV_STEPS, TRAIN_TP_KV_SEED))
     for key, axes, model_name, n_layers, n_steps, seed in runs:
-        cfg = train_cfg(model_name, n_layers)
-        mesh = make_mesh(axes, device_type="cuda")
-        whole = token_batch(np.random.default_rng(6), cfg, TRAIN_B, TRAIN_L,
-                            dev)
-        ref = build_in_turns(rank, TP, lambda: single_card_reference(
-            cfg, seed, mesh, whole, dev))
-        model = transformer.Transformer(cfg, mesh)
-        params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
-        batch = model.batch_slice(whole)
-        run = train_steps(model, params, batch, n_steps,
-                          lambda p: grad_errors(p, cfg, mesh,
-                                                ref["grad_blocks"]))
-        run["spread"] = replicated_spread(run.pop("params"), cfg, mesh)
-        run["rows"] = batch["tokens"].shape[0]
-        run["mesh"] = mesh_shape_key(mesh)
-        run["single_card"] = {"loss": ref["loss"], "fwd_bwd_ms": ref["ms"]}
-        out[key] = run
-        del params, model, batch, ref, whole
+        out[key] = mesh_train_run(rank, dev, key, axes, model_name, n_layers,
+                                  n_steps, seed)
         gc.collect()
         torch.cuda.empty_cache()
     # the sp backward and the pipeline (PR 12's phases), on the same ranks
@@ -3935,7 +4068,7 @@ def train_mesh_rank(rank: int, directory: str) -> dict:
     return out
 
 
-def train_mesh_phases(dev, how, train, control) -> list[dict]:
+def train_mesh_phases(dev, how, train, control, control_kv) -> list[dict]:
     """``train_tp`` and ``train_mesh``: two ranks (the transport of the tp
     phases) train under a mesh. Each case's first loss (the same masters
     and batch as one card's) within TRAIN_LOSS_TOL of one card's, and each
@@ -3965,6 +4098,8 @@ def train_mesh_phases(dev, how, train, control) -> list[dict]:
     cases += [(f"train_mesh_{name}", axes, model_name, TRAIN_MESH_LAYERS,
                TRAIN_MESH_STEPS)
               for name, (axes, model_name) in TRAIN_MESH_CASES.items()]
+    cases.append(("train_tp_kv", {"tp": TP}, "gemma_2b_widths",
+                  TRAIN_TP_KV_LAYERS, TRAIN_TP_KV_STEPS))
     for key, axes, model_name, n_layers, n_steps in cases:
         runs = [r[key] for r in ranks]
         single = runs[0]["single_card"]["loss"]
@@ -3990,7 +4125,7 @@ def train_mesh_phases(dev, how, train, control) -> list[dict]:
         p50 = float(np.median(lead["step_ms"][1:] or lead["step_ms"]))
         tokens = TRAIN_B * TRAIN_L
         rec = {
-            "phase": key if key == "train_tp" else "train_mesh",
+            "phase": key if key in ("train_tp", "train_tp_kv") else "train_mesh",
             "case": key, "mesh": lead["mesh"], "config": model_name,
             "layers": n_layers, "steps": n_steps, "backend": how["backend"],
             "cards": how["cards"], "B": TRAIN_B, "L": TRAIN_L,
@@ -4029,6 +4164,23 @@ def train_mesh_phases(dev, how, train, control) -> list[dict]:
                     for g, w in zip(lead["losses"], control["losses"])],
                 train_path_step_ms_p50=train["step_ms_p50_2_to_4"],
                 train_path_peak_gb=train["peak_memory_gb"])
+        if key == "train_tp_kv":
+            # each step's loss against one card's, and the rounding
+            # control's, under the limits set from that control
+            want = lead["single_card"]["losses"]
+            rel = [abs(g - w) / abs(w) for g, w in zip(lead["losses"], want)]
+            drift = control_kv["rel_err_vs_plain"]
+            for what, errs in (("train_tp_kv", rel),
+                               ("train_tp_kv_rounding_control", drift)):
+                check(all(d <= tol for d, tol in zip(errs, TRAIN_TP_KV_LOSS_TOL)),
+                      f"{what}: losses against one card's {want} (rel {errs}), "
+                      f"over {TRAIN_TP_KV_LOSS_TOL}")
+            rec.update(single_card_losses=want, loss_rel_err_vs_single_card=rel,
+                       loss_tolerance_vs_single_card=list(TRAIN_TP_KV_LOSS_TOL),
+                       control_losses=control_kv["losses"],
+                       control_rel_err_vs_single_card=drift,
+                       kv_heads=1, head_dim=GEMMA_2B["d_model"]
+                       // GEMMA_2B["n_heads"])
         out.append(rec)
     out.append(sp_attention_grad_report([r["sp_attention_grad"] for r in ranks],
                                         how))
@@ -4215,6 +4367,228 @@ def check_flash_d64(timer, dev) -> dict:
     return {"phase": "flash_d64", "D": 64, "tolerance": KERNEL_TOL,
             "row_tolerance": K1_ROW_TOL, "bwd_tolerance": BWD_TOL,
             "forward": fwd, "backward": bwd}
+
+
+# flash_head_dims: K1, K3 and K4 at head dims and dtypes the D = 64 / 128
+# bf16 instances alone do not take: bf16 at 16, 32, 72, 80 and 96 (read in
+# place by the D = 64 / 128 instances), 20 (no multiple of 8: zero-padded to
+# 64), 200 and 256 (the mma.sync instance), f32 at 16, 64 and 128 (the
+# CUDA-core kernel); a causal L = 1024 case and a ragged non-causal one each,
+# at H = 32 over KVH = 8, D > 128 at Gemma-2B's 8 heads over 1 KV head
+FLASH_HEAD_DIMS = ([(D, torch.bfloat16) for D in (16, 20, 32, 72, 80, 96, 200,
+                                                   256)]
+                   + [(D, torch.float32) for D in (16, 64, 128)])
+HEAD_DIM_CASES = [(1, 1024, 1024, True, None), (1, 300, 700, False, None)]
+# paged_head_dims: K2 at head dims 16, 80 and 256 with 1, 8, 16 and 48 query
+# heads per KV head (StarCoder's 48 over 1), over 2 KV heads, in bf16 and
+# f32, on the lengths and table of K2_MAIN_CASE
+PAGED_HEAD_DIMS = (16, 80, 256)
+PAGED_REPS = (1, 8, 16, 48)
+PAGED_KVH = 2
+# tiny_card: TransformerConfig.tiny() (head dim 16, 4 heads, vocab 256,
+# max_seq_len 128), 8 greedy prompts of 16-80 tokens (numpy seed 11), 16 new
+# tokens each, on 4 rows with pages of 16; one train step of 2 x 64 tokens
+TINY_GEOMETRY = dict(max_batch=4, page_size=16, max_pages_per_seq=8,
+                     n_pages=1 + 4 * 8)
+TINY_NEW_TOKENS, TINY_TRAIN_L = 16, 64
+# wide_head: Gemma-2B's published widths (google/gemma-2b config.json:
+# hidden 2048, 18 layers, 8 heads over 1 KV head of dim 256, intermediate
+# 16384, vocab 256000, rope theta 10000) as a llama-style decoder of
+# TransformerConfig's fields (no GeGLU, tied head or scaled embedding):
+# 3.03 B parameters, 6.06 GB in bf16
+GEMMA_2B = dict(vocab_size=256000, d_model=2048, n_layers=18, n_heads=8,
+                n_kv_heads=1, d_ff=16384, max_seq_len=8192, rope_theta=10000.0)
+# train_tp_kv: Gemma-2B widths cut to 2 layers at tp=2 (1 KV head: each rank
+# a copy of it), 4 steps against one card's
+TRAIN_TP_KV_LAYERS, TRAIN_TP_KV_STEPS, TRAIN_TP_KV_SEED = 2, 4, 80
+# train_tp_kv's losses against one card's, per step, relative, set by
+# TRAIN_TP_LOSS_TOL's rule from this configuration's own rounding control
+# (train_tp_kv_rounding_control: one card with tp=2's bf16 roundings), which
+# is held to the same limits: the loss falls from 12.95 to 0.28 in four
+# steps (a 256000-token vocabulary memorizing one batch), so a rounding's
+# relative weight grows as the loss shrinks. An NVIDIA H100 80GB HBM3 run at
+# 700 W read the control at
+# 2.9e-5, 2.5e-4, 3.9e-3, 1.4e-3 and train_tp_kv at 2.9e-5, 2.1e-4, 3.1e-3,
+# 2.1e-4 (TRAIN_TP_LOSS_TOL's values, taken over first, failed it at step 3):
+# TRAIN_LOSS_TOL where both read under a third of it, else twice the
+# control's reading
+TRAIN_TP_KV_LOSS_TOL = (TRAIN_LOSS_TOL, TRAIN_LOSS_TOL, 8e-3, 3e-3)
+
+
+def check_flash_head_dims(timer, dev) -> dict:
+    """K1, and K3/K4 on K1's own out and lse, at FLASH_HEAD_DIMS on
+    HEAD_DIM_CASES, each against its plain version, timed beside its bound,
+    its plain version, SDPA and the pad where the route pads."""
+    fwd, bwd = [], []
+    for D, dtype in FLASH_HEAD_DIMS:
+        heads = (8, 1) if D > 128 else (32, 8)
+        fwd += check_flash(timer, dev, heads, HEAD_DIM_CASES, D=D, dtype=dtype)
+        bwd += check_flash_bwd(timer, dev, heads,
+                               [(*c, False) for c in HEAD_DIM_CASES], D=D,
+                               dtype=dtype)
+    return {"phase": "flash_head_dims",
+            "tolerance": {"bfloat16": KERNEL_TOL, "bfloat16_row": K1_ROW_TOL,
+                          "bfloat16_bwd": BWD_TOL, "float32": F32_KERNEL_TOL},
+            "forward": fwd, "backward": bwd}
+
+
+def check_paged_head_dims(timer, dev) -> dict:
+    """K2 at PAGED_HEAD_DIMS x PAGED_REPS in bf16 and f32, each against its
+    plain version (``check_paged_decode``: KERNEL_TOL and K2_ROW_TOL)."""
+    lengths, _, P = K2_CASES[K2_MAIN_CASE]
+    rows = []
+    for dh in PAGED_HEAD_DIMS:
+        for rep in PAGED_REPS:
+            for dtype in ("bfloat16", "float32"):
+                rows += check_paged_decode(
+                    timer, dev, (rep * PAGED_KVH, PAGED_KVH),
+                    {f"dh{dh}_rep{rep}_{dtype}": (lengths, dtype, P)}, dh=dh)
+    return {"phase": "paged_head_dims", "tolerance": KERNEL_TOL,
+            "row_tolerance": K2_ROW_TOL, "cases": rows}
+
+
+def tiny_card(dev) -> dict:
+    """``TransformerConfig.tiny()`` (head dim 16) on the card: served
+    through ContinuousBatcher -> Engine in f32 (K1 on the CUDA-core kernel,
+    K2 at dh 16) and in bf16 (K1's D = 64 instance, Q/K/V zero-padded), on
+    one set of f32 weights drawn on the host, and one train step in each
+    (K3/K4 likewise). The f32 greedy tokens equal the port's own on the
+    CPU, the f32 step's loss is within F32_KERNEL_TOL of the CPU's, every
+    kernel launches once per layer and admission / decode step / step."""
+    base = dataclasses.replace(TransformerConfig.tiny(),
+                               paged_attention_kernel=True)
+    rng = np.random.default_rng(11)
+    requests = [(rng.integers(0, base.vocab_size, int(n)).tolist(),
+                 TINY_NEW_TOKENS, SamplingParams(), {})
+                for n in rng.integers(16, 81, size=8)]
+    f32 = dataclasses.replace(base, dtype=torch.float32)
+    host = init_params(f32, torch.Generator().manual_seed(12), "cpu")
+    batch = token_batch(np.random.default_rng(13), base, 2, TINY_TRAIN_L, "cpu")
+    cpu_run = drive(ContinuousBatcher(host, f32, **TINY_GEOMETRY, device="cpu"),
+                    requests)
+    cpu_loss = transformer.loss_fn(host, batch, f32).item()
+    out = {"phase": "tiny_card", "head_dim": base.head_dim,
+           "requests": len(requests), "new_tokens": TINY_NEW_TOKENS,
+           "cpu_loss": cpu_loss, "tolerance": F32_KERNEL_TOL}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        run = drive(ContinuousBatcher(tree_to(host, dev, dtype), cfg,
+                                      **TINY_GEOMETRY, device=dev), requests)
+        name = str(dtype).removeprefix("torch.")
+        check(all(f == "length" for f in run["finish"]),
+              f"tiny_card {name}: finish reasons {run['finish']}")
+        check(run["k1_launches"] == cfg.n_layers * len(requests)
+              and run["decode_steps"] > 0
+              and run["k2_launches"] == cfg.n_layers * run["decode_steps"],
+              f"tiny_card {name}: K1 {run['k1_launches']}, K2 "
+              f"{run['k2_launches']} over {run['decode_steps']} steps")
+        model = transformer.Transformer(cfg)
+        masters = tree_to(host, dev, torch.float32, requires_grad=True)
+        step = train_steps(model, masters, {k: v.to(dev) for k, v in
+                                            batch.items()}, 1)
+        (loss,) = step["losses"]
+        check(np.isfinite(loss), f"tiny_card {name}: train loss {loss}")
+        check(all(n == cfg.n_layers for n in step["launches"].values()),
+              f"tiny_card {name}: train launches {step['launches']}")
+        rec = {"tokens_equal_cpu": run["tokens"] == cpu_run["tokens"],
+               "token_agreement_with_cpu": float(np.mean(
+                   [a == b for ta, tb in zip(run["tokens"], cpu_run["tokens"])
+                    for a, b in zip(ta, tb)])),
+               "k1_launches": run["k1_launches"],
+               "k2_launches": run["k2_launches"],
+               "decode_steps": run["decode_steps"],
+               "train_loss": loss, "train_launches": step["launches"],
+               "train_loss_rel_err_vs_cpu": abs(loss - cpu_loss) / abs(cpu_loss)}
+        if dtype == torch.float32:
+            check(rec["tokens_equal_cpu"],
+                  "tiny_card float32: greedy tokens differ from the CPU's")
+            check(rec["train_loss_rel_err_vs_cpu"] <= F32_KERNEL_TOL,
+                  f"tiny_card float32: loss {loss} against the CPU's {cpu_loss}")
+        out[name] = rec
+        del masters, model
+    out["k1_launches"] = out["float32"]["k1_launches"] + out["bfloat16"][
+        "k1_launches"]
+    out["k2_launches"] = out["float32"]["k2_launches"] + out["bfloat16"][
+        "k2_launches"]
+    return out
+
+
+class plain_attention:
+    """Within it, the decoder's attention (``transformer.local_attention``)
+    runs K1's plain version: the reference path ``wide_head`` holds its
+    served logits against."""
+
+    def __enter__(self):
+        self.saved = transformer.local_attention
+        transformer.local_attention = (
+            lambda q, k, v, causal=True, window=None:
+            fa.flash_attention_fwd_plain(q, k, v, causal, window=window)[0])
+
+    def __exit__(self, *exc):
+        transformer.local_attention = self.saved
+
+
+def wide_head(dev) -> dict:
+    """A decoder at Gemma-2B's widths (GEMMA_2B: head dim 256, 8 heads over
+    one KV head), random bf16 weights, at full depth: main_path's 12
+    requests through ContinuousBatcher -> Engine (K1 on the CUDA-core
+    kernel at D = 256, K2 at dh 256 with 8 query heads over the KV head);
+    tokens/s, TTFT p50 and decode-step p50 beside the weight-streaming
+    bound; each request's first-token logits within PATH_LOGIT_TOL of a
+    forward through K1's plain version. Then one train step of the first
+    BREADTH_CUT_LAYERS layers (f32 masters): K1/K3/K4 once per layer."""
+    cfg = TransformerConfig(**GEMMA_2B, paged_attention_kernel=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(90))
+    n_params = transformer.n_params(params)
+    requests = main_requests(cfg.vocab_size)
+    run = serve(params, cfg, requests)
+    n_req = len(requests)
+    check(all(f == "length" for f in run["finish"]),
+          f"wide_head: finish reasons {run['finish']}")
+    check(run["k1_launches"] == cfg.n_layers * n_req,
+          f"wide_head: K1 {run['k1_launches']}, expected {cfg.n_layers} x "
+          f"{n_req}")
+    check(run["decode_steps"] > 0
+          and run["k2_launches"] == cfg.n_layers * run["decode_steps"],
+          f"wide_head: K2 {run['k2_launches']} over {run['decode_steps']} "
+          "steps")
+    with torch.no_grad(), plain_attention():
+        err = first_token_err(params, cfg, [p for p, _, _, _ in requests],
+                              run["first_logits"])
+    check(err <= PATH_LOGIT_TOL,
+          f"wide_head: first-token logits {err} from the plain path's")
+    generated = sum(len(t) for t in run["tokens"])
+    out = {"phase": "wide_head", "config": "gemma-2b widths", **GEMMA_2B,
+           "head_dim": cfg.head_dim, "dtype": "bfloat16", "n_params": n_params,
+           "weight_gb": 2.0 * n_params / 1e9, "requests": n_req,
+           "tokens_per_s": generated / run["wall_s"], "wall_s": run["wall_s"],
+           "ttft_p50_ms": float(np.median(run["ttft_s"])) * 1e3,
+           "decode_step_p50_ms": float(np.median(run["decode_only_step_ms"])),
+           "weight_stream_bound_ms": 2.0 * n_params / HBM_BYTES_PER_S * 1e3,
+           "decode_steps": run["decode_steps"],
+           "k1_launches": run["k1_launches"], "k2_launches": run["k2_launches"],
+           "first_token_rel_err_vs_plain": err,
+           "first_token_tolerance": PATH_LOGIT_TOL}
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, n_layers=BREADTH_CUT_LAYERS)
+    model = transformer.Transformer(tcfg)
+    masters = model.init(torch.Generator(device=dev).manual_seed(91), dev)
+    batch = token_batch(np.random.default_rng(92), tcfg, TRAIN_B, TRAIN_L, dev)
+    step = train_steps(model, masters, batch, 1)
+    check(np.isfinite(step["losses"][0]),
+          f"wide_head: train loss {step['losses']}")
+    check(all(n == BREADTH_CUT_LAYERS for n in step["launches"].values()),
+          f"wide_head: train launches {step['launches']}")
+    out["train"] = {"layers": BREADTH_CUT_LAYERS, "B": TRAIN_B, "L": TRAIN_L,
+                    "loss": step["losses"][0], "step_ms": step["step_ms"][0],
+                    "peak_gb": step["peak_bytes"] / 1e9,
+                    "launches": step["launches"]}
+    del masters, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def reset_flash_counts() -> None:
@@ -5258,8 +5632,24 @@ def main() -> int:
     d64["ptxas"] = ptxas_usage([fa.FLASH_FWD, fa.FLASH_BWD_DKDV,
                                 fa.FLASH_BWD_DQ])
     emit(d64)
+    # K1/K3/K4 and K2 at the other head dims, dtypes and group sizes JAX's
+    # kernels take (the CUDA-core kernels and the padded instances)
+    t = time.perf_counter()
+    head_dims = check_flash_head_dims(timer, dev)
+    head_dims["ptxas"] = ptxas_usage([fa.FLASH_FWD, fa.FLASH_BWD_DKDV,
+                                      fa.FLASH_BWD_DQ, pa.PAGED_DECODE])
+    head_dims["seconds"] = time.perf_counter() - t
+    emit(head_dims)
+    t = time.perf_counter()
+    paged_dims = check_paged_head_dims(timer, dev)
+    paged_dims["seconds"] = time.perf_counter() - t
+    emit(paged_dims)
     del timer
     torch.cuda.empty_cache()
+    # the tiny config (head dim 16) in f32 and bf16, then Gemma-2B's widths
+    # (head dim 256, one KV head), each served and trained on the card
+    tiny = run_phase("tiny_card", lambda: tiny_card(dev))
+    wide = run_phase("wide_head", lambda: wide_head(dev))
     emit(check_train_reference(dev))
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -5274,10 +5664,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     control = run_phase("train_tp_rounding_control",
                         lambda: train_tp_rounding_control(dev))
+    control_kv = run_phase("train_tp_kv_rounding_control",
+                           lambda: train_tp_kv_rounding_control(dev))
     # training under a mesh, held to train_path's losses and to single-card
     # steps; each rank counts its own launches
     t = time.perf_counter()
-    train_meshes = train_mesh_phases(dev, how, train, control)
+    train_meshes = train_mesh_phases(dev, how, train, control, control_kv)
     gc.collect()
     torch.cuda.empty_cache()
     for rec in train_meshes:
@@ -5369,6 +5761,27 @@ def main() -> int:
                  "rel_err": r[key]["rel_err"], "ptxas": regs}
                 for r in d64["backward"]]
 
+    def head_dim_rows(name, key=None) -> list[dict]:
+        """The rows of ``flash_head_dims``: each head dim and dtype with its
+        route, time, bound, plain version, SDPA and pad."""
+        if key is None:
+            return [{"shape": f"B={r['B']} H={r['H']} KVH={r['KVH']} "
+                              f"Lq={r['L']} Lk={r['Lk']} causal={r['causal']} "
+                              f"D={r['D']} {r['dtype']}",
+                     **{k: r[k] for k in ("route", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "pad_ms",
+                                          "tflops", "max_abs_err")}}
+                    for r in head_dims["forward"]]
+        return [{"shape": f"B={r['B']} H={r['H']} KVH={r['KVH']} "
+                          f"Lq={r['Lq']} Lk={r['Lk']} causal={r['causal']} "
+                          f"D={r['D']} {r['dtype']}, lse/delta f32",
+                 "route": r["route"], "pad_ms": r["pad_ms"],
+                 "library_ms": r["library_ms"],
+                 **{k: r[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "tflops", "max_abs_err",
+                                           "rel_err")}}
+                for r in head_dims["backward"]]
+
     def bwd_entry(name, key, replaces):
         row = main_bwd[key]
         return {
@@ -5381,8 +5794,14 @@ def main() -> int:
                                   "train_moe": train_m["launches"][name],
                                   **train_launches(name),
                                   "vit_reference": vit_ref["launches"][name],
-                                  "vit": vit_run["launches"][name]},
+                                  "vit": vit_run["launches"][name],
+                                  "tiny_card_train": {
+                                      dt: tiny[dt]["train_launches"][name]
+                                      for dt in ("float32", "bfloat16")},
+                                  "wide_head_train": wide["train"][
+                                      "launches"][name]},
             "d64_shapes": d64_rows(name, key),
+            "head_dim_shapes": head_dim_rows(name, key),
             "launches_per_rank": {
                 case: [r[name] for r in per_rank]
                 for case, per_rank in train_mesh_launches.items()},
@@ -5435,8 +5854,15 @@ def main() -> int:
                                       "flash_fwd"],
                                   "vit_apply": vit_run["apply_launches"][
                                       "flash_fwd"],
-                                  "vit": vit_run["launches"]["flash_fwd"]},
+                                  "vit": vit_run["launches"]["flash_fwd"],
+                                  "tiny_card_train": {
+                                      dt: tiny[dt]["train_launches"][
+                                          "flash_fwd"]
+                                      for dt in ("float32", "bfloat16")},
+                                  "wide_head_train": wide["train"][
+                                      "launches"]["flash_fwd"]},
             "d64_shapes": d64_rows("flash_fwd"),
+            "head_dim_shapes": head_dim_rows("flash_fwd"),
             "max_abs_err": max(r["max_abs_err"]
                                for r in flash_rows + flash_sp_rows
                                + d64["forward"] + [entry_run["k1"]]),
@@ -5471,6 +5897,13 @@ def main() -> int:
             "launches": first["k2_launches"],
             "launches_by_phase": k2_by_phase,
             "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
+            "head_dim_shapes": [
+                {"shape": f"B={r['B']} nh={r['nh']} kvh={r['kvh']} "
+                          f"dh={r['dh']} ps={r['ps']} P={r['P']} {r['dtype']}",
+                 **{k: r[k] for k in ("entry", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "splits",
+                                      "max_abs_err", "max_row_rel_err")}}
+                for r in paged_dims["cases"]],
             "ms": paged["ms"], "kernel_ms": paged["ms"],
             "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
             "bound_by": paged["bound_by"], "library_ms": None,

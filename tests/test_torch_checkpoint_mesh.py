@@ -31,8 +31,11 @@ def ranks(tmp_path_factory):
     cfg = dataclasses.replace(jax_t.TransformerConfig.tiny(),
                               dtype=jnp.float32, z_loss=1e-2)
     params = jax_t.init_params(cfg, jax.random.PRNGKey(0))
+    kv_cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=2)
+    kv_params = jax_t.init_params(kv_cfg, jax.random.PRNGKey(4))
     seq = np.random.default_rng(6).integers(0, 256, (4, 33)).astype(np.int32)
     inputs = {"dense": jax.tree.map(np.asarray, params),
+              W.KV_CASES["tp4_kv2"][1]: jax.tree.map(np.asarray, kv_params),
               "batch": {"tokens": seq[:, :-1], "targets": seq[:, 1:]}}
     directory = str(tmp_path_factory.mktemp("ckpt"))
     two_dir = str(tmp_path_factory.mktemp("ckpt_two"))
@@ -84,3 +87,16 @@ def test_spec_less_leaves_are_refused_onto_another_topology(ranks):
             kind, msg = rec[what]
             assert kind == "ValueError", what
             assert "without a spec" in msg, what
+
+
+def test_tp_not_dividing_kv_heads_restores_onto_another_mesh(ranks):
+    """Saved at tp=4 over 2 K/V heads (``wk``/``wv`` a copy of one head on
+    each rank, saved as the even column blocks of the whole leaf): restored
+    whole, every leaf has its whole shape, and sharded back over tp=4 it is
+    the trained params bitwise; restored onto dp=2 x tp=2 (tp divides the
+    K/V heads there) each leaf is that mesh's shard of the whole, still
+    trainable; restored onto the same mesh, the params bitwise."""
+    for r, rec in enumerate(ranks):
+        for what in ("kv_whole_shapes_ok", "kv_roundtrip_exact",
+                     "kv_other_mesh_exact", "kv_same_mesh_exact", "kv_trains"):
+            assert rec[what], (r, what)

@@ -10,6 +10,8 @@ import torch
 import tests.torch_parity  # noqa: F401  (one PyTorch thread per worker)
 
 from bee_code_interpreter_tpu.ops.flash_attention import (
+    _flash_bwd_pallas,
+    _flash_fwd,
     flash_attention_with_lse as jax_flash_with_lse,
 )
 from bee_code_interpreter_tpu_torch.ops import flash_attention as fa
@@ -108,18 +110,140 @@ def test_no_third_path():
         fa.flash_attention_with_lse(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
-def test_kernel_head_dims_pick_their_entry_points():
-    """K1, K3 and K4 each export one C entry point per head dim they take
-    (their D = 64 and D = 128 template instances), and the wrappers pick
-    by ``q.shape[3]``; any other head dim is refused before a launch."""
-    assert fa.KERNEL_HEAD_DIMS == (64, 128)
-    for kernel, base in ((fa.FLASH_FWD, "bci_flash_fwd_bf16"),
-                         (fa.FLASH_BWD_DKDV, "bci_flash_bwd_dkdv_bf16"),
-                         (fa.FLASH_BWD_DQ, "bci_flash_bwd_dq_bf16")):
-        assert set(kernel.signatures) == {base, f"{base}_d64"}
-        assert fa._entry(base, 128) == base
-        assert fa._entry(base, 64) == f"{base}_d64"
+# (dtype, head dim) -> the route, the instance's width and the width the
+# wrappers hand it: the bf16 tensor-core instances (D = 64, 128 and 256)
+# read a head dim that is a multiple of 8 in place and take any other
+# zero-padded to their width; the CUDA-core kernel takes f32 at every head dim
+ROUTES = [
+    (torch.bfloat16, 1, "tensor_core", 64, 64),
+    (torch.bfloat16, 16, "tensor_core", 64, 16),
+    (torch.bfloat16, 20, "tensor_core", 64, 64),
+    (torch.bfloat16, 64, "tensor_core", 64, 64),
+    (torch.bfloat16, 72, "tensor_core", 128, 72),
+    (torch.bfloat16, 80, "tensor_core", 128, 80),
+    (torch.bfloat16, 100, "tensor_core", 128, 128),
+    (torch.bfloat16, 128, "tensor_core", 128, 128),
+    (torch.bfloat16, 129, "tensor_core", 256, 256),
+    (torch.bfloat16, 200, "tensor_core", 256, 200),
+    (torch.bfloat16, 256, "tensor_core", 256, 256),
+    (torch.float32, 16, "simt", 16, 16),
+    (torch.float32, 20, "simt", 20, 20),
+    (torch.float32, 128, "simt", 128, 128),
+    (torch.float32, 256, "simt", 256, 256),
+]
+
+
+@pytest.mark.parametrize("dtype,D,route,width,cols", ROUTES)
+def test_kernel_head_dims_pick_their_entry_points(dtype, D, route, width,
+                                                  cols):
+    """K1, K3 and K4 each export one C entry point per tensor-core instance
+    (bf16 at D = 64, 128 and 256) and one CUDA-core entry point (f32 at
+    every head dim), all taking the head dim after the window; the wrappers
+    route by dtype and ``q.shape[3]``, padding a bf16 head dim that is no
+    multiple of 8 up to its instance's width. On the CPU the same inputs,
+    forward and backward, launch nothing."""
+    assert fa.KERNEL_HEAD_DIMS == (64, 128, 256)
+    assert fa.MAX_HEAD_DIM == 256
+    assert fa.kernel_route(dtype, D) == (route, width)
+    assert fa.pad_width(dtype, D) == cols
+    for kernel, base in ((fa.FLASH_FWD, "bci_flash_fwd"),
+                         (fa.FLASH_BWD_DKDV, "bci_flash_bwd_dkdv"),
+                         (fa.FLASH_BWD_DQ, "bci_flash_bwd_dq")):
+        assert set(kernel.signatures) == {
+            f"{base}_bf16", f"{base}_bf16_d64", f"{base}_bf16_d256",
+            f"{base}_simt"}
+        assert len({tuple(a) for a in kernel.signatures.values()}) == 1
+        assert fa._entry(f"{base}_bf16", 128) == f"{base}_bf16"
+        assert fa._entry(f"{base}_bf16", 64) == f"{base}_bf16_d64"
+        assert fa._entry(f"{base}_bf16", 256) == f"{base}_bf16_d256"
+    q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_()
+               for x in make_qkv(D, 1, 2, 1, 20, D=D))
+    out, lse = fa.flash_attention_with_lse(q, k, v, True)
+    (out.float().sum() + lse.sum()).backward()
+    assert out.shape == q.shape and q.grad.shape == q.shape
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD_DKDV, fa.FLASH_BWD_DQ):
         assert kernel.launches == 0  # nothing launched on the CPU
+
+
+@pytest.mark.parametrize("D", [0, 257, 512])
+def test_head_dims_past_the_kernels_raise(D):
+    """Only D outside 1..256 has no kernel: the route raises naming the
+    limit, in both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="1..256"):
+            fa.kernel_route(dtype, D)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.kernel_route(torch.float16, 64)
+
+
+@pytest.mark.parametrize("D", [16, 20, 80, 200])
+def test_zero_padded_head_dim_is_exact(D):
+    """The pad the wrappers apply before a tensor-core instance: Q, K and V
+    with zero columns up to the instance's width and the true D ** -0.5 as
+    the scale give the same out and lse, and the extra columns of out are
+    zeros."""
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(D, 1, 4, 2, 50, D=D))
+    width = fa.kernel_route(torch.bfloat16, D)[1]
+    padded = [fa.pad_head_dim(t, width) for t in (q, k, v)]
+    assert all(t.shape[-1] == width and t.is_contiguous() for t in padded)
+    assert fa.pad_head_dim(padded[0], width) is padded[0]
+    out, lse = fa.flash_attention_fwd_plain(*padded, True, D ** -0.5)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    torch.testing.assert_close(out[..., :D], want_out, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse, want_lse, atol=1e-6, rtol=1e-6)
+    assert torch.equal(out[..., D:], torch.zeros_like(out[..., D:]))
+
+
+# the head dims JAX's kernels take that the D = 64 / 128 instances alone do
+# not: the tiny config's 16, a D that is no multiple of 8, Phi-2's 80, and
+# Gemma-2B's 256
+HEAD_DIMS = [16, 20, 32, 72, 80, 96, 256]
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_plain_forward_at_every_head_dim_matches_jax_flash(D):
+    """K1's plain version against JAX's Pallas forward (interpret mode) at
+    each head dim: causal, GQA, L ragged."""
+    q, k, v = make_qkv(D + 1, 1, 4, 2, 70, D=D)
+    want_out, want_lse = jax_flash_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, interpret=True)
+    got_out, got_lse = fa.flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), True)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_plain_backward_at_every_head_dim_matches_jax_pallas(D):
+    """K3's and K4's plain versions against JAX's Pallas backward
+    (``_flash_bwd_pallas``, interpret mode) at each head dim, on JAX's own
+    out and lse: causal, GQA, L ragged, a non-zero g_lse."""
+    B, H, KVH, L = 1, 4, 2, 70
+    q, k, v = make_qkv(D + 2, B, H, KVH, L, D=D)
+    rng = np.random.default_rng(D)
+    do = rng.standard_normal((B, H, L, D), dtype=np.float32)
+    g_lse = rng.standard_normal((B, H, L), dtype=np.float32)
+    scale = D ** -0.5
+    out, lse = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          True, scale, 128, 128, True, None)
+    want = _flash_bwd_pallas(
+        jnp.asarray(q.reshape(B * H, L, D)), jnp.asarray(k.reshape(B * KVH, L, D)),
+        jnp.asarray(v.reshape(B * KVH, L, D)), out.reshape(B * H, L, D), lse,
+        jnp.asarray(do.reshape(B * H, L, D)), True, scale, 128, 128, True, H,
+        KVH, g_lse=jnp.asarray(g_lse.reshape(B * H, L)))
+    delta = (do * np.asarray(out)).sum(-1) - g_lse
+    args = [torch.from_numpy(x) for x in
+            (q, k, v, do, np.array(lse).reshape(B, H, L), delta)]
+    dk, dv = fa.flash_bwd_dkdv_plain(*args, True, scale)
+    dq = fa.flash_bwd_dq_plain(*args, True, scale)
+    for name, got, w, shape in (("dq", dq, want[0], (B, H, L, D)),
+                                ("dk", dk, want[1], (B, KVH, L, D)),
+                                ("dv", dv, want[2], (B, KVH, L, D))):
+        w = np.asarray(w).reshape(shape)
+        np.testing.assert_allclose(got.numpy(), w, rtol=TOL,
+                                   atol=TOL * np.abs(w).max(), err_msg=name)
 
 
 @pytest.mark.parametrize("D", [64, 128])

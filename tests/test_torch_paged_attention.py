@@ -200,3 +200,41 @@ def test_pool_alignment_check():
         pa.check_pool_alignment("k_pages", shifted)
     with pytest.raises(ValueError, match="contiguous"):
         pa.check_pool_alignment("v_pages", base.transpose(2, 3))
+
+
+@pytest.mark.parametrize("dh", [16, 80, 256])
+@pytest.mark.parametrize("rep", [1, 16, 48])
+def test_plain_matches_jax_kernel_at_every_head_dim_and_group(dh, rep):
+    """K2's plain version against JAX's Pallas kernel (interpret mode) at
+    head dims other than 128 and groups past 8 query heads a KV head (JAX
+    pads its group to the sublane tile, paged_attention.py:117): 48 is
+    StarCoder's 48 heads over one KV head."""
+    kvh = 1 if rep == 48 else 2
+    got, want = both(*make_case(dh + rep, B=2, nh=rep * kvh, kvh=kvh, ps=8,
+                                P=3, n_pages=10, dh=dh))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dh,rep,entry", [
+    (128, 1, "bci_paged_decode"), (128, 8, "bci_paged_decode"),
+    (128, 9, "bci_paged_decode_any"), (128, 48, "bci_paged_decode_any"),
+    (16, 1, "bci_paged_decode_any"), (80, 8, "bci_paged_decode_any"),
+    (256, 16, "bci_paged_decode_any"), (1, 1, "bci_paged_decode_any"),
+])
+def test_kernel_entry_by_head_dim_and_group(dh, rep, entry):
+    """The wrapper's C entry point: the bulk-copy / tensor-core kernels at
+    dh 128 with at most 8 query heads a KV head, the kernel for any shape
+    otherwise; on the CPU the same inputs launch nothing."""
+    assert pa.kernel_entry(dh, rep) == entry
+    assert set(pa.PAGED_DECODE.signatures) == {"bci_paged_decode",
+                                               "bci_paged_decode_any"}
+    got, want = both(*make_case(dh, B=2, nh=rep, kvh=1, ps=8, P=2, n_pages=6,
+                                dh=dh))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    assert pa.PAGED_DECODE.launches == 0
+
+
+def test_head_dims_past_the_kernel_raise():
+    for dh in (0, 257, 512):
+        with pytest.raises(ValueError, match="1..256"):
+            pa.kernel_entry(dh, 1)

@@ -79,9 +79,13 @@ def jax_moe_config(group_size=1024):
 JAX_CONFIGS = {"dense": jax_dense_config, "moe": jax_moe_config,
                "moe_local": lambda: jax_moe_config(32),
                "dense_ulysses": lambda: dataclasses.replace(
-                   jax_dense_config(), sp_attention="ulysses")}
+                   jax_dense_config(), sp_attention="ulysses"),
+               "dense_tp4_kv2": lambda: dataclasses.replace(
+                   jax_dense_config(), n_heads=8, n_kv_heads=2),
+               "dense_tp2_kv1": lambda: dataclasses.replace(
+                   jax_dense_config(), n_kv_heads=1)}
 CASES = {**{name: (axes, "dense") for name, axes in W.DENSE_CASES.items()},
-         **W.MOE_CASES}
+         **W.MOE_CASES, **W.KV_CASES}
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +99,12 @@ def inputs():
     lora = {t: {"A": ab["A"], "B": 0.05 * jax.random.normal(
         jax.random.PRNGKey(3 + i), ab["B"].shape)}
         for i, (t, ab) in enumerate(sorted(lora.items()))}
+    kv = {which: jax_t.init_params(JAX_CONFIGS[which](),
+                                   jax.random.PRNGKey(10 + i))
+          for i, (_, which) in enumerate(W.KV_CASES.values())}
     return {"jax_dense": dense, "jax_moe": moe, "jax_lora": lora,
+            **{f"jax_{which}": p for which, p in kv.items()},
+            **{which: jax.tree.map(np.asarray, p) for which, p in kv.items()},
             "dense": jax.tree.map(np.asarray, dense),
             "moe": jax.tree.map(np.asarray, moe),
             "lora": jax.tree.map(np.asarray, lora),
@@ -107,7 +116,8 @@ def inputs():
 def spawned(inputs):
     """World size -> every rank's records: one spawn per world size."""
     payload = {k: inputs[k] for k in ("dense", "moe", "lora", "lora_scale",
-                                      "batch")}
+                                      "batch",
+                                      *(w for _, w in W.KV_CASES.values()))}
     return {world: M.spawn(W.train_mesh_cases, world, device_type="cpu",
                            args=(world, payload), timeout=600)
             for world in (2, 4)}
@@ -132,7 +142,8 @@ def jax_train(axes, which, inputs):
     cfg = JAX_CONFIGS[which]()
     mesh = jax_mesh(axes)
     model = jax_t.Transformer(cfg, mesh)
-    key = "moe" if which.startswith("moe") else "dense"
+    key = (which if f"jax_{which}" in inputs
+           else "moe" if which.startswith("moe") else "dense")
     params = jax_t.shard_params(inputs[f"jax_{key}"], cfg, mesh)
     optimizer = model.make_optimizer()
     batch = jax.device_put({k: jnp.asarray(v)
@@ -155,6 +166,24 @@ def block(full: np.ndarray, spec, axes: dict, coords: dict) -> np.ndarray:
             out = np.take(out, range(coords[axis] * size,
                                      (coords[axis] + 1) * size), axis=dim)
     return out
+
+
+def rank_block(full: np.ndarray, key, specs, axes: dict, coords: dict,
+               cfg) -> np.ndarray:
+    """The rank's block of a whole leaf: ``block`` under its spec, or, for
+    ``wk``/``wv`` where tp does not divide ``kv_heads``, the columns of
+    ``kv_columns`` (the rank's K/V heads of the lcm broadcast)."""
+    from bee_code_interpreter_tpu_torch.models import transformer as T
+
+    tp = axes.get("tp", 1)
+    spec = spec_of(specs, key)
+    if key in (("layers", "wk"), ("layers", "wv")) and cfg.n_kv_heads % tp:
+        port_cfg = T.TransformerConfig(
+            d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads)
+        cols = T.kv_columns(port_cfg, tp, coords["tp"]).numpy()
+        return block(full, spec[:-1], axes, coords)[..., cols]
+    return block(full, spec, axes, coords)
 
 
 def port_leaves(tree, cfg):
@@ -230,8 +259,8 @@ def assert_matches_jax(recs, case, axes, which, inputs):
         # rank's block (AdamW's update alone would not show a leaf's
         # gradient off by a constant factor)
         for name, got, key in port_leaves(rec["grads"], cfg):
-            want = block(np.asarray(jax_leaf(grads, name)),
-                         spec_of(specs, key), axes, rec["coords"])
+            want = rank_block(np.asarray(jax_leaf(grads, name)), key, specs,
+                              axes, rec["coords"], cfg)
             scale = max(np.abs(want).max(), 1e-6)
             np.testing.assert_allclose(
                 got, want, atol=GRAD_TOL * scale, rtol=GRAD_TOL,
@@ -241,8 +270,8 @@ def assert_matches_jax(recs, case, axes, which, inputs):
                 want = jax_leaf(trees[step], name)
                 expert = ".moe.we_" in name
                 np.testing.assert_allclose(
-                    got, block(np.asarray(want), spec_of(specs, key), axes,
-                               rec["coords"]),
+                    got, rank_block(np.asarray(want), key, specs, axes,
+                                    rec["coords"], cfg),
                     atol=EXPERT_TOL if expert else TOL,
                     rtol=0 if expert else TOL,
                     err_msg=f"rank {r} {name}, step {step + 1}")

@@ -11,7 +11,6 @@ losses, its mesh coordinates and its shards after each step.
 from __future__ import annotations
 
 import dataclasses
-import types
 
 import numpy as np
 import torch
@@ -45,6 +44,12 @@ MOE_CASES = {
     "moe_dp2_ep2": ({"dp": 2, "ep": 2}, "moe"),
     "moe_dp2_local": ({"dp": 2}, "moe_local"),
 }
+# tp not dividing kv_heads: case -> (mesh axes, config name); each config
+# has weights of its own (``inputs[config name]``)
+KV_CASES = {
+    "tp4_kv2": ({"tp": 4}, "dense_tp4_kv2"),
+    "tp2_kv1": ({"tp": 2}, "dense_tp2_kv1"),
+}
 
 
 def dense_config(**kw) -> T.TransformerConfig:
@@ -66,7 +71,11 @@ def moe_config(group_size: int = 1024) -> T.TransformerConfig:
 
 CONFIGS = {"dense": dense_config, "moe": moe_config,
            "moe_local": lambda: moe_config(32),
-           "dense_ulysses": lambda: dense_config(sp_attention="ulysses")}
+           "dense_ulysses": lambda: dense_config(sp_attention="ulysses"),
+           # 8 heads over 2 K/V heads at tp=4, 4 over 1 at tp=2: the K/V
+           # heads broadcast to lcm(kv_heads, tp), a copy on each rank
+           "dense_tp4_kv2": lambda: dense_config(n_heads=8, n_kv_heads=2),
+           "dense_tp2_kv1": lambda: dense_config(n_kv_heads=1)}
 # training under sp (tests/test_torch_train_sp.py): case -> (mesh axes,
 # config name)
 SP_CASES = {
@@ -160,6 +169,11 @@ def train_mesh_cases(rank: int, world: int, inputs: dict) -> dict:
             out[name] = train(CONFIGS[which](),
                               M.make_mesh(axes, device_type="cpu"),
                               inputs["moe"], inputs["batch"])
+    for name, (axes, which) in KV_CASES.items():
+        if world_of(axes) == world:
+            out[name] = train(CONFIGS[which](),
+                              M.make_mesh(axes, device_type="cpu"),
+                              inputs[which], inputs["batch"])
     if world == 4:
         mesh = M.make_mesh({"dp": 2, "tp": 2}, device_type="cpu")
         out["lora_dp2_tp2"] = lora_train(dense_config(), mesh, inputs["dense"],
@@ -281,8 +295,8 @@ def checkpoint_cases(rank: int, inputs: dict, directory: str,
         out["two_to_four_opt_refused"] = error_of(lambda: ckpt.restore(
             5, template=abstract_like({**state, "params": fresh}, mesh_a,
                                       {"params": specs_a})))
-    trained_two = whole_over_tp(two["shards"], T.param_specs(
-        cfg, types.SimpleNamespace(mesh_dim_names=("tp",))))
+    # the specs over a tp axis alone (tp=2 divides the 4 K/V heads)
+    trained_two = whole_over_tp(two["shards"], T._specs(cfg, ("tp",)))
     out["two_to_four_exact"] = all(
         torch.equal(a, b) and a.requires_grad
         for a, b in zip(T.param_leaves(from_two["params"]),
@@ -316,4 +330,52 @@ def checkpoint_cases(rank: int, inputs: dict, directory: str,
     out["coords_a"] = coords(mesh_a)
     out["coords_b"] = coords(mesh_b)
     out["whole"] = to_np(whole)
+    out.update(checkpoint_kv_case(inputs, directory))
     return out
+
+
+def checkpoint_kv_case(inputs: dict, directory: str) -> dict:
+    """Four ranks: one train step at ``KV_CASES["tp4_kv2"]`` (8 heads over 2
+    K/V heads, each rank a copy of one), saved sharded (params and step),
+    restored onto ``{"dp": 2, "tp": 2}`` (a mesh whose tp divides
+    kv_heads), onto no mesh (the whole tree: sharded back over tp=4 it is
+    the ranks' trained params, bitwise) and onto the same mesh."""
+    axes, which = KV_CASES["tp4_kv2"]
+    cfg = CONFIGS[which]()
+    mesh = M.make_mesh(axes, device_type="cpu")
+    model = T.Transformer(cfg, mesh)
+    params = params_from_jax(inputs[which], cfg, mesh=mesh, requires_grad=True)
+    batch = model.batch_slice({k: torch.as_tensor(v)
+                               for k, v in inputs["batch"].items()})
+    params, _, _ = model.make_train_step()(params, None, batch)
+    specs = T.param_specs(cfg, mesh)
+    other = M.make_mesh({"dp": 2, "tp": 2}, device_type="cpu")
+    with TrainCheckpointer(f"{directory}-kv") as ckpt:
+        ckpt.save(3, {"params": params, "step": 3}, mesh=mesh,
+                  specs={"params": specs})
+        whole = ckpt.restore(3)
+        target = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               dtype=torch.float32, requires_grad=True,
+                               mesh=other)
+        onto_other = ckpt.restore(3, template={"params": abstract_like(
+            target, other, T.param_specs(cfg, other))})
+        again = ckpt.restore(3, template=abstract_like(
+            {"params": params, "step": 3}, mesh, {"params": specs}))
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(
+            T.param_leaves(a), T.param_leaves(b), strict=True))
+
+    return {
+        "kv_whole_shapes_ok": [tuple(w.shape) for w in T.param_leaves(
+            whole["params"])] == [tuple(w.shape) for w in T.param_leaves(
+                params_from_jax(inputs[which], cfg, device="cpu"))],
+        "kv_roundtrip_exact": same(T.shard_params(whole["params"], cfg, mesh),
+                                   params),
+        "kv_other_mesh_exact": same(onto_other["params"], T.shard_params(
+            whole["params"], cfg, other)),
+        "kv_same_mesh_exact": again["step"] == 3 and same(again["params"],
+                                                          params),
+        "kv_trains": all(w.requires_grad for w in T.param_leaves(
+            onto_other["params"])),
+    }
